@@ -1,0 +1,47 @@
+"""Kernel layer for the PBS hot loops (DESIGN.md §3), for NVIDIA Hopper.
+
+One module per kernel (+ ``ops.py`` protocol-level wrappers, ``ref.py``
+pure-numpy oracles).  Each kernel module holds the wrapper, which launches
+the hand-written CUDA C++ kernel from ``csrc/`` on CUDA tensors, and the
+kernel's plain PyTorch version, which the wrapper uses on CPU tensors only.
+"""
+from .bin_xorsum import (
+    bin_parity_xorsum_units,
+    bin_parity_xorsum_units_plain,
+    mix32,
+    mulshift_bins,
+    xor_bits_to_u32,
+)
+from .gf2_matmul import gf2_matmul, gf2_matmul_plain
+from .ops import (
+    bch_decode_batched,
+    encode_groups,
+    pack_bits_to_field,
+    sketch_groups,
+    sketch_groups_range,
+    tow_estimate,
+)
+from .platform import launch_counts, reset_launch_counts, resolve_device
+from .tow_sketch import tow_sketch, tow_sketch_plain, tow_sketch_rows
+
+__all__ = [
+    "bch_decode_batched",
+    "bin_parity_xorsum_units",
+    "bin_parity_xorsum_units_plain",
+    "encode_groups",
+    "gf2_matmul",
+    "gf2_matmul_plain",
+    "launch_counts",
+    "mix32",
+    "mulshift_bins",
+    "pack_bits_to_field",
+    "reset_launch_counts",
+    "resolve_device",
+    "sketch_groups",
+    "sketch_groups_range",
+    "tow_estimate",
+    "tow_sketch",
+    "tow_sketch_plain",
+    "tow_sketch_rows",
+    "xor_bits_to_u32",
+]

@@ -1,0 +1,154 @@
+"""Hash-partition + parity bitmap + per-bin XOR fold over packed units.
+
+``bin_parity_xorsum_units`` is the first device stage of every PBS round
+(DESIGN.md §5): each unit's elements are hashed into ``n_bins`` bins with
+the protocol's multiply-shift hash ``(mix32(e, seed) * n) >> 32``
+(``core.hashing.hash_to_range``), and per bin the count parity and the XOR
+of the member keys come back.
+
+On CUDA tensors the hand-written kernel ``csrc/bin_xorsum_units.cu`` runs
+(shared-memory ``atomicXor`` scatter, long rows split over several blocks);
+on CPU tensors ``bin_parity_xorsum_units_plain`` — the same function in
+plain PyTorch ops — runs.  The dispatch is on the tensors' device and
+nothing else: a CUDA tensor launches the kernel or raises.
+
+**uint32 convention.**  Keys, seeds and XOR folds live on the device as
+*int32 bit patterns* (torch's uint32 has no shifts).  The kernel
+reinterprets them as ``uint32_t``; the plain hash primitives below widen to
+an int64 carrier holding the value in ``[0, 2^32)`` and mask with
+``& 0xFFFFFFFF`` after every add and multiply — never a signed shift on
+hash state.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .platform import (
+    check_launch,
+    count_launch,
+    current_stream_ptr,
+    load_kernel_lib,
+    require,
+)
+
+_M32 = 0xFFFFFFFF
+
+
+def as_u32(x) -> torch.Tensor:
+    """Any integer tensor of 32-bit patterns -> int64 carrier in [0, 2^32)."""
+    return x.to(torch.int64) & _M32
+
+
+def to_i32(x: torch.Tensor) -> torch.Tensor:
+    """int64 carrier in [0, 2^32) -> int32 bit pattern."""
+    return (((x & _M32) ^ 0x80000000) - 0x80000000).to(torch.int32)
+
+
+def mix32(x: torch.Tensor, seed) -> torch.Tensor:
+    """murmur3 fmix32 on an int64 carrier; returns values in [0, 2^32).
+
+    ``seed`` may be a python int or a tensor of 32-bit patterns (per-unit
+    seeds, broadcast against ``x``).
+    """
+    x = as_u32(x)
+    if isinstance(seed, torch.Tensor):
+        s = (as_u32(seed) * 0x9E3779B9) & _M32
+    else:
+        s = (int(seed) * 0x9E3779B9) & _M32
+    x = (x + s) & _M32
+    x = x ^ (x >> 16)
+    x = (x * 0x85EBCA6B) & _M32
+    x = x ^ (x >> 13)
+    x = (x * 0xC2B2AE35) & _M32
+    x = x ^ (x >> 16)
+    return x
+
+
+def mulshift_bins(h: torch.Tensor, size: int) -> torch.Tensor:
+    """Bias-free range reduction ``(h * size) >> 32`` of a [0, 2^32) carrier;
+    exact match of ``core.hashing.hash_to_range`` for size < 2^16."""
+    if not 0 < size < (1 << 16):
+        raise ValueError(f"range size {size} outside (0, 2^16)")
+    return (as_u32(h) * int(size)) >> 32
+
+
+def xor_bits_to_u32(xor_bits: torch.Tensor) -> torch.Tensor:
+    """(..., 32) 0/1 bit planes -> (...,) int32 bit patterns of the folds."""
+    shifts = torch.arange(32, dtype=torch.int64, device=xor_bits.device)
+    return to_i32(torch.sum((xor_bits.to(torch.int64) & 1) << shifts, dim=-1))
+
+
+def bin_parity_xorsum_units_plain(
+    elems: torch.Tensor, valid: torch.Tensor, seeds: torch.Tensor, *, n_bins: int
+):
+    """Plain PyTorch version of ``bin_parity_xorsum_units`` (same returns).
+
+    One ``scatter_add`` of the valid mask gives the per-bin counts; the XOR
+    fold is 32 more, one per key bit plane, each reduced mod 2.
+    """
+    U, E = elems.shape
+    e = as_u32(elems)
+    v = (valid != 0).to(torch.int64)
+    bins = mulshift_bins(mix32(e, seeds.reshape(U, 1)), n_bins)
+    zeros = torch.zeros((U, n_bins), dtype=torch.int64, device=elems.device)
+    parity = (zeros.scatter_add(1, bins, v) & 1).to(torch.int32)
+    xors = torch.zeros((U, n_bins), dtype=torch.int64, device=elems.device)
+    for bit in range(32):
+        plane = zeros.scatter_add(1, bins, ((e >> bit) & 1) * v) & 1
+        xors |= plane << bit
+    return parity, to_i32(xors)
+
+
+_MAX_BINS = 28000   # 2 n words of shared memory must stay within 227 KB
+
+
+def _launch(elems, valid, seeds, n_bins):
+    dev = elems.device
+    require(elems, "elems", torch.int32, 2, dev)
+    require(valid, "valid", torch.bool, 2, dev)
+    require(seeds, "seeds", torch.int32, 1, dev)
+    U, E = elems.shape
+    if valid.shape != (U, E) or seeds.shape != (U,):
+        raise ValueError(
+            f"shapes disagree: elems {tuple(elems.shape)}, valid "
+            f"{tuple(valid.shape)}, seeds {tuple(seeds.shape)}"
+        )
+    if not 0 < n_bins <= _MAX_BINS:
+        raise ValueError(f"n_bins={n_bins} outside (0, {_MAX_BINS}]")
+    fn = load_kernel_lib("bin_xorsum_units").bin_xorsum_units_launch
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    parity = torch.zeros((U, n_bins), dtype=torch.int32, device=dev)
+    xors = torch.zeros((U, n_bins), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = fn(
+            elems.data_ptr(), valid.data_ptr(), seeds.data_ptr(),
+            parity.data_ptr(), xors.data_ptr(), U, E, n_bins,
+            current_stream_ptr(),
+        )
+    check_launch("bin_xorsum_units", rc)
+    count_launch("bin_xorsum_units", (U, E, n_bins))
+    return parity, xors
+
+
+def bin_parity_xorsum_units(
+    elems: torch.Tensor, valid: torch.Tensor, seeds: torch.Tensor, *, n_bins: int
+):
+    """Batched bin/parity/XOR-fold over U packed units in one kernel launch.
+
+    ``elems``: (U, E) int32 bit patterns of the uint32 keys; ``valid``:
+    (U, E) bool (or any integer 0/1 mask) — false marks padding, and a fully
+    masked row yields an all-zero output row; ``seeds``: (U,) int32 bit
+    patterns of the per-unit binning seeds.
+
+    Returns ``(parity (U, n_bins) int32, xors (U, n_bins) int32 bit
+    patterns)``.  The XOR folds come back packed — every caller of the
+    bit-plane form repacked it at once.
+    """
+    if elems.device.type != "cuda":
+        return bin_parity_xorsum_units_plain(elems, valid, seeds, n_bins=n_bins)
+    if valid.dtype != torch.bool:
+        valid = valid != 0
+    return _launch(elems, valid.contiguous(), seeds, n_bins)
