@@ -5,12 +5,24 @@
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``,
 holds each against its plain PyTorch version on the card (exact equality —
-everything is integer / GF(2) arithmetic, tolerance 0), then drives the
-main path — ``ReconcileServer.submit -> run`` — over sessions of |A| = 10^6
-uint32 keys and compares every result with the package's own numpy oracle
-``core.pbs.reconcile`` and with the true set difference.  Last, every kernel
-is compared with its plain version, timed and held against its bound at
-exactly the shapes that run launched it at (read from the launch ledger).
+everything is integer / GF(2) arithmetic, tolerance 0), then drives three
+paths of the port on the card, each with the launch counts set to 0 just
+before it and read just after:
+
+* ``serve`` — ``ReconcileServer.submit -> run`` over sessions of |A| = 10^6
+  uint32 keys;
+* ``tree`` — ``tree.tree_reconcile`` (the cold-start front end, one
+  ``tree_digest`` launch per level, then every divergent range as a leaf
+  session of the server) on a uniform pair of union 10^6, d = 10^4, and on
+  a clustered pair whose whole difference sits in one 2^16-wide window;
+* ``encode_group`` — ``kernels.ops.encode_group`` on a 10^6-key set and a
+  4096-key group, and a two-sided encode/decode round trip.
+
+Every result is compared with the package's own numpy oracle
+``core.pbs.reconcile`` (per session, per tree leaf) and with the true set
+difference.  Last, every kernel is compared with its plain version, timed
+and held against its bound at exactly the shapes its path launched it at
+(read from the launch ledger).
 
 Each phase prints one JSON line; any failed phase raises and the process
 exits non-zero.  The last line of standard output is
@@ -37,17 +49,28 @@ if not torch.cuda.is_available():
     sys.stderr.write("chip_smoke: no CUDA device available\n")
     sys.exit(1)
 
+from repro_torch.core.bch import BCHCode  # noqa: E402
 from repro_torch.core.pbs import PBSConfig, reconcile  # noqa: E402
 from repro_torch.core.simdata import make_pair, make_pair_two_sided  # noqa: E402
 from repro_torch.kernels import platform  # noqa: E402
 from repro_torch.kernels.bin_xorsum import (  # noqa: E402
+    bin_parity_xorsum,
+    bin_parity_xorsum_plain,
     bin_parity_xorsum_units,
     bin_parity_xorsum_units_plain,
 )
 from repro_torch.kernels.gf2_matmul import gf2_matmul, gf2_matmul_plain  # noqa: E402
-from repro_torch.kernels.ops import bch_decode_batched  # noqa: E402
+from repro_torch.kernels.ops import (  # noqa: E402
+    bch_decode_batched,
+    encode_group,
+    pack_bits_to_field,
+)
 from repro_torch.kernels.tow_sketch import tow_sketch, tow_sketch_plain  # noqa: E402
+from repro_torch.kernels.tree_digest import tree_digest, tree_digest_plain  # noqa: E402
+from repro_torch.obs import Recorder, Tracer  # noqa: E402
 from repro_torch.recon import ReconcileServer  # noqa: E402
+from repro_torch.tree import TreeConfig, leaf_slices, partition_pair, tree_reconcile  # noqa: E402
+from repro_torch.tree import partition as tree_partition  # noqa: E402
 
 DEV = torch.device("cuda", 0)
 
@@ -68,7 +91,7 @@ K3_OPS_PER_KEY_SEED = MIX32_OPS + 1 + 3   # + seed xor, low bit, sign, add
 KERNELS = {
     "bin_xorsum_units": {
         "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/bin_xorsum_units.cu",
+        "source": "src/repro_torch/kernels/csrc/bin_xorsum.cu",
         "replaces": "src/repro/kernels/bin_xorsum.py:180",
     },
     "gf2_matmul": {
@@ -81,7 +104,26 @@ KERNELS = {
         "source": "src/repro_torch/kernels/csrc/tow_sketch.cu",
         "replaces": "src/repro/kernels/tow_sketch.py:72",
     },
+    "tree_digest": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/tow_sketch.cu",
+        "replaces": "src/repro/kernels/tree_digest.py:75",
+    },
+    "bin_parity_xorsum": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/bin_xorsum.cu",
+        "replaces": "src/repro/kernels/bin_xorsum.py:109",
+    },
 }
+# the kernels each path must launch, and the path whose run gives each
+# kernel's `launches` in the `kernels` line
+PATHS = {
+    "serve": ("bin_xorsum_units", "gf2_matmul", "tow_sketch"),
+    "tree": ("tree_digest", "bin_xorsum_units", "gf2_matmul"),
+    "encode_group": ("bin_parity_xorsum", "gf2_matmul"),
+}
+HOME_PATH = {"bin_xorsum_units": "serve", "gf2_matmul": "serve", "tow_sketch": "serve",
+             "tree_digest": "tree", "bin_parity_xorsum": "encode_group"}
 
 
 def emit(obj) -> None:
@@ -170,6 +212,49 @@ def k3_case(rng, E, ell, n_valid=None):
     return elems, seeds, valid
 
 
+def rand_i32(g, shape) -> torch.Tensor:
+    """Random int32 bit patterns (keys over nearly the whole uint32 range),
+    made on the card."""
+    return torch.randint(-(1 << 31), (1 << 31) - 1, shape, dtype=torch.int32,
+                         device=DEV, generator=g)
+
+
+def k4_case(g, R, E, mask="ragged"):
+    """(R, E) range rows on the card: ragged valid prefixes (row 0 full, row
+    1 fully masked where R > 1), or a scattered mask; junk keys in the
+    padding; ell = 32 seeds."""
+    elems = rand_i32(g, (R, E))
+    if mask == "scattered":
+        valid = torch.rand((R, E), device=DEV, generator=g) < 0.5
+    else:
+        counts = torch.randint(0, E + 1, (R,), device=DEV, generator=g)
+        counts[0] = E
+        if R > 1:
+            counts[1] = 0
+        valid = torch.arange(E, device=DEV)[None, :] < counts[:, None]
+    return elems, valid, rand_i32(g, (TreeConfig().ell,))
+
+
+def check_k4(elems, valid, seeds):
+    """Largest difference between the kernel and its plain version; a fully
+    masked row must come back all zero, and one row must equal
+    ``tow_sketch`` at the same ell."""
+    out = tree_digest(elems, valid, seeds, ell=seeds.shape[0])
+    masked = ~valid.any(dim=1)
+    assert not bool(out[masked].any()), "masked row not zero"
+    err = max_err((out, tree_digest_plain(elems, valid, seeds)))
+    if elems.shape[0] == 1:
+        err = max(err, max_err((out[0], tow_sketch(elems[0], seeds, valid[0],
+                                                   ell=seeds.shape[0]))))
+    return err
+
+
+def check_k5(elems, n_bins, seed):
+    p, x = bin_parity_xorsum(elems, n_bins=n_bins, seed=seed)
+    pp, xp = bin_parity_xorsum_plain(elems, n_bins=n_bins, seed=seed)
+    return max_err((p, pp), (x, xp))
+
+
 def kernel_sweeps(rng):
     """Each kernel against its plain version on the card over the shape
     sweeps of the CPU tests (and a few larger ones), exact equality."""
@@ -199,6 +284,33 @@ def kernel_sweeps(rng):
             shapes.append([E, ell, n_valid])
     checks.append({"name": "tow_sketch", "shapes": shapes, "equal": err == 0})
 
+    # K4 at the shapes of a tree level: R = 2 x pow2 frontier rows (16 at
+    # the root, 2^17 for an adversarial pair at 10^6 keys, 2^20 to show the
+    # row axis holds), E = pow2 row length; and one scattered mask, one
+    # length that is not a multiple of the tile
+    g = torch.Generator(device=DEV)
+    g.manual_seed(int(rng.integers(1 << 62)))
+    err, shapes = 0, []
+    for R, E, mask in ((1, 512, "ragged"), (1, 4096, "ragged"), (1, 1 << 20, "ragged"),
+                       (3, 512, "ragged"), (3, 4096, "ragged"), (3, 1 << 20, "ragged"),
+                       (16, 512, "ragged"), (16, 4096, "ragged"), (16, 1 << 20, "ragged"),
+                       (131072, 512, "ragged"), (131072, 4096, "ragged"),
+                       (1 << 20, 64, "ragged"), (5, 5000, "scattered"), (7, 1300, "ragged")):
+        err = max(err, check_k4(*k4_case(g, R, E, mask)))
+        shapes.append([R, E, mask])
+    checks.append({"name": "tree_digest", "shapes": shapes, "equal": err == 0})
+
+    # K5: one set, mod-n bins; key 0 is a member wherever E >= 100
+    err, shapes = 0, []
+    for n_bins in (63, 127, 255, 1023, 8191):
+        for E in (1, 100, 5000, 1_000_000):
+            elems = rand_i32(g, (E,))
+            if E >= 100:
+                elems[E // 2] = 0
+            err = max(err, check_k5(elems, n_bins, int(rng.integers(1 << 32))))
+            shapes.append([E, n_bins, E >= 100])
+    checks.append({"name": "bin_parity_xorsum", "shapes": shapes, "equal": err == 0})
+
     torch.cuda.synchronize()
     emit({"phase": "kernels", "kernel_checks": checks})
     for c in checks:
@@ -210,101 +322,187 @@ def bound(b_bytes: float, b_ops: float) -> dict:
             "bound_by": "bytes" if b_bytes >= b_ops else "operations"}
 
 
-def main_shape_phase(args, rng, launched):
-    """Each kernel at exactly the shapes the serve run launched it at
-    (``launched``: ``platform.launch_shapes()`` read just after that run):
-    compared with its plain version, timed, and held against its bound.
-    The headline numbers of a kernel are those of its largest launch."""
-    report = {}
+def masked_bound(n_valid: int, cells: int, other_bytes: int, ops_per_key: int) -> dict:
+    """Bound of a kernel over masked key cells: the function must read every
+    1-byte mask cell and the 4-byte key of each valid cell only (a masked
+    key is never needed), plus ``other_bytes`` of seeds and outputs; it
+    hashes only the valid keys, ``ops_per_key`` 32-bit operations each."""
+    return bound((n_valid * 4 + cells + other_bytes) / HBM_BYTES_PER_S,
+                 n_valid * ops_per_key / ALU32_OPS_PER_S)
 
-    # ---- K1: keys (U, E) into n bins --------------------------------------
-    k1 = launched["bin_xorsum_units"]
-    biggest = max(k1, key=lambda k: k[0] * k[1])
-    longest = max(k1, key=lambda k: k[1])
-    rows, kept = {}, {}
-    for (U, E, n), count in sorted(k1.items()):
+
+def k1_report(rng, launched):
+    """K1 at every ``(U, E, n)`` one path launched it at (``launched``, read
+    from the launch ledger just after that path's run): compared with its
+    plain version, timed and held against its bound.  The headline is the
+    largest launch; ``long_rows`` the launch with the longest rows."""
+    biggest = max(launched, key=lambda k: k[0] * k[1])
+    rows, head_case = [], None
+    for (U, E, n), count in sorted(launched.items()):
         case = k1_case(rng, U, E, n, fill="full")
-        elems, valid, seeds, _ = case
+        elems, valid, seeds, n_valid = case
         err = check_k1(case, n)
         ts = times_ms(lambda: bin_parity_xorsum_units(elems, valid, seeds, n_bins=n), 50)
-        rows[(U, E, n)] = {
-            "shape": [U, E, n], "launches": count, "max_abs_err": err,
-            "ms": float(np.mean(ts)), "ms_min": min(ts), "ms_median": float(np.median(ts))}
-        if (U, E, n) in (biggest, longest):
-            kept[(U, E, n)] = case
+        rows.append({
+            "shape": [U, E, n], "valid": n_valid, "launches": count, "max_abs_err": err,
+            "ms": float(np.mean(ts)), "ms_min": min(ts), "ms_median": float(np.median(ts)),
+            **masked_bound(n_valid, U * E, U * 4 + 2 * U * n * 4, K1_OPS_PER_KEY)})
+        if (U, E, n) == biggest:
+            head_case = case
+    del case, elems, valid, seeds
+    head = next(r for r in rows if tuple(r["shape"]) == biggest)
     U, E, n = biggest
-    elems, valid, seeds, n_valid = kept[biggest]
-    report["bin_xorsum_units"] = {
-        "shapes": {"elems": [U, E], "n_bins": n},
-        "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
-        "ms": rows[biggest]["ms"],
+    elems, valid, seeds, _ = head_case
+    return {
+        "shapes": {"elems": [U, E], "n_bins": n, "valid": head["valid"]},
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "ms": head["ms"],
         "plain_ms": time_ms(
             lambda: bin_parity_xorsum_units_plain(elems, valid, seeds, n_bins=n), 2),
-        **bound((U * E * 5 + U * 4 + 2 * U * n * 4) / HBM_BYTES_PER_S,
-                n_valid * K1_OPS_PER_KEY / ALU32_OPS_PER_S),
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": None,
-        "launched_shapes": list(rows.values()),
+        "long_rows": max(rows, key=lambda r: r["shape"][1]),
+        "launched_shapes": rows,
     }
-    # the other extreme of the main path: the launch with the longest rows
-    U, E, n = longest
-    report["bin_xorsum_units"]["long_rows"] = {
-        **rows[longest],
-        **bound((U * E * 5 + U * 4 + 2 * U * n * 4) / HBM_BYTES_PER_S,
-                kept[longest][3] * K1_OPS_PER_KEY / ALU32_OPS_PER_S),
-    }
-    del kept, case, elems, valid, seeds
 
-    # ---- K2: (M, K) @ (K, N) ----------------------------------------------
+
+def k2_report(rng, launched):
+    """K2 at every ``(M, K, N)`` one path launched it at; headline: the
+    largest product."""
     rows = []
-    for (M, K, N), count in sorted(launched["gf2_matmul"].items()):
+    for (M, K, N), count in sorted(launched.items()):
         a, b = k2_case(rng, M, K, N)
         err = max_err((gf2_matmul(a, b), gf2_matmul_plain(a, b)))
         rows.append({"shape": [M, K, N], "launches": count, "max_abs_err": err,
-                     "ms": time_ms(lambda: gf2_matmul(a, b), 20)})
+                     "ms": time_ms(lambda: gf2_matmul(a, b), 20),
+                     **bound((M * K + K * N + M * N) * 4 / HBM_BYTES_PER_S,
+                             2 * M * K * N / INT8_TENSOR_OPS_PER_S)})
     head = max(rows, key=lambda r: r["shape"][0] * r["shape"][1] * r["shape"][2])
     M, K, N = head["shape"]
     a, b = k2_case(rng, M, K, N)
-    report["gf2_matmul"] = {
+    return {
         "shapes": {"a": [M, K], "b": [K, N]},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": head["ms"],
         "plain_ms": time_ms(lambda: gf2_matmul_plain(a, b), 5),
-        **bound((M * K + K * N + M * N) * 4 / HBM_BYTES_PER_S,
-                2 * M * K * N / INT8_TENSOR_OPS_PER_S),
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         # the one PyTorch call computing the same function; used nowhere in the port
         "library_ms": time_ms(lambda: (a.float() @ b.float()) % 2, 5),
         "launched_shapes": rows,
     }
-    del a, b
 
-    # ---- K3: (R, E) keys, ell seeds; the path pads |S| up to E -------------
+
+def k3_report(rng, launched, set_size):
+    """K3 at every ``(1, E, ell)`` one path launched it at; the path pads
+    |S| = ``set_size`` keys up to E.  Headline: the longest launch."""
     rows = []
-    for (R, E, ell), count in sorted(launched["tow_sketch"].items()):
-        assert R == 1, (R, E, ell)
-        n_valid = min(args.size, E)
+    for (_, E, ell), count in sorted(launched.items()):
+        n_valid = min(set_size, E)
         e, s, v = k3_case(rng, E, ell, n_valid)
         err = max_err((tow_sketch(e, s, v, ell=ell), tow_sketch_plain(e, s, v)))
-        rows.append({"shape": [R, E, ell], "valid": n_valid, "launches": count,
+        rows.append({"shape": [1, E, ell], "valid": n_valid, "launches": count,
                      "max_abs_err": err,
-                     "ms": time_ms(lambda: tow_sketch(e, s, v, ell=ell), 20)})
+                     "ms": time_ms(lambda: tow_sketch(e, s, v, ell=ell), 20),
+                     **masked_bound(n_valid, E, 2 * ell * 4,
+                                    MIX32_OPS + ell * K3_OPS_PER_KEY_SEED)})
     head = max(rows, key=lambda r: r["shape"][1])
     _, E, ell = head["shape"]
     e, s, v = k3_case(rng, E, ell, head["valid"])
-    report["tow_sketch"] = {
+    return {
         "shapes": {"elems": [E], "ell": ell, "valid": head["valid"]},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": head["ms"],
         "plain_ms": time_ms(lambda: tow_sketch_plain(e, s, v), 2),
-        **bound((E * 5 + 2 * ell * 4) / HBM_BYTES_PER_S,
-                (E * MIX32_OPS + head["valid"] * ell * K3_OPS_PER_KEY_SEED)
-                / ALU32_OPS_PER_S),
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": None,
         "launched_shapes": rows,
     }
-    del e, s, v
 
-    # ---- the third device stage of a round (plain tensor ops, no kernel),
-    # at the unit count and code of the largest K2 launch ---------------------
+
+def k4_report(captured, launched):
+    """K4 at every shape the tree path launched it at, on the rows that path
+    gave it (``captured``); headline: the largest launch."""
+    rows = []
+    for (R, Ep, ell), count in sorted(launched.items()):
+        elems, valid, seeds = captured[(R, Ep, ell)]
+        err = check_k4(elems, valid, seeds)
+        ts = times_ms(lambda: tree_digest(elems, valid, seeds, ell=ell), 20)
+        n_valid = int(valid.sum())
+        rows.append({
+            "shape": [R, Ep, ell], "valid": n_valid, "launches": count, "max_abs_err": err,
+            "ms": float(np.mean(ts)), "ms_min": min(ts),
+            **masked_bound(n_valid, valid.numel(), ell * 4 + R * ell * 4,
+                           MIX32_OPS + ell * K3_OPS_PER_KEY_SEED)})
+    head = max(rows, key=lambda r: r["shape"][0] * r["shape"][1])
+    elems, valid, seeds = captured[tuple(head["shape"])]
+    return {
+        "shapes": {"elems": head["shape"][:2], "ell": head["shape"][2], "valid": head["valid"]},
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "ms": head["ms"],
+        "plain_ms": time_ms(lambda: tree_digest_plain(elems, valid, seeds), 2),
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": None,
+        "launched_shapes": rows,
+    }
+
+
+def k5_report(rng, launched):
+    """K5 at every ``(E, n)`` the encode_group path launched it at."""
+    g = torch.Generator(device=DEV)
+    g.manual_seed(int(rng.integers(1 << 62)))
+    rows, cases = [], {}
+    for (E, n), count in sorted(launched.items()):
+        elems, seed = rand_i32(g, (E,)), int(rng.integers(1 << 32))
+        cases[(E, n)] = (elems, seed)
+        ts = times_ms(lambda: bin_parity_xorsum(elems, n_bins=n, seed=seed), 50)
+        rows.append({
+            "shape": [E, n], "launches": count, "max_abs_err": check_k5(elems, n, seed),
+            "ms": float(np.mean(ts)), "ms_min": min(ts), "ms_median": float(np.median(ts)),
+            **bound((E * 4 + n * 8) / HBM_BYTES_PER_S, E * K1_OPS_PER_KEY / ALU32_OPS_PER_S)})
+    head = max(rows, key=lambda r: r["shape"][0])
+    elems, seed = cases[tuple(head["shape"])]
+    n = head["shape"][1]
+    return {
+        "shapes": {"elems": [head["shape"][0]], "n_bins": n},
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "ms": head["ms"],
+        "plain_ms": time_ms(lambda: bin_parity_xorsum_plain(elems, n_bins=n, seed=seed), 5),
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": None,
+        "launched_shapes": rows,
+    }
+
+
+def main_shape_phase(args, rng, launched, tree_inputs):
+    """Every kernel at exactly the shapes each path launched it at
+    (``launched[path]``: ``platform.launch_shapes()`` read just after that
+    path's run): compared with its plain version, timed and held against its
+    bound.  A kernel's headline numbers are those of its home path
+    (``HOME_PATH``); its shapes on every other path that launched it are
+    measured the same way under ``other_paths``."""
+    reports = {
+        "bin_xorsum_units": lambda shapes: k1_report(rng, shapes),
+        "gf2_matmul": lambda shapes: k2_report(rng, shapes),
+        "tow_sketch": lambda shapes: k3_report(rng, shapes, args.size),
+        "tree_digest": lambda shapes: k4_report(tree_inputs, shapes),
+        "bin_parity_xorsum": lambda shapes: k5_report(rng, shapes),
+    }
+    report = {}
+    for name, fn in reports.items():
+        home = HOME_PATH[name]
+        rep = fn(launched[home][name])
+        others = {path: fn(shapes[name]) for path, shapes in launched.items()
+                  if path != home and name in shapes}
+        if others:
+            rep["other_paths"] = others
+            rep["max_abs_err"] = max([rep["max_abs_err"]]
+                                     + [o["max_abs_err"] for o in others.values()])
+        report[name] = rep
+
+    # the third device stage of a round (plain tensor ops, no kernel), at
+    # the unit count and code of the serve path's largest K2 launch
+    M, K = report["gf2_matmul"]["shapes"]["a"]
+    N = report["gf2_matmul"]["shapes"]["b"][1]
     m = (K + 1).bit_length() - 1
     u, t = M // 2, N // m
     sk = torch.from_numpy(rng.integers(0, 1 << m, size=(u, t)).astype(np.int32)).to(DEV)
@@ -355,17 +553,13 @@ def run_server(sessions):
     return server, results, time.perf_counter() - t0, submit_s
 
 
-def oracle_results(sessions):
-    """``core.pbs.reconcile`` of every pair, on the host.  One oracle run
-    takes seconds at |A| = 10^6, so they go to a pool of worker processes
-    (numpy only; none touches the device)."""
-    jobs = [(a, b, cfg, dk) for _, a, b, cfg, dk in sessions]
-    workers = max(1, min(len(jobs), (os.cpu_count() or 2) - 1))
-    with multiprocessing.get_context("spawn").Pool(workers) as pool:
-        return pool.starmap(reconcile, jobs)
+def oracle_pool():
+    """Worker processes for ``core.pbs.reconcile`` on the host: one oracle
+    run takes seconds at |A| = 10^6 (numpy only; none touches the device)."""
+    return multiprocessing.get_context("spawn").Pool(max(1, (os.cpu_count() or 2) - 1))
 
 
-def serve_phase(args, rng):
+def serve_phase(args, rng, pool):
     t0 = time.perf_counter()
     sessions = make_sessions(args, rng)
     data_s = time.perf_counter() - t0
@@ -377,8 +571,8 @@ def serve_phase(args, rng):
     stats = server.stats
     peak = torch.cuda.max_memory_allocated()
 
-    for name in KERNELS:
-        assert launches.get(name, 0) > 0, f"main path never launched {name}: {launches}"
+    for name in PATHS["serve"]:
+        assert launches.get(name, 0) > 0, f"serve path never launched {name}: {launches}"
     assert stats["retraces"] > 0, "a cold run met no new executor variant"
     # two kernel launches per cohort-round, plus two per rateless extension
     # level: the ledger's count must be the launches that really happened
@@ -391,7 +585,7 @@ def serve_phase(args, rng):
 
     # every session against the package's own numpy oracle and the truth
     t0 = time.perf_counter()
-    wants = oracle_results(sessions)
+    wants = pool.starmap(reconcile, [(a, b, cfg, dk) for _, a, b, cfg, dk in sessions])
     for sid, (label, a, b, cfg, dk) in enumerate(sessions):
         got, want = results[sid], wants[sid]
         assert got.success, (sid, label)
@@ -427,6 +621,196 @@ def serve_phase(args, rng):
     if args.profile:
         profile_run(sessions, args.profile)
     return launches, launched
+
+
+# ---------------------------------------------------------------------------
+# the tree front end
+# ---------------------------------------------------------------------------
+
+
+def tree_pairs(args):
+    """The two pairs of the tree phase, as (label, a, b).
+
+    ``uniform``: built exactly as the ``tree`` point of
+    ``benchmarks/recon_throughput.py`` builds it (union |A| keys, d =
+    d_frac·|A| with d_frac = 0.01, split half and half between the sides).
+    ``clustered``: |A| shared keys, and all of the difference — 2000 keys,
+    half on each side — inside one 2^16-wide window, which walks deep."""
+    rng = np.random.default_rng(args.seed + 77)
+    union = args.size
+    d = max(2, int(0.01 * union))
+    half = d // 2
+    univ = np.unique(rng.choice(1 << 32, size=union, replace=False).astype(np.uint32))
+    a = univ[: union - d + half]
+    b = np.concatenate([univ[: union - d], univ[union - d + half :]])
+    rng = np.random.default_rng(args.seed + 78)
+    shared = rng.choice(1 << 32, size=union, replace=False).astype(np.uint64)
+    lo = int(rng.integers(0, (1 << 32) - (1 << 16)))
+    hot = lo + rng.choice(1 << 16, size=2000, replace=False)
+    a2 = np.unique(np.concatenate([shared, hot[:1000]]).astype(np.uint32))
+    b2 = np.unique(np.concatenate([shared, hot[1000:]]).astype(np.uint32))
+    return [("uniform", a, b), ("clustered", a2, b2)]
+
+
+def tree_run(label, a, b, cfg, pool, captured):
+    """``tree_reconcile`` of one pair on the card, checked against the
+    truth, per leaf against ``core.pbs.reconcile``, and on bytes per diff
+    against plain PBS told a 10x-wrong d; then a warm re-walk, which also
+    keeps in ``captured`` the ``tree_digest`` inputs of each launched shape
+    ``(R, Ep, ell)`` not yet there — so the kernel is later measured on the
+    rows the path really gave it (two real rows of 16 at the root, say).
+    Returns the launches and launched shapes of the counted run."""
+    tcfg = TreeConfig()
+    rec = Recorder()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()      # the inputs kept from earlier pairs
+    platform.reset_launch_counts()
+    t0 = time.perf_counter()
+    tr = tree_reconcile(a, b, cfg, tcfg, recorder=rec)      # device=None: the card
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches, shapes = platform.launch_counts(), platform.launch_shapes()
+    peak = torch.cuda.max_memory_allocated() - held
+    st = tr.stats
+
+    for name in PATHS["tree"]:
+        assert launches.get(name, 0) > 0, f"tree path never launched {name}: {launches}"
+    assert st.launches == st.levels == launches["tree_digest"], (st, launches)
+    assert tr.success, label
+    truth = set(np.setxor1d(a, b).tolist())
+    assert tr.diff == truth, label
+    depth_bound = 32 - int(np.floor(np.log2(tcfg.leaf_d)))
+    assert st.depth <= depth_bound, (label, st.depth, depth_bound)
+
+    # every leaf against a standalone oracle session over its range at the
+    # tree's planned d; plain PBS at the honest and a 10x-wrong d beside it
+    t0 = time.perf_counter()
+    au, bu = np.unique(a), np.unique(b)
+    jobs = [(sa, sb, cfg, leaf.d_plan)
+            for sa, sb, leaf in zip(leaf_slices(au, tr.leaves), leaf_slices(bu, tr.leaves),
+                                    tr.leaves)]
+    d = len(truth)
+    honest, wrongd, *wants = pool.starmap(
+        reconcile, [(a, b, cfg, d), (a, b, cfg, 10 * d)] + jobs, chunksize=1)
+    assert sorted(tr.results) == list(range(len(jobs)))
+    for sid, want in enumerate(wants):
+        assert tr.results[sid] == want, (label, sid, tr.leaves[sid])
+    oracle_s = time.perf_counter() - t0
+    assert honest.success and wrongd.success, label
+    tree_bpd = tr.total_bytes / max(1, len(tr.diff))
+    wrongd_bpd = wrongd.bytes_sent / max(1, len(wrongd.diff))
+    honest_bpd = honest.bytes_sent / max(1, len(honest.diff))
+    assert tree_bpd < wrongd_bpd, (label, tree_bpd, wrongd_bpd)
+
+    # the warm walk alone, its levels split by the walk's own spans into
+    # dispatch (bounds, device gather, launch) and collect (readback wait,
+    # verdicts, byte ledger); the rest is np.unique, prefix sums, upload.
+    # Each level's rows are fresh tensors, so keeping a reference is enough.
+    launch = tree_partition.tree_digest
+
+    def recording(elems, valid, seeds, *, ell, tile):
+        key = (elems.shape[0], max(tile, -(-elems.shape[1] // tile) * tile), ell)
+        if key not in captured:
+            captured[key] = (elems, valid, seeds)
+        return launch(elems, valid, seeds, ell=ell, tile=tile)
+
+    tracer = Tracer()
+    tree_partition.tree_digest = recording
+    try:
+        t0 = time.perf_counter()
+        warm_leaves, warm = partition_pair(a, b, tcfg, tracer=tracer)
+        torch.cuda.synchronize()
+        walk_s = time.perf_counter() - t0
+    finally:
+        tree_partition.tree_digest = launch
+    span_s = {}
+    for ev in tracer.events():
+        if ev.get("ph") == "X":
+            span_s[ev["name"]] = span_s.get(ev["name"], 0.0) + ev["dur"] / 1e6
+    assert warm.retraces == 0, (label, warm)
+    assert warm_leaves == tr.leaves and warm.launches == warm.levels == st.levels, label
+    emit({
+        "phase": "tree", "pair": label, "size_a": len(au), "size_b": len(bu), "d": d,
+        "levels": st.levels, "depth": st.depth, "depth_bound": depth_bound,
+        "leaves": st.leaves, "pruned": st.pruned, "recursed": st.recursed,
+        "frontier_peak": st.max_frontier, "tree_digest_launches": launches["tree_digest"],
+        "cold_retraces": st.retraces, "warm_retraces": warm.retraces,
+        "digest_bytes": tr.tree_bytes, "pbs_bytes": tr.pbs_bytes,
+        "bytes_per_diff": tree_bpd, "honest_bytes_per_diff": honest_bpd,
+        "wrongd_bytes_per_diff": wrongd_bpd,
+        "tree_reconcile_s": wall_s, "warm_walk_s": walk_s,
+        "warm_walk_dispatch_s": span_s["tree.level.dispatch"],
+        "warm_walk_collect_s": span_s["tree.level.collect"],
+        "leaf_run_s": rec.value("server.total_s"), "leaf_device_s": rec.value("server.device_s"),
+        "oracle_check_s": oracle_s, "launches": launches,
+        "peak_memory_above_start_bytes": peak, "all_leaves_match_oracle": True,
+    })
+    return launches, shapes
+
+
+def tree_phase(args, pool):
+    """Both pairs through ``tree_reconcile``; returns the launches of both
+    runs by kernel, the shapes they launched each kernel at, and the
+    ``tree_digest`` inputs by shape."""
+    launches, launched, captured = {}, {}, {}
+    for label, a, b in tree_pairs(args):
+        counts, shapes = tree_run(label, a, b, PBSConfig(seed=args.seed), pool, captured)
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
+        for name, by_shape in shapes.items():
+            for shape, n in by_shape.items():
+                launched.setdefault(name, {})
+                launched[name][shape] = launched[name].get(shape, 0) + n
+    return launches, launched, captured
+
+
+# ---------------------------------------------------------------------------
+# encode_group
+# ---------------------------------------------------------------------------
+
+
+def encode_group_plain(elems, code, seed):
+    """``encode_group`` composed of the plain versions, on the same device."""
+    parity, xors = bin_parity_xorsum_plain(elems, n_bins=code.n, seed=seed)
+    P = torch.from_numpy(code.field.syndrome_matrix(code.t).astype(np.int32)).to(elems.device)
+    return parity, xors, pack_bits_to_field(gf2_matmul_plain(parity[None, :], P), code.m)[0]
+
+
+def encode_group_phase(rng):
+    """``encode_group`` on the card against its plain composition: a
+    10^6-key set with BCH(8191, 16), a 4096-key group with BCH(255, 16),
+    and the two-sided round trip of the kernel tests (BCH(255, 11), 6
+    differing keys, decoded by ``bch_decode_batched``)."""
+    platform.reset_launch_counts()
+    keys = np.unique(rng.integers(1, 1 << 32, size=1_000_100, dtype=np.uint64).astype(np.uint32))
+    big = np.concatenate([[0], keys[:999_999]]).astype(np.uint32)    # key 0 is a member
+    group = rng.integers(1, 1 << 32, size=4096, dtype=np.uint64).astype(np.uint32)
+    base = np.unique(rng.integers(1, 1 << 32, size=4000, dtype=np.uint64).astype(np.uint32))
+    cases = [("set 10^6", big, BCHCode(8191, 16), 7), ("group 4096", group, BCHCode(255, 16), 7),
+             ("round trip A", base, BCHCode(255, 11), 11),
+             ("round trip B", base[:-6], BCHCode(255, 11), 11)]
+    err, outs, rows = 0, {}, []
+    for label, keys, code, seed in cases:
+        e = dev_u32(keys)
+        got = encode_group(e, code, seed)
+        err = max(err, max_err(*zip(got, encode_group_plain(e, code, seed))))
+        outs[label] = got
+        rows.append({"case": label, "keys": len(keys), "n": code.n, "t": code.t})
+    launches = platform.launch_counts()
+    pa, xa, ska = outs["round trip A"]
+    pb, xb, skb = outs["round trip B"]
+    ok, pos, cnt = bch_decode_batched((ska ^ skb)[None, :], n=255, t=11)
+    torch.cuda.synchronize()
+    diff = set(base.tolist()) ^ set(base[:-6].tolist())
+    xab = (xa ^ xb).cpu().numpy().view(np.uint32)
+    recovered = {int(xab[p]) for p in pos[0][: int(cnt[0])].tolist()}
+    for name in PATHS["encode_group"]:
+        assert launches.get(name, 0) > 0, f"encode_group never launched {name}: {launches}"
+    assert err == 0, "encode_group differs from its plain composition"
+    assert bool(ok[0]) and len(recovered & diff) >= 4, (recovered, diff)
+    emit({"phase": "encode_group", "cases": rows, "max_abs_err": err,
+          "round_trip_recovered": len(recovered & diff), "launches": launches})
+    return launches, platform.launch_shapes()
 
 
 def profile_run(sessions, out_path):
@@ -511,10 +895,16 @@ def main() -> None:
 
     kernel_sweeps(rng)
     if not args.kernels_only:
-        launches, launched = serve_phase(args, rng)
-        report = main_shape_phase(args, rng, launched)
-        emit({"kernels": [{"name": name, **meta, "launches": launches[name], **report[name]}
-                          for name, meta in KERNELS.items()]})
+        launches, launched = {}, {}
+        with oracle_pool() as pool:
+            launches["serve"], launched["serve"] = serve_phase(args, rng, pool)
+            launches["tree"], launched["tree"], tree_inputs = tree_phase(args, pool)
+        launches["encode_group"], launched["encode_group"] = encode_group_phase(rng)
+        report = main_shape_phase(args, rng, launched, tree_inputs)
+        emit({"kernels": [
+            {"name": name, **meta, "launches": launches[HOME_PATH[name]][name], **report[name],
+             "launches_by_path": {path: n[name] for path, n in launches.items() if name in n}}
+            for name, meta in KERNELS.items()]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {

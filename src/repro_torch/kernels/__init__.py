@@ -6,6 +6,8 @@ the hand-written CUDA C++ kernel from ``csrc/`` on CUDA tensors, and the
 kernel's plain PyTorch version, which the wrapper uses on CPU tensors only.
 """
 from .bin_xorsum import (
+    bin_parity_xorsum,
+    bin_parity_xorsum_plain,
     bin_parity_xorsum_units,
     bin_parity_xorsum_units_plain,
     mix32,
@@ -15,6 +17,8 @@ from .bin_xorsum import (
 from .gf2_matmul import gf2_matmul, gf2_matmul_plain
 from .ops import (
     bch_decode_batched,
+    chien_eval_matmul,
+    encode_group,
     encode_groups,
     pack_bits_to_field,
     sketch_groups,
@@ -22,12 +26,17 @@ from .ops import (
     tow_estimate,
 )
 from .platform import launch_counts, reset_launch_counts, resolve_device
-from .tow_sketch import tow_sketch, tow_sketch_plain, tow_sketch_rows
+from .tow_sketch import tow_sketch, tow_sketch_plain
+from .tree_digest import tree_digest, tree_digest_plain
 
 __all__ = [
     "bch_decode_batched",
+    "bin_parity_xorsum",
+    "bin_parity_xorsum_plain",
     "bin_parity_xorsum_units",
     "bin_parity_xorsum_units_plain",
+    "chien_eval_matmul",
+    "encode_group",
     "encode_groups",
     "gf2_matmul",
     "gf2_matmul_plain",
@@ -42,6 +51,7 @@ __all__ = [
     "tow_estimate",
     "tow_sketch",
     "tow_sketch_plain",
-    "tow_sketch_rows",
+    "tree_digest",
+    "tree_digest_plain",
     "xor_bits_to_u32",
 ]

@@ -1,16 +1,18 @@
-"""Hash-partition + parity bitmap + per-bin XOR fold over packed units.
+"""Hash-partition + parity bitmap + per-bin XOR fold.
 
 ``bin_parity_xorsum_units`` is the first device stage of every PBS round
 (DESIGN.md §5): each unit's elements are hashed into ``n_bins`` bins with
 the protocol's multiply-shift hash ``(mix32(e, seed) * n) >> 32``
 (``core.hashing.hash_to_range``), and per bin the count parity and the XOR
-of the member keys come back.
+of the member keys come back.  ``bin_parity_xorsum`` is the single-set form
+behind ``ops.encode_group``, binning with the historical ``mix32(e, seed) %
+n`` (``ref.bin_parity_xorsum_ref``).
 
-On CUDA tensors the hand-written kernel ``csrc/bin_xorsum_units.cu`` runs
-(shared-memory ``atomicXor`` scatter, long rows split over several blocks);
-on CPU tensors ``bin_parity_xorsum_units_plain`` — the same function in
-plain PyTorch ops — runs.  The dispatch is on the tensors' device and
-nothing else: a CUDA tensor launches the kernel or raises.
+On CUDA tensors the hand-written kernel ``csrc/bin_xorsum.cu`` runs (one
+body for both reductions: shared-memory ``atomicXor`` scatter, long rows
+split over several blocks); on CPU tensors the ``*_plain`` versions — the
+same functions in plain PyTorch ops — run.  The dispatch is on the tensors'
+device and nothing else: a CUDA tensor launches the kernel or raises.
 
 **uint32 convention.**  Keys, seeds and XOR folds live on the device as
 *int32 bit patterns* (torch's uint32 has no shifts).  The kernel
@@ -80,25 +82,35 @@ def xor_bits_to_u32(xor_bits: torch.Tensor) -> torch.Tensor:
     return to_i32(torch.sum((xor_bits.to(torch.int64) & 1) << shifts, dim=-1))
 
 
-def bin_parity_xorsum_units_plain(
-    elems: torch.Tensor, valid: torch.Tensor, seeds: torch.Tensor, *, n_bins: int
-):
-    """Plain PyTorch version of ``bin_parity_xorsum_units`` (same returns).
-
-    One ``scatter_add`` of the valid mask gives the per-bin counts; the XOR
-    fold is 32 more, one per key bit plane, each reduced mod 2.
-    """
-    U, E = elems.shape
-    e = as_u32(elems)
-    v = (valid != 0).to(torch.int64)
-    bins = mulshift_bins(mix32(e, seeds.reshape(U, 1)), n_bins)
-    zeros = torch.zeros((U, n_bins), dtype=torch.int64, device=elems.device)
+def _fold_plain(e: torch.Tensor, v: torch.Tensor, bins: torch.Tensor, n_bins: int):
+    """Per-row bin parity and XOR fold of (U, E) keys ``e`` (int64 carrier)
+    with 0/1 int64 mask ``v`` into ``bins``.  One ``scatter_add`` of the mask
+    gives the counts; the fold is 32 more, one per key bit plane, each
+    reduced mod 2."""
+    zeros = torch.zeros((e.shape[0], n_bins), dtype=torch.int64, device=e.device)
     parity = (zeros.scatter_add(1, bins, v) & 1).to(torch.int32)
-    xors = torch.zeros((U, n_bins), dtype=torch.int64, device=elems.device)
+    xors = torch.zeros_like(zeros)
     for bit in range(32):
         plane = zeros.scatter_add(1, bins, ((e >> bit) & 1) * v) & 1
         xors |= plane << bit
     return parity, to_i32(xors)
+
+
+def bin_parity_xorsum_units_plain(
+    elems: torch.Tensor, valid: torch.Tensor, seeds: torch.Tensor, *, n_bins: int
+):
+    """Plain PyTorch version of ``bin_parity_xorsum_units`` (same returns)."""
+    e = as_u32(elems)
+    bins = mulshift_bins(mix32(e, seeds.reshape(-1, 1)), n_bins)
+    return _fold_plain(e, (valid != 0).to(torch.int64), bins, n_bins)
+
+
+def bin_parity_xorsum_plain(elems: torch.Tensor, *, n_bins: int, seed: int):
+    """Plain PyTorch version of ``bin_parity_xorsum`` (same returns)."""
+    e = as_u32(elems).reshape(1, -1)
+    bins = torch.remainder(mix32(e, seed), n_bins)
+    parity, xors = _fold_plain(e, torch.ones_like(e), bins, n_bins)
+    return parity[0], xors[0]
 
 
 _MAX_BINS = 28000   # 2 n words of shared memory must stay within 227 KB
@@ -117,7 +129,7 @@ def _launch(elems, valid, seeds, n_bins):
         )
     if not 0 < n_bins <= _MAX_BINS:
         raise ValueError(f"n_bins={n_bins} outside (0, {_MAX_BINS}]")
-    fn = load_kernel_lib("bin_xorsum_units").bin_xorsum_units_launch
+    fn = load_kernel_lib("bin_xorsum").bin_xorsum_units_launch
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     parity = torch.zeros((U, n_bins), dtype=torch.int32, device=dev)
@@ -152,3 +164,30 @@ def bin_parity_xorsum_units(
     if valid.dtype != torch.bool:
         valid = valid != 0
     return _launch(elems, valid.contiguous(), seeds, n_bins)
+
+
+def bin_parity_xorsum(elems: torch.Tensor, *, n_bins: int, seed: int):
+    """One set of uint32 keys (``(E,)`` int32 bit patterns, every entry a
+    member) -> ``(parity (n_bins,) int32, xors (n_bins,) int32 bit
+    patterns)``, binned by ``mix32(e, seed) % n_bins``.  One kernel launch
+    on a CUDA tensor.  The reference returns ``(n_bins, 32)`` bit planes;
+    the folds come back packed here, as ``encode_group`` keeps them."""
+    if not 0 < n_bins <= _MAX_BINS:
+        raise ValueError(f"n_bins={n_bins} outside (0, {_MAX_BINS}]")
+    if elems.device.type != "cuda":
+        return bin_parity_xorsum_plain(elems, n_bins=n_bins, seed=seed)
+    dev = elems.device
+    require(elems, "elems", torch.int32, 1, dev)
+    E = elems.shape[0]
+    fn = load_kernel_lib("bin_xorsum").bin_parity_xorsum_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_uint, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    parity = torch.zeros(n_bins, dtype=torch.int32, device=dev)
+    xors = torch.zeros(n_bins, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = fn(elems.data_ptr(), int(seed) & _M32, parity.data_ptr(), xors.data_ptr(),
+                E, n_bins, current_stream_ptr())
+    check_launch("bin_parity_xorsum", rc)
+    count_launch("bin_parity_xorsum", (E, n_bins))
+    return parity, xors

@@ -1,5 +1,7 @@
 """Wrappers tying the kernels to PBS protocol semantics.
 
+* ``encode_group``       — parity bitmap + bin XOR folds + BCH sketch for one
+                           set: ``bin_parity_xorsum`` + ``sketch_groups``.
 * ``encode_groups``      — batched encode over U packed units with ragged
                            element counts (padded rows + valid masks) and
                            per-unit bin seeds: ``bin_parity_xorsum_units`` +
@@ -14,6 +16,8 @@
                            data-dependent control; DESIGN.md §3).  Plain
                            tensor ops on the tensors' device.
 * ``tow_estimate``       — ToW sketches via the tow_sketch kernel.
+* ``chien_eval_matmul``  — whole-field locator evaluation as one GF(2)
+                           matmul against the Chien matrix.
 
 Constant tables (syndrome matrices, GF log/exp tables) are built on the
 host once per code and cached on the device per ``(code, device)``.
@@ -24,7 +28,7 @@ import numpy as np
 import torch
 
 from ..core.bch import BCHCode, bch_code
-from .bin_xorsum import bin_parity_xorsum_units
+from .bin_xorsum import bin_parity_xorsum, bin_parity_xorsum_units
 from .gf2_matmul import gf2_matmul
 from .platform import note_variant
 from .tow_sketch import tow_sketch
@@ -87,6 +91,13 @@ def sketch_groups_range(bitmaps: torch.Tensor, code: BCHCode, t0: int) -> torch.
     )
     bits = gf2_matmul(bitmaps.to(torch.int32), P)
     return pack_bits_to_field(bits, code.m)
+
+
+def encode_group(elems: torch.Tensor, code: BCHCode, seed: int):
+    """Full PBS encode of one group: (parity bitmap (n,) int32, bin XOR sums
+    (n,) int32 bit patterns, sketch (t,) int32)."""
+    parity, xors = bin_parity_xorsum(elems, n_bins=code.n, seed=seed)
+    return parity, xors, sketch_groups(parity[None, :], code)[0]
 
 
 def encode_groups(
@@ -213,3 +224,17 @@ def bch_decode_batched(sketches: torch.Tensor, *, n: int, t: int):
     count = torch.where(expose, count, 0)
     pos = torch.where(expose[:, None], pos, -1)
     return ok, pos.to(torch.int32), count.to(torch.int32)
+
+
+def chien_eval_matmul(locator_bits: torch.Tensor, code: BCHCode) -> torch.Tensor:
+    """Whole-field locator evaluation as one GF(2) matmul.
+
+    locator_bits: (U, (t+1)*m) 0/1 -> eval bits (U, n, m) int32; rows of
+    zeros are roots.
+    """
+    C = _cached(
+        ("chien", code.n, code.t), locator_bits.device,
+        lambda: code.field.chien_matrix(code.t).astype(np.int32),
+    )
+    ev = gf2_matmul(locator_bits.to(torch.int32).contiguous(), C)
+    return ev.reshape(ev.shape[0], code.n, code.m)

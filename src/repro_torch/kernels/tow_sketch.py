@@ -6,8 +6,10 @@ contract is validated for this family by the reference's kernel tests).
 
 On CUDA tensors the hand-written kernel ``csrc/tow_sketch.cu`` runs; on CPU
 tensors ``tow_sketch_plain`` runs.  A CUDA tensor launches the kernel or
-raises.  The kernel has a row axis, so ``tow_sketch_rows`` sketches R
-padded rows in one launch; ``tow_sketch`` is its single-row form.
+raises.  The kernel has a row axis: ``launch_rows`` sketches R padded rows
+in one launch, and both ``tow_sketch`` (one row) and the tree front end's
+``tree_digest`` (R range rows) launch through it, each counting its own
+launches.
 """
 from __future__ import annotations
 
@@ -25,35 +27,43 @@ from .platform import (
     require,
 )
 
-_PLAIN_CHUNK = 1 << 15   # keys per step of the plain version's (chunk, ell) temporaries
+_PLAIN_KEYS = 1 << 22   # keys per step of the plain version's temporaries
+
+
+def sketch_rows_plain(
+    elems: torch.Tensor, valid: torch.Tensor, seeds: torch.Tensor
+) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: ``(R, E)`` rows and mask ->
+    ``(R, ell)`` int32 sketches, blocks of rows at a time, one pass over the
+    block per seed."""
+    R, E = elems.shape
+    s = as_u32(seeds)
+    out = torch.zeros((R, seeds.shape[0]), dtype=torch.int64, device=elems.device)
+    step = max(1, _PLAIN_KEYS // max(E, 1))
+    for r0 in range(0, R, step):
+        h1 = mix32(elems[r0 : r0 + step], 0x5EED)
+        v = (valid[r0 : r0 + step] != 0).to(torch.int64)
+        for i in range(seeds.shape[0]):
+            signs = 1 - 2 * (mix32(h1 ^ s[i], 0x7077) & 1)
+            out[r0 : r0 + step, i] = (signs * v).sum(dim=1)
+    return out.to(torch.int32)
 
 
 def tow_sketch_plain(
     elems: torch.Tensor, seeds: torch.Tensor, valid: torch.Tensor | None = None
 ) -> torch.Tensor:
     """Plain PyTorch version of ``tow_sketch`` (same returns)."""
-    s = as_u32(seeds)[None, :]
-    out = torch.zeros(seeds.shape[0], dtype=torch.int64, device=elems.device)
-    for lo in range(0, elems.shape[0], _PLAIN_CHUNK):
-        h1 = mix32(elems[lo : lo + _PLAIN_CHUNK], 0x5EED)[:, None]
-        signs = 1 - 2 * (mix32(h1 ^ s, 0x7077) & 1)
-        if valid is not None:
-            signs = signs * (valid[lo : lo + _PLAIN_CHUNK] != 0).to(torch.int64)[:, None]
-        out += signs.sum(dim=0)
-    return out.to(torch.int32)
+    if valid is None:
+        valid = torch.ones(elems.shape, dtype=torch.bool, device=elems.device)
+    return sketch_rows_plain(elems[None, :], valid[None, :], seeds)[0]
 
 
-def tow_sketch_rows(
+def launch_rows(
     elems: torch.Tensor, seeds: torch.Tensor, valid: torch.Tensor | None = None
 ) -> torch.Tensor:
-    """(R, E) padded key rows -> (R, ell) int32 sketches, one launch."""
-    if elems.device.type != "cuda":
-        out = torch.zeros((elems.shape[0], seeds.shape[0]), dtype=torch.int32)
-        for r in range(elems.shape[0]):
-            out[r] = tow_sketch_plain(
-                elems[r], seeds, None if valid is None else valid[r]
-            )
-        return out
+    """(R, E) padded key rows on the card -> (R, ell) int32 sketches in one
+    launch of ``csrc/tow_sketch.cu``.  Counts nothing: each public wrapper
+    ledgers the launch under its own name."""
     dev = elems.device
     require(elems, "elems", torch.int32, 2, dev)
     require(seeds, "seeds", torch.int32, 1, dev)
@@ -76,7 +86,6 @@ def tow_sketch_rows(
         rc = fn(elems.data_ptr(), vptr, seeds.data_ptr(), out.data_ptr(),
                 R, E, ell, current_stream_ptr())
     check_launch("tow_sketch", rc)
-    count_launch("tow_sketch", (R, E, ell))
     return out
 
 
@@ -100,6 +109,6 @@ def tow_sketch(
     note_variant("tow_sketch", (elems.shape[0], ell, valid is not None))
     if elems.device.type != "cuda":
         return tow_sketch_plain(elems, seeds, valid)
-    return tow_sketch_rows(
-        elems[None, :], seeds, None if valid is None else valid[None, :]
-    )[0]
+    out = launch_rows(elems[None, :], seeds, None if valid is None else valid[None, :])
+    count_launch("tow_sketch", (1, elems.shape[0], ell))
+    return out[0]

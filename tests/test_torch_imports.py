@@ -23,6 +23,7 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
     proc = _run("""
         import sys
         import repro_torch.recon, repro_torch.kernels, repro_torch.obs, repro_torch.core.pbs
+        import repro_torch.tree, repro_torch.wire
         bad = sorted(
             m for m in sys.modules
             if m == "jax" or m.startswith("jax.") or m == "jaxlib"
@@ -49,26 +50,52 @@ def test_sources_name_no_jax_import():
 
 
 def test_every_kernel_has_source_and_plain_version():
+    """K1-K5: each wrapper's C entry point is in a ``csrc`` source, and each
+    kernel has its plain version beside the wrapper."""
     from repro_torch.kernels import platform
-    from repro_torch.kernels.bin_xorsum import bin_parity_xorsum_units_plain
+    from repro_torch.kernels.bin_xorsum import (
+        bin_parity_xorsum_plain,
+        bin_parity_xorsum_units_plain,
+    )
     from repro_torch.kernels.gf2_matmul import gf2_matmul_plain
     from repro_torch.kernels.tow_sketch import tow_sketch_plain
+    from repro_torch.kernels.tree_digest import tree_digest_plain
 
     stems = sorted(p.stem for p in platform.CSRC.glob("*.cu"))
-    assert stems == ["bin_xorsum_units", "gf2_matmul", "tow_sketch"]
-    for plain in (bin_parity_xorsum_units_plain, gf2_matmul_plain, tow_sketch_plain):
+    assert stems == ["bin_xorsum", "gf2_matmul", "tow_sketch"]
+    entry_points = {
+        "bin_xorsum": ["bin_xorsum_units_launch", "bin_parity_xorsum_launch"],
+        "gf2_matmul": ["gf2_matmul_launch"],
+        "tow_sketch": ["tow_sketch_launch"],
+    }
+    for stem, names in entry_points.items():
+        text = (platform.CSRC / f"{stem}.cu").read_text()
+        for name in names:
+            assert f'extern "C" int {name}(' in text, (stem, name)
+    for plain in (bin_parity_xorsum_units_plain, bin_parity_xorsum_plain,
+                  gf2_matmul_plain, tow_sketch_plain, tree_digest_plain):
         assert callable(plain)
 
 
 def test_no_device_argument_raises_without_a_card():
+    import numpy as np
+
     from repro_torch.kernels.platform import resolve_device
     from repro_torch.recon import ReconcileServer, phase0_numerators, reconcile_batch
+    from repro_torch.tree import TreeConfig, level_digests, partition_pair, tree_reconcile
 
     if torch.cuda.is_available():
         assert ReconcileServer().device.type == "cuda"
         return
     with pytest.raises(RuntimeError, match="CUDA"):
         ReconcileServer()
+    keys = np.arange(1, 50, dtype=np.uint32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        partition_pair(keys, keys[1:])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tree_reconcile(keys, keys[1:])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        level_digests(keys, [(0, 1 << 32)], TreeConfig())
     with pytest.raises(RuntimeError, match="CUDA"):
         reconcile_batch([])
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -82,8 +109,10 @@ def test_cuda_tensor_path_never_takes_the_plain_version():
     """The wrappers dispatch on the tensor's device only: with no card, a
     build attempt for a CUDA tensor cannot be reached, and nothing in the
     wrapper modules catches an exception to carry on."""
-    root = Path(SRC) / "repro_torch" / "kernels"
-    for name in ("bin_xorsum.py", "gf2_matmul.py", "tow_sketch.py", "platform.py"):
+    root = Path(SRC) / "repro_torch"
+    for name in ("kernels/bin_xorsum.py", "kernels/gf2_matmul.py", "kernels/tow_sketch.py",
+                 "kernels/tree_digest.py", "kernels/ops.py", "kernels/platform.py",
+                 "tree/partition.py"):
         text = (root / name).read_text()
         assert "try:" not in text and "except" not in text, name
 

@@ -1,4 +1,4 @@
-"""K1-K3 of the port on the CPU: plain PyTorch version == JAX wrapper (the
+"""K1-K5 of the port on the CPU: plain PyTorch version == JAX wrapper (the
 Pallas kernel in interpret mode) == numpy oracle (kernels/ref.py), exactly.
 
 On CPU tensors each wrapper of the port runs its kernel's plain version, so
@@ -11,18 +11,23 @@ import numpy as np
 import pytest
 import torch
 
-from repro.core.bch import BCHCode
+from repro.core.bch import BCHCode, sketch_from_positions
 from repro.core.hashing import hash_to_range
 from repro.kernels import ref
+from repro.kernels.bin_xorsum import bin_parity_xorsum as bin_parity_xorsum_jax
 from repro.kernels.bin_xorsum import bin_parity_xorsum_units as units_jax
 from repro.kernels.bin_xorsum import xor_bits_to_u32 as xor_bits_to_u32_jax
 from repro.kernels.gf2_matmul import gf2_matmul as gf2_matmul_jax
+from repro.kernels.ops import chien_eval_matmul as chien_eval_matmul_jax
+from repro.kernels.ops import encode_group as encode_group_jax
 from repro.kernels.ops import sketch_groups as sketch_groups_jax
 from repro.kernels.ops import sketch_groups_range as sketch_groups_range_jax
 from repro.kernels.tow_sketch import tow_sketch as tow_sketch_jax
 from repro_torch.core.bch import BCHCode as BCHCodePort
 from repro_torch.kernels import ref as ref_port
 from repro_torch.kernels.bin_xorsum import (
+    bin_parity_xorsum,
+    bin_parity_xorsum_plain,
     bin_parity_xorsum_units,
     bin_parity_xorsum_units_plain,
     mix32,
@@ -32,13 +37,17 @@ from repro_torch.kernels.bin_xorsum import (
 )
 from repro_torch.kernels.gf2_matmul import gf2_matmul, gf2_matmul_plain
 from repro_torch.kernels.ops import (
+    bch_decode_batched,
+    chien_eval_matmul,
+    encode_group,
     encode_groups,
     pack_bits_to_field,
     sketch_groups,
     sketch_groups_range,
 )
 from repro_torch.kernels.platform import upload
-from repro_torch.kernels.tow_sketch import tow_sketch, tow_sketch_plain, tow_sketch_rows
+from repro_torch.kernels.tow_sketch import tow_sketch, tow_sketch_plain
+from repro_torch.kernels.tree_digest import tree_digest
 
 torch.set_num_threads(1)
 CPU = torch.device("cpu")
@@ -46,6 +55,12 @@ CPU = torch.device("cpu")
 
 def _u32(t: torch.Tensor) -> np.ndarray:
     return t.numpy().view(np.uint32)
+
+
+def _bit_planes(xors: torch.Tensor) -> np.ndarray:
+    """(...,) int32 bit patterns of the folds -> (..., 32) 0/1 int32 bit
+    planes, the reference's form (the inverse of ``xor_bits_to_u32``)."""
+    return ((_u32(xors)[..., None] >> np.arange(32, dtype=np.uint32)) & 1).astype(np.int32)
 
 
 def _keys(rng, size):
@@ -83,6 +98,7 @@ def test_xor_bits_to_u32_matches_jax():
     bits = np.random.default_rng(1).integers(0, 2, size=(5, 7, 32)).astype(np.int32)
     got = _u32(xor_bits_to_u32(torch.from_numpy(bits)))
     assert np.array_equal(got, np.asarray(xor_bits_to_u32_jax(jnp.asarray(bits))))
+    assert np.array_equal(_bit_planes(upload(got, CPU)), bits)
 
 
 # ---- K1: bin_parity_xorsum_units -------------------------------------------
@@ -227,5 +243,108 @@ def test_tow_sketch_valid_mask_at_bucketed_length():
         jnp.asarray(elems), jnp.asarray(seeds), jnp.asarray(valid), ell=ell
     )
     assert np.array_equal(np.asarray(got_jax), exp)
-    rows = tow_sketch_rows(te[None, :], ts, torch.from_numpy(valid)[None, :])
+    # the row form (the tree front end's tree_digest) agrees at one row
+    rows = tree_digest(te[None, :], torch.from_numpy(valid)[None, :], ts, ell=ell)
     assert np.array_equal(rows[0].numpy(), exp)
+
+
+# ---- K5: bin_parity_xorsum (single set, mod-n bins) ---------------------------
+
+
+def _bin_parity_xorsum_three_way(elems, n_bins, seed):
+    p_ref, xb_ref, x_ref = ref.bin_parity_xorsum_ref(elems, n_bins, seed)
+    p_jax, xb_jax = bin_parity_xorsum_jax(jnp.asarray(elems), n_bins=n_bins, seed=seed)
+    te = upload(elems, CPU)
+    parity, xors = bin_parity_xorsum(te, n_bins=n_bins, seed=seed)
+    assert parity.dtype == torch.int32 and xors.dtype == torch.int32
+    assert parity.shape == (n_bins,) and xors.shape == (n_bins,)
+    xor_bits = _bit_planes(xors)
+    for got, exp in ((parity.numpy(), p_ref), (xor_bits, xb_ref),
+                     (parity.numpy(), np.asarray(p_jax)), (xor_bits, np.asarray(xb_jax))):
+        assert np.array_equal(got, exp)
+    assert np.array_equal(_u32(xors), x_ref)
+    p3, x3 = bin_parity_xorsum_plain(te, n_bins=n_bins, seed=seed)
+    assert torch.equal(p3, parity) and torch.equal(x3, xors)
+    p4, xb4, x4 = ref_port.bin_parity_xorsum_ref(elems, n_bins, seed)
+    assert np.array_equal(p4, p_ref) and np.array_equal(xb4, xb_ref)
+    assert np.array_equal(x4, x_ref)
+    return parity, xors
+
+
+@pytest.mark.parametrize("n_bins", [63, 127, 255, 1023])
+@pytest.mark.parametrize("n_elems", [1, 100, 1000, 5000])
+def test_bin_parity_xorsum_sweep(n_bins, n_elems):
+    rng = np.random.default_rng(n_bins + n_elems)
+    elems = rng.integers(1, 1 << 32, size=n_elems, dtype=np.uint64).astype(np.uint32)
+    _bin_parity_xorsum_three_way(elems, n_bins, 42)
+
+
+@pytest.mark.parametrize("seed", [0, 7, 0xFFFFFFFF])
+def test_bin_parity_xorsum_key_zero_flips_parity_only(seed):
+    """A real key 0 is a member: its bin's parity flips, its fold does not
+    change (the reference pads with a mask, not with zeros)."""
+    rng = np.random.default_rng(3)
+    elems = np.concatenate([[0, 0x80000000, 0xFFFFFFFF], _keys(rng, 997)]).astype(np.uint32)
+    parity, xors = _bin_parity_xorsum_three_way(elems, 127, seed)
+    p_wo, x_wo, _ = ref.bin_parity_xorsum_ref(elems[1:], 127, seed)
+    zero_bin = int(ref.mix32_ref(np.zeros(1, np.uint32), seed)[0] % 127)
+    assert parity[zero_bin] != p_wo[zero_bin]
+    assert np.array_equal(np.delete(parity.numpy(), zero_bin), np.delete(p_wo, zero_bin))
+    assert np.array_equal(_bit_planes(xors), x_wo)
+
+
+def test_bin_parity_xorsum_rejects_too_many_bins():
+    with pytest.raises(ValueError, match="n_bins"):
+        bin_parity_xorsum(torch.zeros(4, dtype=torch.int32), n_bins=28001, seed=1)
+
+
+def test_encode_group_end_to_end():
+    code, code_p = BCHCode(127, 9), BCHCodePort(127, 9)
+    rng = np.random.default_rng(1)
+    elems = rng.integers(1, 1 << 32, size=500, dtype=np.uint64).astype(np.uint32)
+    parity, xors, sketch = encode_group(upload(elems, CPU), code_p, seed=3)
+    p_jax, x_jax, sk_jax = encode_group_jax(jnp.asarray(elems), code, seed=3)
+    p_ref, _, xors_ref = ref.bin_parity_xorsum_ref(elems, 127, 3)
+    assert np.array_equal(parity.numpy(), p_ref) and np.array_equal(_u32(xors), xors_ref)
+    assert np.array_equal(parity.numpy(), np.asarray(p_jax))
+    assert np.array_equal(_u32(xors), np.asarray(x_jax))
+    assert np.array_equal(sketch.numpy(), np.asarray(sk_jax))
+    assert np.array_equal(sketch.numpy(), sketch_from_positions(code, np.nonzero(p_ref)[0]))
+
+
+def test_chien_matmul_finds_roots():
+    code, code_p = BCHCode(127, 7), BCHCodePort(127, 7)
+    gf = code.field
+    rng = np.random.default_rng(2)
+    pos = rng.choice(127, size=5, replace=False)
+    lam = np.zeros(8, dtype=np.int64)      # Lambda(x) = prod (1 - alpha^p x)
+    lam[0] = 1
+    for p in pos:
+        nxt = lam.copy()
+        nxt[1:] ^= gf.mul(lam[:-1], gf.pow_alpha(p))
+        lam = nxt
+    bits = np.stack([gf.to_bits(lam).reshape(-1), rng.integers(0, 2, 8 * 7)]).astype(np.int32)
+    ev = chien_eval_matmul(torch.from_numpy(bits), code_p)
+    assert ev.shape == (2, 127, 7) and ev.dtype == torch.int32
+    assert np.array_equal(ev.numpy(), np.asarray(chien_eval_matmul_jax(jnp.asarray(bits), code)))
+    roots = np.nonzero(~ev[0].numpy().any(axis=1))[0]
+    assert set(roots.tolist()) == set(pos.tolist())
+
+
+def test_kernel_pipeline_vs_protocol_roundtrip():
+    """encode_group on both sides -> XOR of sketches -> batched decode ->
+    bins recover the difference, as the reference's pipeline does."""
+    code, code_p = BCHCode(255, 11), BCHCodePort(255, 11)
+    rng = np.random.default_rng(3)
+    base = np.unique(rng.integers(1, 1 << 32, size=4000, dtype=np.uint64).astype(np.uint32))
+    a, b = base, base[:-6]
+    pa, xa, ska = encode_group(upload(a, CPU), code_p, seed=11)
+    pb, xb, skb = encode_group(upload(b, CPU), code_p, seed=11)
+    for got, exp in zip((pa, xa, ska, pb, xb, skb),
+                        (*encode_group_jax(jnp.asarray(a), code, seed=11),
+                         *encode_group_jax(jnp.asarray(b), code, seed=11))):
+        assert np.array_equal(got.numpy().view(np.uint32), np.asarray(exp).view(np.uint32))
+    ok, pos, cnt = bch_decode_batched((ska ^ skb)[None, :], n=255, t=11)
+    assert bool(ok[0])
+    recovered = {int(_u32(xa ^ xb)[p]) for p in pos[0][: int(cnt[0])].tolist()}
+    assert len(recovered & (set(a.tolist()) ^ set(b.tolist()))) >= 4
