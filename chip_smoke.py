@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--sessions-per-d 7] [--size 1000000] [--seed 0]
+    python3 chip_smoke.py [--sessions-per-d 7] [--size 1000000] [--seed 0] [--out PATH]
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``,
 holds each against its plain PyTorch version on the card (exact equality —
@@ -22,7 +22,12 @@ Every result is compared with the package's own numpy oracle
 ``core.pbs.reconcile`` (per session, per tree leaf) and with the true set
 difference.  Last, every kernel is compared with its plain version, timed
 and held against its bound at exactly the shapes its path launched it at
-(read from the launch ledger).
+(read from the launch ledger).  Each shape gets two times: ``ms``, CUDA
+events around the wrapper (host issue included), and ``device_ms``, the
+kernel's own duration from ``torch.profiler`` (or a CUDA-graph replay where
+the profiler records none; ``device_ms_by`` says which).  Bounds count one
+bit per 0/1 entry (parity bitmaps, K2's A, B and C).  K1 and K2 are measured
+through the packed entries the main path calls.
 
 Each phase prints one JSON line; any failed phase raises and the process
 exits non-zero.  The last line of standard output is
@@ -57,9 +62,21 @@ from repro_torch.kernels.bin_xorsum import (  # noqa: E402
     bin_parity_xorsum,
     bin_parity_xorsum_plain,
     bin_parity_xorsum_units,
+    bin_parity_xorsum_units_packed,
+    bin_parity_xorsum_units_packed_plain,
     bin_parity_xorsum_units_plain,
 )
-from repro_torch.kernels.gf2_matmul import gf2_matmul, gf2_matmul_plain  # noqa: E402
+from repro_torch.kernels.gf2_matmul import (  # noqa: E402
+    gf2_matmul,
+    gf2_matmul_packed,
+    gf2_matmul_packed_plain,
+    gf2_matmul_plain,
+    pack_bits,
+    pack_bits_plain,
+    pack_columns,
+    packed_words,
+    unpack_bits,
+)
 from repro_torch.kernels.ops import (  # noqa: E402
     bch_decode_batched,
     encode_group,
@@ -114,20 +131,44 @@ KERNELS = {
         "source": "src/repro_torch/kernels/csrc/bin_xorsum.cu",
         "replaces": "src/repro/kernels/bin_xorsum.py:109",
     },
+    # packs 0/1 rows for K2 where they do not come packed out of K1
+    # (encode_group's K5 parity); part of the reference's gf2_matmul
+    "gf2_pack_bits": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/gf2_matmul.cu",
+        "replaces": "src/repro/kernels/gf2_matmul.py:70",
+    },
+}
+# the CUDA kernel symbols each wrapper launches, as the profiler names them
+SYMBOLS = {
+    "bin_xorsum_units": ("short_rows_kernel", "long_rows_kernel"),
+    "gf2_matmul": ("gf2_tile_kernel", "gf2_warp_kernel"),
+    "tow_sketch": ("tow_sketch_kernel",),
+    "tree_digest": ("tow_sketch_kernel",),
+    "bin_parity_xorsum": ("long_rows_kernel",),
+    "gf2_pack_bits": ("gf2_pack_kernel",),
 }
 # the kernels each path must launch, and the path whose run gives each
 # kernel's `launches` in the `kernels` line
 PATHS = {
     "serve": ("bin_xorsum_units", "gf2_matmul", "tow_sketch"),
     "tree": ("tree_digest", "bin_xorsum_units", "gf2_matmul"),
-    "encode_group": ("bin_parity_xorsum", "gf2_matmul"),
+    "encode_group": ("bin_parity_xorsum", "gf2_pack_bits", "gf2_matmul"),
 }
 HOME_PATH = {"bin_xorsum_units": "serve", "gf2_matmul": "serve", "tow_sketch": "serve",
-             "tree_digest": "tree", "bin_parity_xorsum": "encode_group"}
+             "tree_digest": "tree", "bin_parity_xorsum": "encode_group",
+             "gf2_pack_bits": "encode_group"}
+
+
+_OUT = []     # files that receive every JSON line besides standard output
 
 
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    line = json.dumps(obj)
+    print(line, flush=True)
+    for f in _OUT:
+        f.write(line + "\n")
+        f.flush()
 
 
 def sh(cmd) -> str:
@@ -150,6 +191,50 @@ def times_ms(fn, reps: int) -> list:
 def time_ms(fn, reps: int) -> float:
     """Mean device time of ``fn`` over ``reps`` calls after one warm-up."""
     return float(np.mean(times_ms(fn, reps)))
+
+
+def device_ms(fn, name: str, reps: int = 20) -> dict:
+    """Device time per call of ``fn``, which launches kernel ``name`` once:
+    the mean CUDA duration of its symbols (``SYMBOLS[name]``) over the
+    launches ``torch.profiler`` recorded in ``reps`` calls (it may keep
+    fewer than ``reps``; how many is returned).  Where it records none, a
+    CUDA graph of 50 calls is replayed between two events instead.  Returns
+    the time and the method that gave it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us, calls = 0.0, 0
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA and any(k in ev.key for k in SYMBOLS[name]):
+            us = getattr(ev, "self_device_time_total", None)
+            total_us += us if us is not None else getattr(ev, "self_cuda_time_total", 0)
+            calls += ev.count
+    if calls > 0 and total_us > 0:
+        return {"device_ms": total_us / calls / 1e3, "device_ms_by": "profiler",
+                "profiled_launches": calls}
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(50):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return {"device_ms": start.elapsed_time(end) / 50, "device_ms_by": "cuda_graph_replay"}
 
 
 def dev_u32(arr: np.ndarray) -> torch.Tensor:
@@ -188,19 +273,39 @@ def k1_case(rng, U, E, n_bins, fill="ragged"):
 
 def check_k1(case, n_bins):
     """Largest difference between the kernel and its plain version on
-    ``case``; a fully masked row must come back all zero."""
+    ``case``, packed entry and the reference contract both; a fully masked
+    row (a padding unit) must come back all zero, and the pad bits of the
+    last parity word must be 0."""
     elems, valid, seeds, _ = case
-    p, x = bin_parity_xorsum_units(elems, valid, seeds, n_bins=n_bins)
-    pp, xp = bin_parity_xorsum_units_plain(elems, valid, seeds, n_bins=n_bins)
+    w, x = bin_parity_xorsum_units_packed(elems, valid, seeds, n_bins=n_bins)
+    wp, xp = bin_parity_xorsum_units_packed_plain(elems, valid, seeds, n_bins=n_bins)
+    p, x2 = bin_parity_xorsum_units(elems, valid, seeds, n_bins=n_bins)
+    pu, xu = bin_parity_xorsum_units_plain(elems, valid, seeds, n_bins=n_bins)
     masked = ~valid.any(dim=1)
-    assert not bool(p[masked].any()) and not bool(x[masked].any()), "masked row not zero"
-    return max_err((p, pp), (x, xp))
+    assert not bool(w[masked].any()) and not bool(x[masked].any()), "masked row not zero"
+    if n_bins % 32 and w.numel():
+        pad = (w[:, -1].to(torch.int64) & 0xFFFFFFFF) >> (n_bins % 32)
+        assert not bool(pad.any()), "pad bits of the last parity word set"
+    return max_err((w, wp), (x, xp), (p, pu), (x2, xu), (unpack_bits(w, n_bins), pu))
 
 
 def k2_case(rng, M, K, N):
+    """0/1 A (M, K) and B (K, N) on the card, and both packed (A per row, B
+    per column) with the packing kernel."""
     a = torch.from_numpy(rng.integers(0, 2, (M, K)).astype(np.int32)).to(DEV)
     b = torch.from_numpy(rng.integers(0, 2, (K, N)).astype(np.int32)).to(DEV)
-    return a, b
+    return a, b, pack_bits(a), pack_columns(b)
+
+
+def check_k2(case):
+    """The packed kernel against its plain version, the public contract
+    against the plain product, and the packing kernel against its plain
+    version on both operands."""
+    a, b, aw, bt = case
+    k = a.shape[1]
+    return max_err((gf2_matmul_packed(aw, bt, k), gf2_matmul_packed_plain(aw, bt, k)),
+                   (gf2_matmul(a, b), gf2_matmul_plain(a, b)),
+                   (aw, pack_bits_plain(a)), (bt, pack_bits_plain(b.t())))
 
 
 def k3_case(rng, E, ell, n_valid=None):
@@ -260,20 +365,43 @@ def kernel_sweeps(rng):
     sweeps of the CPU tests (and a few larger ones), exact equality."""
     checks = []
 
+    # K1 and K2: the cases of earlier runs draw from ``rng`` in their old
+    # order, the cases added since from ``extra``, so the paths' data after
+    # the sweeps stay those of earlier runs (the serve ledger depends on them)
+    extra = np.random.default_rng(rng.bit_generator.seed_seq.spawn(1)[0])   # draws nothing
+
+    # K1: short rows (odd widths load scalar, E = 0 still writes zeros, U
+    # not a multiple of the rows a block holds), rows just past the short
+    # limit, long rows over one whole cluster and over more than a cluster
+    # covers in one pass; row 1 fully masked (a padding unit) wherever U > 1
     err, shapes = 0, []
     for n_bins in (63, 127, 8191, 16383):
         for U, E in ((6, 257), (3, 1), (16, 5000), (5, 20011)):
             err = max(err, check_k1(k1_case(rng, U, E, n_bins), n_bins))
             shapes.append([U, E, n_bins])
+    short = ((3, 0), (13, 1000), (16, 4096), (9, 4097))
+    long_ = ((2, 524296), (1, 2_000_000), (33, 65540))
+    for n_bins in (63, 127, 255, 511, 8191, 16383):
+        for U, E in short + (long_ if n_bins in (63, 511, 8191) else ()):
+            err = max(err, check_k1(k1_case(extra, U, E, n_bins), n_bins))
+            shapes.append([U, E, n_bins])
     checks.append({"name": "bin_xorsum_units", "shapes": shapes, "equal": err == 0})
 
+    # K2 in both regimes (tile: M >= 256 and K <= 2048; warp otherwise),
+    # M = 1 and M = 2U, K not a multiple of 32, ragged row and column tiles;
+    # the packing kernel on every operand
     err = 0
     shapes = [[1, 127, 91], [8, 255, 88], [17, 511, 153], [64, 1023, 110],
               [3, 2047, 187], [130, 300, 260], [5, 64, 640], [100, 700, 200],
               [70, 16383, 28]]
+    added = [[1, 8191, 208], [2, 511, 90], [32768, 511, 90], [300, 511, 90],
+             [1000, 2047, 300], [257, 33, 5], [256, 64, 1], [4096, 63, 42],
+             [520, 2048, 257], [600, 2049, 70]]
     for mm, kk, nn in shapes:
-        a, b = k2_case(rng, mm, kk, nn)
-        err = max(err, max_err((gf2_matmul(a, b), gf2_matmul_plain(a, b))))
+        err = max(err, check_k2(k2_case(rng, mm, kk, nn)))
+    for mm, kk, nn in added:
+        err = max(err, check_k2(k2_case(extra, mm, kk, nn)))
+    shapes += added
     checks.append({"name": "gf2_matmul", "shapes": shapes, "equal": err == 0})
 
     err, shapes = 0, []
@@ -333,20 +461,27 @@ def masked_bound(n_valid: int, cells: int, other_bytes: int, ops_per_key: int) -
 
 def k1_report(rng, launched):
     """K1 at every ``(U, E, n)`` one path launched it at (``launched``, read
-    from the launch ledger just after that path's run): compared with its
-    plain version, timed and held against its bound.  The headline is the
-    largest launch; ``long_rows`` the launch with the longest rows."""
+    from the launch ledger just after that path's run): the packed entry the
+    path calls, compared with its plain version, timed (events over the
+    wrapper, and device time) and held against its one-bit bound: the
+    parity leaves as n bits a row.  The headline is the largest launch;
+    ``long_rows`` the launch with the longest rows."""
     biggest = max(launched, key=lambda k: k[0] * k[1])
     rows, head_case = [], None
     for (U, E, n), count in sorted(launched.items()):
         case = k1_case(rng, U, E, n, fill="full")
         elems, valid, seeds, n_valid = case
+
+        def call():
+            return bin_parity_xorsum_units_packed(elems, valid, seeds, n_bins=n)
+
         err = check_k1(case, n)
-        ts = times_ms(lambda: bin_parity_xorsum_units(elems, valid, seeds, n_bins=n), 50)
+        ts = times_ms(call, 50)
         rows.append({
             "shape": [U, E, n], "valid": n_valid, "launches": count, "max_abs_err": err,
             "ms": float(np.mean(ts)), "ms_min": min(ts), "ms_median": float(np.median(ts)),
-            **masked_bound(n_valid, U * E, U * 4 + 2 * U * n * 4, K1_OPS_PER_KEY)})
+            **device_ms(call, "bin_xorsum_units"),
+            **masked_bound(n_valid, U * E, U * 4 + U * n * 4 + U * n / 8, K1_OPS_PER_KEY)})
         if (U, E, n) == biggest:
             head_case = case
     del case, elems, valid, seeds
@@ -356,9 +491,9 @@ def k1_report(rng, launched):
     return {
         "shapes": {"elems": [U, E], "n_bins": n, "valid": head["valid"]},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": head["ms"],
+        "ms": head["ms"], "device_ms": head["device_ms"], "device_ms_by": head["device_ms_by"],
         "plain_ms": time_ms(
-            lambda: bin_parity_xorsum_units_plain(elems, valid, seeds, n_bins=n), 2),
+            lambda: bin_parity_xorsum_units_packed_plain(elems, valid, seeds, n_bins=n), 2),
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": None,
         "long_rows": max(rows, key=lambda r: r["shape"][1]),
@@ -366,28 +501,69 @@ def k1_report(rng, launched):
     }
 
 
+def k2_bound(M, K, N) -> dict:
+    """One bit per 0/1 entry of A, B and C, and 2 M K N operations at the
+    int8 tensor-core rate; beside it the time to write C as int32, the form
+    the port returns."""
+    return {**bound((M * K + K * N + M * N) / 8 / HBM_BYTES_PER_S,
+                    2 * M * K * N / INT8_TENSOR_OPS_PER_S),
+            "int32_c_ms": 1e3 * M * N * 4 / HBM_BYTES_PER_S}
+
+
 def k2_report(rng, launched):
-    """K2 at every ``(M, K, N)`` one path launched it at; headline: the
-    largest product."""
+    """K2 at every ``(M, K, N)`` one path launched it at: the packed entry on
+    packed operands, as the path calls it, against its plain version; event
+    and device time, one-bit bound, and the float matmul on the unpacked
+    matrices (the one PyTorch call computing the same function; used nowhere
+    in the port) at every shape.  Headline: the largest product."""
     rows = []
     for (M, K, N), count in sorted(launched.items()):
-        a, b = k2_case(rng, M, K, N)
-        err = max_err((gf2_matmul(a, b), gf2_matmul_plain(a, b)))
-        rows.append({"shape": [M, K, N], "launches": count, "max_abs_err": err,
-                     "ms": time_ms(lambda: gf2_matmul(a, b), 20),
-                     **bound((M * K + K * N + M * N) * 4 / HBM_BYTES_PER_S,
-                             2 * M * K * N / INT8_TENSOR_OPS_PER_S)})
+        a, b, aw, bt = case = k2_case(rng, M, K, N)
+
+        def call():
+            return gf2_matmul_packed(aw, bt, K)
+
+        rows.append({"shape": [M, K, N], "launches": count, "max_abs_err": check_k2(case),
+                     "ms": time_ms(call, 20), **device_ms(call, "gf2_matmul"),
+                     "plain_ms": time_ms(lambda: gf2_matmul_packed_plain(aw, bt, K), 5),
+                     "library_ms": time_ms(lambda: (a.float() @ b.float()) % 2, 5),
+                     **k2_bound(M, K, N)})
     head = max(rows, key=lambda r: r["shape"][0] * r["shape"][1] * r["shape"][2])
     M, K, N = head["shape"]
-    a, b = k2_case(rng, M, K, N)
     return {
-        "shapes": {"a": [M, K], "b": [K, N]},
+        "shapes": {"a": [M, K], "b": [K, N], "a_words": [M, packed_words(K)],
+                   "bt_words": [N, packed_words(K)]},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": head["ms"],
-        "plain_ms": time_ms(lambda: gf2_matmul_plain(a, b), 5),
-        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-        # the one PyTorch call computing the same function; used nowhere in the port
-        "library_ms": time_ms(lambda: (a.float() @ b.float()) % 2, 5),
+        **{k: head[k] for k in ("ms", "device_ms", "device_ms_by", "plain_ms",
+                                "bound_ms", "bound_by", "library_ms")},
+        "launched_shapes": rows,
+    }
+
+
+def pack_report(rng, launched):
+    """The packing kernel at every ``(R, K)`` one path launched it at,
+    against its plain version; bound: K 4-byte entries a row read, K bits
+    written."""
+    rows = []
+    for (R, K), count in sorted(launched.items()):
+        bits = torch.from_numpy(rng.integers(0, 2, (R, K)).astype(np.int32)).to(DEV)
+
+        def call():
+            return pack_bits(bits)
+
+        rows.append({"shape": [R, K], "launches": count,
+                     "max_abs_err": max_err((call(), pack_bits_plain(bits))),
+                     "ms": time_ms(call, 20), **device_ms(call, "gf2_pack_bits"),
+                     "plain_ms": time_ms(lambda: pack_bits_plain(bits), 5),
+                     **bound((R * K * 4 + R * packed_words(K) * 4) / HBM_BYTES_PER_S,
+                             R * K / ALU32_OPS_PER_S)})
+    head = max(rows, key=lambda r: r["shape"][0] * r["shape"][1])
+    return {
+        "shapes": {"bits": head["shape"]},
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        **{k: head[k] for k in ("ms", "device_ms", "device_ms_by", "plain_ms",
+                                "bound_ms", "bound_by")},
+        "library_ms": None,
         "launched_shapes": rows,
     }
 
@@ -403,6 +579,7 @@ def k3_report(rng, launched, set_size):
         rows.append({"shape": [1, E, ell], "valid": n_valid, "launches": count,
                      "max_abs_err": err,
                      "ms": time_ms(lambda: tow_sketch(e, s, v, ell=ell), 20),
+                     **device_ms(lambda: tow_sketch(e, s, v, ell=ell), "tow_sketch"),
                      **masked_bound(n_valid, E, 2 * ell * 4,
                                     MIX32_OPS + ell * K3_OPS_PER_KEY_SEED)})
     head = max(rows, key=lambda r: r["shape"][1])
@@ -411,7 +588,7 @@ def k3_report(rng, launched, set_size):
     return {
         "shapes": {"elems": [E], "ell": ell, "valid": head["valid"]},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": head["ms"],
+        "ms": head["ms"], "device_ms": head["device_ms"], "device_ms_by": head["device_ms_by"],
         "plain_ms": time_ms(lambda: tow_sketch_plain(e, s, v), 2),
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": None,
@@ -431,6 +608,7 @@ def k4_report(captured, launched):
         rows.append({
             "shape": [R, Ep, ell], "valid": n_valid, "launches": count, "max_abs_err": err,
             "ms": float(np.mean(ts)), "ms_min": min(ts),
+            **device_ms(lambda: tree_digest(elems, valid, seeds, ell=ell), "tree_digest"),
             **masked_bound(n_valid, valid.numel(), ell * 4 + R * ell * 4,
                            MIX32_OPS + ell * K3_OPS_PER_KEY_SEED)})
     head = max(rows, key=lambda r: r["shape"][0] * r["shape"][1])
@@ -438,7 +616,7 @@ def k4_report(captured, launched):
     return {
         "shapes": {"elems": head["shape"][:2], "ell": head["shape"][2], "valid": head["valid"]},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": head["ms"],
+        "ms": head["ms"], "device_ms": head["device_ms"], "device_ms_by": head["device_ms_by"],
         "plain_ms": time_ms(lambda: tree_digest_plain(elems, valid, seeds), 2),
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": None,
@@ -447,25 +625,32 @@ def k4_report(captured, launched):
 
 
 def k5_report(rng, launched):
-    """K5 at every ``(E, n)`` the encode_group path launched it at."""
+    """K5 at every ``(E, n)`` the encode_group path launched it at; bound:
+    every key read, the folds and one bit a bin written."""
     g = torch.Generator(device=DEV)
     g.manual_seed(int(rng.integers(1 << 62)))
     rows, cases = [], {}
     for (E, n), count in sorted(launched.items()):
         elems, seed = rand_i32(g, (E,)), int(rng.integers(1 << 32))
         cases[(E, n)] = (elems, seed)
-        ts = times_ms(lambda: bin_parity_xorsum(elems, n_bins=n, seed=seed), 50)
+
+        def call():
+            return bin_parity_xorsum(elems, n_bins=n, seed=seed)
+
+        ts = times_ms(call, 50)
         rows.append({
             "shape": [E, n], "launches": count, "max_abs_err": check_k5(elems, n, seed),
             "ms": float(np.mean(ts)), "ms_min": min(ts), "ms_median": float(np.median(ts)),
-            **bound((E * 4 + n * 8) / HBM_BYTES_PER_S, E * K1_OPS_PER_KEY / ALU32_OPS_PER_S)})
+            **device_ms(call, "bin_parity_xorsum"),
+            **bound((E * 4 + n * 4 + n / 8) / HBM_BYTES_PER_S,
+                    E * K1_OPS_PER_KEY / ALU32_OPS_PER_S)})
     head = max(rows, key=lambda r: r["shape"][0])
     elems, seed = cases[tuple(head["shape"])]
     n = head["shape"][1]
     return {
         "shapes": {"elems": [head["shape"][0]], "n_bins": n},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": head["ms"],
+        "ms": head["ms"], "device_ms": head["device_ms"], "device_ms_by": head["device_ms_by"],
         "plain_ms": time_ms(lambda: bin_parity_xorsum_plain(elems, n_bins=n, seed=seed), 5),
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": None,
@@ -486,6 +671,7 @@ def main_shape_phase(args, rng, launched, tree_inputs):
         "tow_sketch": lambda shapes: k3_report(rng, shapes, args.size),
         "tree_digest": lambda shapes: k4_report(tree_inputs, shapes),
         "bin_parity_xorsum": lambda shapes: k5_report(rng, shapes),
+        "gf2_pack_bits": lambda shapes: pack_report(rng, shapes),
     }
     report = {}
     for name, fn in reports.items():
@@ -866,10 +1052,16 @@ def main() -> None:
     ap.add_argument("--profile", metavar="PATH", default=None,
                     help="after the serve phase, profile one more run with "
                          "torch.profiler and write device time by kernel to PATH")
+    ap.add_argument("--out", metavar="PATH", default=None,
+                    help="also write every JSON line to PATH (the kernels line "
+                         "runs to tens of KB)")
     ap.add_argument("--kernels-only", action="store_true",
                     help="build the kernels and run their shape sweeps; skip the "
                          "serve phase and the measurements at its shapes")
     args = ap.parse_args()
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        _OUT.append(open(args.out, "w"))
     rng = np.random.default_rng(args.seed)
     t_start = time.perf_counter()
 

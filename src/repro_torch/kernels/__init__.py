@@ -9,12 +9,22 @@ from .bin_xorsum import (
     bin_parity_xorsum,
     bin_parity_xorsum_plain,
     bin_parity_xorsum_units,
+    bin_parity_xorsum_units_packed,
+    bin_parity_xorsum_units_packed_plain,
     bin_parity_xorsum_units_plain,
     mix32,
     mulshift_bins,
     xor_bits_to_u32,
 )
-from .gf2_matmul import gf2_matmul, gf2_matmul_plain
+from .gf2_matmul import (
+    gf2_matmul,
+    gf2_matmul_packed,
+    gf2_matmul_packed_plain,
+    gf2_matmul_plain,
+    pack_bits,
+    pack_bits_plain,
+    unpack_bits,
+)
 from .ops import (
     bch_decode_batched,
     chien_eval_matmul,
@@ -34,15 +44,21 @@ __all__ = [
     "bin_parity_xorsum",
     "bin_parity_xorsum_plain",
     "bin_parity_xorsum_units",
+    "bin_parity_xorsum_units_packed",
+    "bin_parity_xorsum_units_packed_plain",
     "bin_parity_xorsum_units_plain",
     "chien_eval_matmul",
     "encode_group",
     "encode_groups",
     "gf2_matmul",
+    "gf2_matmul_packed",
+    "gf2_matmul_packed_plain",
     "gf2_matmul_plain",
     "launch_counts",
     "mix32",
     "mulshift_bins",
+    "pack_bits",
+    "pack_bits_plain",
     "pack_bits_to_field",
     "reset_launch_counts",
     "resolve_device",
@@ -53,5 +69,6 @@ __all__ = [
     "tow_sketch_plain",
     "tree_digest",
     "tree_digest_plain",
+    "unpack_bits",
     "xor_bits_to_u32",
 ]

@@ -8,11 +8,19 @@ of the member keys come back.  ``bin_parity_xorsum`` is the single-set form
 behind ``ops.encode_group``, binning with the historical ``mix32(e, seed) %
 n`` (``ref.bin_parity_xorsum_ref``).
 
-On CUDA tensors the hand-written kernel ``csrc/bin_xorsum.cu`` runs (one
-body for both reductions: shared-memory ``atomicXor`` scatter, long rows
-split over several blocks); on CPU tensors the ``*_plain`` versions — the
-same functions in plain PyTorch ops — run.  The dispatch is on the tensors'
-device and nothing else: a CUDA tensor launches the kernel or raises.
+On CUDA tensors the hand-written kernels of ``csrc/bin_xorsum.cu`` run
+(shared-memory ``atomicXor`` scatter; short rows several to a block, long
+rows one thread-block cluster each); on CPU tensors the ``*_plain``
+versions — the same functions in plain PyTorch ops — run.  The dispatch is
+on the tensors' device and nothing else: a CUDA tensor launches the kernel
+or raises.
+
+``bin_parity_xorsum_units_packed`` is the entry of the main path.  It
+returns the parity bitmaps in the packed layout of ``kernels.gf2_matmul``
+(``(U, ceil(n/32))`` int32 words, bin b = bit b % 32 of word b // 32, pad
+bits 0), which ``ops.sketch_groups`` hands straight to the packed GF(2)
+product.  ``bin_parity_xorsum_units`` keeps the reference's ``(U, n)``
+contract by unpacking them.
 
 **uint32 convention.**  Keys, seeds and XOR folds live on the device as
 *int32 bit patterns* (torch's uint32 has no shifts).  The kernel
@@ -27,6 +35,7 @@ import ctypes
 
 import torch
 
+from .gf2_matmul import pack_bits_plain, packed_words, unpack_bits
 from .platform import (
     check_launch,
     count_launch,
@@ -113,10 +122,23 @@ def bin_parity_xorsum_plain(elems: torch.Tensor, *, n_bins: int, seed: int):
     return parity[0], xors[0]
 
 
-_MAX_BINS = 28000   # 2 n words of shared memory must stay within 227 KB
+def bin_parity_xorsum_units_packed_plain(
+    elems: torch.Tensor, valid: torch.Tensor, seeds: torch.Tensor, *, n_bins: int
+):
+    """Plain PyTorch version of ``bin_parity_xorsum_units_packed``."""
+    parity, xors = bin_parity_xorsum_units_plain(elems, valid, seeds, n_bins=n_bins)
+    return pack_bits_plain(parity), xors
 
 
-def _launch(elems, valid, seeds, n_bins):
+_MAX_BINS = 28000   # one table of 2 n words must stay within 227 KB
+
+
+def _check_bins(n_bins: int) -> None:
+    if not 0 < n_bins <= _MAX_BINS:
+        raise ValueError(f"n_bins={n_bins} outside (0, {_MAX_BINS}]")
+
+
+def _launch_units(elems, valid, seeds, n_bins):
     dev = elems.device
     require(elems, "elems", torch.int32, 2, dev)
     require(valid, "valid", torch.bool, 2, dev)
@@ -127,13 +149,13 @@ def _launch(elems, valid, seeds, n_bins):
             f"shapes disagree: elems {tuple(elems.shape)}, valid "
             f"{tuple(valid.shape)}, seeds {tuple(seeds.shape)}"
         )
-    if not 0 < n_bins <= _MAX_BINS:
-        raise ValueError(f"n_bins={n_bins} outside (0, {_MAX_BINS}]")
+    _check_bins(n_bins)
     fn = load_kernel_lib("bin_xorsum").bin_xorsum_units_launch
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    parity = torch.zeros((U, n_bins), dtype=torch.int32, device=dev)
-    xors = torch.zeros((U, n_bins), dtype=torch.int32, device=dev)
+    # the kernel writes every word of both outputs, masked rows included
+    parity = torch.empty((U, packed_words(n_bins)), dtype=torch.int32, device=dev)
+    xors = torch.empty((U, n_bins), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         rc = fn(
             elems.data_ptr(), valid.data_ptr(), seeds.data_ptr(),
@@ -145,25 +167,38 @@ def _launch(elems, valid, seeds, n_bins):
     return parity, xors
 
 
-def bin_parity_xorsum_units(
+def bin_parity_xorsum_units_packed(
     elems: torch.Tensor, valid: torch.Tensor, seeds: torch.Tensor, *, n_bins: int
 ):
-    """Batched bin/parity/XOR-fold over U packed units in one kernel launch.
+    """Batched bin/parity/XOR-fold over U packed units in one kernel launch,
+    parity packed.
 
     ``elems``: (U, E) int32 bit patterns of the uint32 keys; ``valid``:
     (U, E) bool (or any integer 0/1 mask) — false marks padding, and a fully
     masked row yields an all-zero output row; ``seeds``: (U,) int32 bit
     patterns of the per-unit binning seeds.
 
-    Returns ``(parity (U, n_bins) int32, xors (U, n_bins) int32 bit
-    patterns)``.  The XOR folds come back packed — every caller of the
-    bit-plane form repacked it at once.
+    Returns ``(parity (U, ceil(n_bins/32)) int32 words, xors (U, n_bins)
+    int32 bit patterns)``.
     """
     if elems.device.type != "cuda":
-        return bin_parity_xorsum_units_plain(elems, valid, seeds, n_bins=n_bins)
+        return bin_parity_xorsum_units_packed_plain(elems, valid, seeds, n_bins=n_bins)
     if valid.dtype != torch.bool:
         valid = valid != 0
-    return _launch(elems, valid.contiguous(), seeds, n_bins)
+    return _launch_units(elems, valid.contiguous(), seeds, n_bins)
+
+
+def bin_parity_xorsum_units(
+    elems: torch.Tensor, valid: torch.Tensor, seeds: torch.Tensor, *, n_bins: int
+):
+    """The reference's contract: ``(parity (U, n_bins) int32 0/1, xors (U,
+    n_bins) int32 bit patterns)`` — ``bin_parity_xorsum_units_packed`` with
+    the parity unpacked.  The XOR folds come back packed, as every caller of
+    the reference's bit-plane form repacked them at once."""
+    if elems.device.type != "cuda":
+        return bin_parity_xorsum_units_plain(elems, valid, seeds, n_bins=n_bins)
+    words, xors = bin_parity_xorsum_units_packed(elems, valid, seeds, n_bins=n_bins)
+    return unpack_bits(words, n_bins), xors
 
 
 def bin_parity_xorsum(elems: torch.Tensor, *, n_bins: int, seed: int):
@@ -172,8 +207,7 @@ def bin_parity_xorsum(elems: torch.Tensor, *, n_bins: int, seed: int):
     patterns)``, binned by ``mix32(e, seed) % n_bins``.  One kernel launch
     on a CUDA tensor.  The reference returns ``(n_bins, 32)`` bit planes;
     the folds come back packed here, as ``encode_group`` keeps them."""
-    if not 0 < n_bins <= _MAX_BINS:
-        raise ValueError(f"n_bins={n_bins} outside (0, {_MAX_BINS}]")
+    _check_bins(n_bins)
     if elems.device.type != "cuda":
         return bin_parity_xorsum_plain(elems, n_bins=n_bins, seed=seed)
     dev = elems.device
@@ -183,8 +217,8 @@ def bin_parity_xorsum(elems: torch.Tensor, *, n_bins: int, seed: int):
     fn.argtypes = [ctypes.c_void_p, ctypes.c_uint, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    parity = torch.zeros(n_bins, dtype=torch.int32, device=dev)
-    xors = torch.zeros(n_bins, dtype=torch.int32, device=dev)
+    parity = torch.empty(n_bins, dtype=torch.int32, device=dev)
+    xors = torch.empty(n_bins, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         rc = fn(elems.data_ptr(), int(seed) & _M32, parity.data_ptr(), xors.data_ptr(),
                 E, n_bins, current_stream_ptr())

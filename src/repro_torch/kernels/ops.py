@@ -10,7 +10,8 @@
                            two pieces over both sides at once.
 * ``sketch_groups`` / ``sketch_groups_range`` — BCH sketches (or the
                            rateless increment, DESIGN.md §16) of G parity
-                           bitmaps as one GF(2) matmul.
+                           bitmaps (packed words or 0/1 rows) as one packed
+                           GF(2) matmul.
 * ``bch_decode_batched`` — lock-step batched Berlekamp–Massey + Chien search
                            over all group pairs at once (fixed 2t trips, no
                            data-dependent control; DESIGN.md §3).  Plain
@@ -20,7 +21,9 @@
                            matmul against the Chien matrix.
 
 Constant tables (syndrome matrices, GF log/exp tables) are built on the
-host once per code and cached on the device per ``(code, device)``.
+host once per code and cached on the device per ``(code, device)``; the
+GF(2) matrices are cached packed per column (``kernels.gf2_matmul``'s
+layout), packed with numpy at first use, so no call re-packs them.
 """
 from __future__ import annotations
 
@@ -29,7 +32,7 @@ import torch
 
 from ..core.bch import BCHCode, bch_code
 from .bin_xorsum import bin_parity_xorsum, bin_parity_xorsum_units
-from .gf2_matmul import gf2_matmul
+from .gf2_matmul import gf2_matmul_packed, pack_bits, pack_bits_np, packed_words
 from .platform import note_variant
 from .tow_sketch import tow_sketch
 
@@ -43,6 +46,23 @@ def _cached(key, device, build) -> torch.Tensor:
     if t is None:
         t = _TABLES[k] = torch.from_numpy(np.ascontiguousarray(build())).to(device)
     return t
+
+
+def _cached_packed(key, device, build) -> torch.Tensor:
+    """A constant (K, N) GF(2) matrix, packed per column on the host at first
+    use and cached on the device as ``(N, ceil(K/32))`` int32 words."""
+    return _cached(("packed",) + key, device, lambda: pack_bits_np(np.asarray(build()).T))
+
+
+def _packed_rows(bitmaps: torch.Tensor, k: int) -> torch.Tensor:
+    """Rows of ``k`` GF(2) entries in the packed layout: ``(G, ceil(k/32))``
+    words pass through, ``(G, k)`` 0/1 rows are packed first."""
+    if bitmaps.shape[-1] == k:
+        return pack_bits(bitmaps.to(torch.int32).contiguous())
+    if bitmaps.shape[-1] == packed_words(k):
+        return bitmaps
+    raise ValueError(f"rows of width {bitmaps.shape[-1]} hold neither {k} bits "
+                     f"nor {packed_words(k)} words")
 
 
 def _xor_reduce(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -67,17 +87,22 @@ def pack_bits_to_field(bits: torch.Tensor, m: int) -> torch.Tensor:
 
 
 def sketch_groups(bitmaps: torch.Tensor, code: BCHCode) -> torch.Tensor:
-    """BCH sketches for G parity bitmaps at once: one GF(2) matmul."""
-    P = _cached(
+    """BCH sketches for G parity bitmaps at once: one GF(2) matmul.
+
+    ``bitmaps``: (G, ceil(n/32)) packed parity words (the engine's, straight
+    from ``bin_parity_xorsum_units_packed``) or (G, n) 0/1 int32 rows, which
+    are packed first.  Returns (G, t) int32 field elements."""
+    P = _cached_packed(
         ("syndrome", code.n, 0, code.t), bitmaps.device,
-        lambda: code.field.syndrome_matrix(code.t).astype(np.int32),
+        lambda: code.field.syndrome_matrix(code.t),
     )
-    bits = gf2_matmul(bitmaps.to(torch.int32), P)
+    bits = gf2_matmul_packed(_packed_rows(bitmaps, code.n), P, code.n)
     return pack_bits_to_field(bits, code.m)
 
 
 def sketch_groups_range(bitmaps: torch.Tensor, code: BCHCode, t0: int) -> torch.Tensor:
-    """Incremental BCH syndromes S_{2*t0+1}..S_{2t-1} for G parity bitmaps.
+    """Incremental BCH syndromes S_{2*t0+1}..S_{2t-1} for G parity bitmaps
+    (packed words or 0/1 rows, as ``sketch_groups`` takes them).
 
     The same one-matmul formulation as ``sketch_groups`` against the
     ``[t0*m, t*m)`` column slice of the syndrome matrix — the prefix
@@ -85,11 +110,11 @@ def sketch_groups_range(bitmaps: torch.Tensor, code: BCHCode, t0: int) -> torch.
     ``concat(sketch at t0, this) == sketch at t`` bit for bit, which is
     what rateless recovery ships (DESIGN.md §16).
     """
-    P = _cached(
+    P = _cached_packed(
         ("syndrome", code.n, t0, code.t), bitmaps.device,
-        lambda: code.field.syndrome_matrix_range(t0, code.t).astype(np.int32),
+        lambda: code.field.syndrome_matrix_range(t0, code.t),
     )
-    bits = gf2_matmul(bitmaps.to(torch.int32), P)
+    bits = gf2_matmul_packed(_packed_rows(bitmaps, code.n), P, code.n)
     return pack_bits_to_field(bits, code.m)
 
 
@@ -232,9 +257,10 @@ def chien_eval_matmul(locator_bits: torch.Tensor, code: BCHCode) -> torch.Tensor
     locator_bits: (U, (t+1)*m) 0/1 -> eval bits (U, n, m) int32; rows of
     zeros are roots.
     """
-    C = _cached(
+    k = locator_bits.shape[1]
+    C = _cached_packed(
         ("chien", code.n, code.t), locator_bits.device,
-        lambda: code.field.chien_matrix(code.t).astype(np.int32),
+        lambda: code.field.chien_matrix(code.t),
     )
-    ev = gf2_matmul(locator_bits.to(torch.int32).contiguous(), C)
+    ev = gf2_matmul_packed(_packed_rows(locator_bits, k), C, k)
     return ev.reshape(ev.shape[0], code.n, code.m)

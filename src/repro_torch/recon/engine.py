@@ -9,9 +9,10 @@ Per call (DESIGN.md §5 round dataflow), for all U packed units at once:
    the unit's 3-way-split filter chain with the same multiply-shift hash
    the protocol uses on the host;
 2. **fused two-side encode** — Alice's and Bob's built rows stack into ONE
-   ``bin_parity_xorsum_units`` launch and ONE GF(2) sketch matmul (half the
-   kernel launches of encoding each side separately), with the per-unit
-   wrap-around checksums folded into the same pass;
+   ``bin_parity_xorsum_units_packed`` launch and ONE GF(2) sketch matmul
+   (half the kernel launches of encoding each side separately), the parity
+   bitmaps passed between the two bit-packed, 32 bins to a word; the
+   per-unit wrap-around checksums are folded into the same pass;
 3. the sketch XOR feeds ``bch_decode_batched`` — the lock-step fixed-trip
    Berlekamp–Massey + Chien search (DESIGN.md §3) — locating each unit's
    differing bins (``ok`` False = BCH overload → the host re-queues the
@@ -37,7 +38,7 @@ import torch
 from ..core.bch import bch_code
 from ..kernels.bin_xorsum import (
     as_u32,
-    bin_parity_xorsum_units,
+    bin_parity_xorsum_units_packed,
     mix32,
     mulshift_bins,
     to_i32,
@@ -202,7 +203,7 @@ def execute_round(
             width_a, width_b,
         )
         # --- fused two-side encode: one bin launch, one sketch matmul ----
-        parity2, xors2 = bin_parity_xorsum_units(elems2, valid2, seeds2, n_bins=n)
+        parity2, xors2 = bin_parity_xorsum_units_packed(elems2, valid2, seeds2, n_bins=n)
         sk2 = sketch_groups(parity2, code)
         csum2 = _wrap_csum(elems2, valid2)
 
@@ -249,7 +250,7 @@ def encode_side(
             flat, start, cnt, row_map, width,
             removed, removed_cnt, added, added_cnt, unit_valid, fseeds, fbins, fcnt,
         )
-        parity, xors = bin_parity_xorsum_units(e, v, seeds, n_bins=n)
+        parity, xors = bin_parity_xorsum_units_packed(e, v, seeds, n_bins=n)
         return sketch_groups(parity, code), xors, _wrap_csum(e, v)
 
 
@@ -292,7 +293,7 @@ def execute_round_ext(
             seeds, removed, removed_cnt, added, added_cnt, fseeds, fbins, fcnt,
             width_a, width_b,
         )
-        parity2, _ = bin_parity_xorsum_units(elems2, valid2, seeds2, n_bins=n)
+        parity2, _ = bin_parity_xorsum_units_packed(elems2, valid2, seeds2, n_bins=n)
         inc2 = sketch_groups_range(parity2, code, t0)
         u = row_map.shape[0]
         return inc2[:u] ^ inc2[u:]
@@ -332,5 +333,5 @@ def encode_side_ext(
             flat, start, cnt, row_map, width,
             removed, removed_cnt, added, added_cnt, unit_valid, fseeds, fbins, fcnt,
         )
-        parity, _ = bin_parity_xorsum_units(e, v, seeds, n_bins=n)
+        parity, _ = bin_parity_xorsum_units_packed(e, v, seeds, n_bins=n)
         return sketch_groups_range(parity, code, t0)

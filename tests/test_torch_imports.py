@@ -55,9 +55,14 @@ def test_every_kernel_has_source_and_plain_version():
     from repro_torch.kernels import platform
     from repro_torch.kernels.bin_xorsum import (
         bin_parity_xorsum_plain,
+        bin_parity_xorsum_units_packed_plain,
         bin_parity_xorsum_units_plain,
     )
-    from repro_torch.kernels.gf2_matmul import gf2_matmul_plain
+    from repro_torch.kernels.gf2_matmul import (
+        gf2_matmul_packed_plain,
+        gf2_matmul_plain,
+        pack_bits_plain,
+    )
     from repro_torch.kernels.tow_sketch import tow_sketch_plain
     from repro_torch.kernels.tree_digest import tree_digest_plain
 
@@ -65,15 +70,16 @@ def test_every_kernel_has_source_and_plain_version():
     assert stems == ["bin_xorsum", "gf2_matmul", "tow_sketch"]
     entry_points = {
         "bin_xorsum": ["bin_xorsum_units_launch", "bin_parity_xorsum_launch"],
-        "gf2_matmul": ["gf2_matmul_launch"],
+        "gf2_matmul": ["gf2_pack_launch", "gf2_matmul_packed_launch"],
         "tow_sketch": ["tow_sketch_launch"],
     }
     for stem, names in entry_points.items():
         text = (platform.CSRC / f"{stem}.cu").read_text()
         for name in names:
             assert f'extern "C" int {name}(' in text, (stem, name)
-    for plain in (bin_parity_xorsum_units_plain, bin_parity_xorsum_plain,
-                  gf2_matmul_plain, tow_sketch_plain, tree_digest_plain):
+    for plain in (bin_parity_xorsum_units_plain, bin_parity_xorsum_units_packed_plain,
+                  bin_parity_xorsum_plain, gf2_matmul_plain, gf2_matmul_packed_plain,
+                  pack_bits_plain, tow_sketch_plain, tree_digest_plain):
         assert callable(plain)
 
 
