@@ -27,7 +27,11 @@ events around the wrapper (host issue included), and ``device_ms``, the
 kernel's own duration from ``torch.profiler`` (or a CUDA-graph replay where
 the profiler records none; ``device_ms_by`` says which).  Bounds count one
 bit per 0/1 entry (parity bitmaps, K2's A, B and C).  K1 and K2 are measured
-through the packed entries the main path calls.
+through the packed entries the main path calls, K4 through the ragged entry
+``tree_digest_ranges`` the walk calls, with the old route (the padded level
+gather plus the masked-rows kernel) timed beside it on the same ranges.  K3
+and K4 also get an issue floor: SASS instructions per hash from
+``cuobjdump -sass`` of the built kernels (phase ``sass``).
 
 Each phase prints one JSON line; any failed phase raises and the process
 exits non-zero.  The last line of standard output is
@@ -39,6 +43,7 @@ import argparse
 import json
 import multiprocessing
 import os
+import re
 import subprocess
 import sys
 import time
@@ -83,7 +88,15 @@ from repro_torch.kernels.ops import (  # noqa: E402
     pack_bits_to_field,
 )
 from repro_torch.kernels.tow_sketch import tow_sketch, tow_sketch_plain  # noqa: E402
-from repro_torch.kernels.tree_digest import tree_digest, tree_digest_plain  # noqa: E402
+from repro_torch.kernels.tree_digest import (  # noqa: E402
+    range_rows,
+    range_tiles,
+    ragged_tile,
+    tree_digest,
+    tree_digest_plain,
+    tree_digest_ranges,
+    tree_digest_ranges_plain,
+)
 from repro_torch.obs import Recorder, Tracer  # noqa: E402
 from repro_torch.recon import ReconcileServer  # noqa: E402
 from repro_torch.tree import TreeConfig, leaf_slices, partition_pair, tree_reconcile  # noqa: E402
@@ -143,8 +156,10 @@ KERNELS = {
 SYMBOLS = {
     "bin_xorsum_units": ("short_rows_kernel", "long_rows_kernel"),
     "gf2_matmul": ("gf2_tile_kernel", "gf2_warp_kernel"),
-    "tow_sketch": ("tow_sketch_kernel",),
-    "tree_digest": ("tow_sketch_kernel",),
+    "tow_sketch": ("tow_rows_warp_kernel", "tow_rows_block_kernel"),
+    # the tree path's entry is the ragged one; the padded contract runs K3's
+    "tree_digest": ("tow_ranges_kernel",),
+    "tree_digest_padded": ("tow_rows_warp_kernel", "tow_rows_block_kernel"),
     "bin_parity_xorsum": ("long_rows_kernel",),
     "gf2_pack_bits": ("gf2_pack_kernel",),
 }
@@ -193,13 +208,17 @@ def time_ms(fn, reps: int) -> float:
     return float(np.mean(times_ms(fn, reps)))
 
 
-def device_ms(fn, name: str, reps: int = 20) -> dict:
+def device_ms(fn, name: str, reps: int = 20, every_activity: bool = False) -> dict:
     """Device time per call of ``fn``, which launches kernel ``name`` once:
     the mean CUDA duration of its symbols (``SYMBOLS[name]``) over the
     launches ``torch.profiler`` recorded in ``reps`` calls (it may keep
     fewer than ``reps``; how many is returned).  Where it records none, a
     CUDA graph of 50 calls is replayed between two events instead.  Returns
-    the time and the method that gave it."""
+    the time and the method that gave it.  ``every_activity``: instead,
+    every device activity of a call (kernels, copies, memsets) summed over
+    the window and divided by the launches of ``name``'s symbols it kept
+    (the calls it recorded); no fallback (``device_ms`` None where it kept
+    none)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -209,12 +228,19 @@ def device_ms(fn, name: str, reps: int = 20) -> dict:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total_us, calls = 0.0, 0
+    total_us, calls, every_us = 0.0, 0, 0.0
     for ev in prof.key_averages():
-        if ev.device_type == DeviceType.CUDA and any(k in ev.key for k in SYMBOLS[name]):
-            us = getattr(ev, "self_device_time_total", None)
-            total_us += us if us is not None else getattr(ev, "self_cuda_time_total", 0)
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        us = us if us is not None else getattr(ev, "self_cuda_time_total", 0)
+        every_us += us
+        if any(k in ev.key for k in SYMBOLS[name]):
+            total_us += us
             calls += ev.count
+    if every_activity:
+        return {"device_ms": every_us / calls / 1e3 if calls and every_us > 0 else None,
+                "device_ms_by": "profiler, every device activity", "profiled_launches": calls}
     if calls > 0 and total_us > 0:
         return {"device_ms": total_us / calls / 1e3, "device_ms_by": "profiler",
                 "profiled_launches": calls}
@@ -354,6 +380,36 @@ def check_k4(elems, valid, seeds):
     return err
 
 
+def ranges_case(g, counts, gap=3, n_keys=None):
+    """Ragged rows over one key array on the card: row r is ``counts[r]``
+    consecutive keys, rows ``gap`` keys apart (so rows never touch, as two
+    sides stacked do not), the last row ending at the last key, or ``n_keys``
+    keys in all where given (then counts must fit); lo of an empty row
+    points anywhere in range.  Returns keys, lo, cnt, seeds and the walk's
+    width (the longest row as a ``pow2_bucket``)."""
+    cnt = np.asarray(counts, dtype=np.int64)
+    lo = np.concatenate([[0], np.cumsum(cnt + gap)[:-1]]).astype(np.int64)
+    total = int(lo[-1] + cnt[-1]) if len(cnt) else 0
+    if n_keys is not None:
+        total = n_keys
+    lo[cnt == 0] = np.minimum(lo[cnt == 0], total)
+    keys = rand_i32(g, (total,))
+    width = platform.pow2_bucket(int(cnt.max()) if len(cnt) else 1, TreeConfig().tile)
+    return keys, lo, cnt, rand_i32(g, (TreeConfig().ell,)), width
+
+
+def check_k4_ranges(keys, lo, cnt, seeds, width):
+    """The ragged entry against its plain version and against the padded
+    entry on ``range_rows`` of the same ranges; rows with cnt 0 must come
+    back zero."""
+    ell = seeds.shape[0]
+    out = tree_digest_ranges(keys, lo, cnt, seeds, ell=ell, width=width)
+    assert not bool(out[torch.from_numpy(cnt == 0).to(DEV)].any()), "empty range not zero"
+    padded = tree_digest(*range_rows(keys, lo, cnt, width), seeds, ell=ell)
+    return max_err((out, tree_digest_ranges_plain(keys, lo, cnt, seeds, width=width)),
+                   (out, padded))
+
+
 def check_k5(elems, n_bins, seed):
     p, x = bin_parity_xorsum(elems, n_bins=n_bins, seed=seed)
     pp, xp = bin_parity_xorsum_plain(elems, n_bins=n_bins, seed=seed)
@@ -428,6 +484,28 @@ def kernel_sweeps(rng):
         shapes.append([R, E, mask])
     checks.append({"name": "tree_digest", "shapes": shapes, "equal": err == 0})
 
+    # the ragged entry: a root level (2 real rows of ~10^6 of 16, both sides
+    # stacked; items of 512 keys), rows at and around the group edges
+    # (items of 32), a level cut into items of 128, 2^17 short rows, rows
+    # of 0 keys, an empty key array, and ell of 64, 100 and 128
+    err, shapes = 0, []
+    edge = [0, 1, 31, 32, 33, 511, 512, 513, 1024, 1025, 3000, 0, 7]
+    cases = [([995_000] + [0] * 7 + [995_000] + [0] * 7, 32),
+             (edge, 32), (edge[::-1], 32), (edge, 64), (edge, 128), (edge, 100),
+             ([0] * 8, 32), ([5000, 0, 0], 32), ([200_000, 0, 222_000, 77], 32)]
+    for counts, ell in cases:
+        keys, lo, cnt, seeds, width = ranges_case(g, counts)
+        seeds = rand_i32(g, (ell,))
+        err = max(err, check_k4_ranges(keys, lo, cnt, seeds, width))
+        shapes.append([len(cnt), int(cnt.sum()), ell])
+    keys, lo, cnt, seeds, width = ranges_case(g, extra.integers(0, 17, size=1 << 17), gap=0)
+    err = max(err, check_k4_ranges(keys, lo, cnt, seeds, width))
+    shapes.append([len(cnt), int(cnt.sum()), 32])
+    keys, lo, cnt, seeds, width = ranges_case(g, [0] * 8, n_keys=0)     # no keys at all
+    err = max(err, check_k4_ranges(keys, lo, cnt, seeds, width))
+    shapes.append([8, 0, 32])
+    checks.append({"name": "tree_digest_ranges", "shapes": shapes, "equal": err == 0})
+
     # K5: one set, mod-n bins; key 0 is a member wherever E >= 100
     err, shapes = 0, []
     for n_bins in (63, 127, 255, 1023, 8191):
@@ -443,6 +521,98 @@ def kernel_sweeps(rng):
     emit({"phase": "kernels", "kernel_checks": checks})
     for c in checks:
         assert c["equal"], f"{c['name']} differs from its plain version"
+
+
+def seeds_per_lane(ell: int) -> int:
+    """Seeds a lane of ``csrc/tow_sketch.cu`` owns per span (its template
+    argument NS)."""
+    return 1 if ell <= 32 else 2 if ell <= 64 else 4
+
+
+# the multiply by 0x85EBCA6B that every mix32 round has, as cuobjdump prints
+# its immediate
+_MIX_MUL = ("0x85ebca6b", "-0x7a143595")
+
+
+def sass_inner_loops(lib: Path) -> dict:
+    """Instructions per hash in the inner loop of each ``tow_sketch.cu``
+    kernel, from ``cuobjdump -sass`` of the built library.  Candidates are
+    the innermost loops (a backward branch and its target) and the basic
+    blocks (cut at branch targets and after branches) of each function; the
+    one with the most mix32 multiplies (a loop where they tie) is the walk
+    over a full group's keys — an unrolled loop, or straight-line code where
+    the walk is unrolled whole — and its instructions over those multiplies
+    are the SASS per (key, seed), the shuffles and any loop control
+    included.  ``{(kernel, NS): {...}}``; empty where the toolchain has no
+    ``cuobjdump``."""
+    tool = Path(platform._nvcc()).parent / "cuobjdump"
+    if not tool.exists():
+        return {}
+    out, fn, ins = {}, None, []
+
+    def close():
+        loops, targets = [], set()
+        for i, (addr, op) in enumerate(ins):
+            if re.search(r"\b(BRA|BSSY|CALL)", op):
+                targets.update(int(t, 16) for t in re.findall(r"0x[0-9a-f]+", op.split(",")[-1]))
+            m = re.search(r"\bBRA\s+(0x[0-9a-f]+)", op)
+            if m and not op.startswith("BRA.DIV") and int(m.group(1), 16) <= addr:
+                tgt = int(m.group(1), 16)
+                loops.append((next(k for k, (a, _) in enumerate(ins) if a >= tgt), i))
+        regions = [[op for _, op in ins[j: i + 1]] for j, i in loops
+                   if not any(j <= j2 and i2 <= i and (j2, i2) != (j, i) for j2, i2 in loops)]
+        cur = []
+        for addr, op in ins:
+            if addr in targets and cur:
+                regions.append(cur)
+                cur = []
+            cur.append(op)
+            if re.search(r"\b(BRA|EXIT|RET|BSYNC)", op):
+                regions.append(cur)
+                cur = []
+        regions.append(cur)
+        best = max(((len([o for o in r if not o.startswith("NOP")]),
+                     sum(any(c in o.lower() for c in _MIX_MUL) for o in r)) for r in regions),
+                   key=lambda nh: nh[1], default=(0, 0))
+        for kern in ("tow_rows_warp_kernel", "tow_rows_block_kernel", "tow_ranges_kernel"):
+            for ns in (1, 2, 4):
+                if best[1] and f"{kern}ILi{ns}E" in (fn or ""):
+                    out[(kern, ns)] = {"region_instructions": best[0], "region_hashes": best[1],
+                                       "per_hash": best[0] / best[1]}
+
+    for line in sh([str(tool), "-sass", str(lib)]).splitlines():
+        stripped = line.strip()
+        if stripped.startswith("Function :"):
+            close()
+            fn, ins = stripped.split(":", 1)[1].strip(), []
+        elif fn is not None:
+            m = re.match(r"/\*([0-9a-f]+)\*/\s*(.*?)\s*;", stripped)
+            if m:
+                ins.append((int(m.group(1), 16), m.group(2)))
+    close()
+    return out
+
+
+def issue_floor(sass_entry, hashes: int, device_time) -> dict:
+    """The issue floor of ``hashes`` (key, seed) evaluations: SASS
+    instructions per hash (``sass_inner_loops``) x hashes over SMs x 4
+    schedulers x the SM clock (``nvidia-smi clocks.sm`` read just after the
+    timing; at ``clocks.max.sm`` beside it) — one warp instruction a
+    scheduler a cycle.  The integer pipes issue at half that rate, so a
+    kernel that waits on issue alone sits between 1x and 2x the floor."""
+    clk, clk_max = (float(x) for x in sh(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader,nounits"]).splitlines()[0].split(","))
+    if not sass_entry:
+        return {"issue_floor_ms": None, "sass_per_hash": None, "sm_clock_mhz": clk}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    warp_instr = sass_entry["per_hash"] * hashes / 32
+    return {"sass_per_hash": sass_entry["per_hash"], "sm_clock_mhz": clk,
+            "sm_clock_max_mhz": clk_max,
+            "issue_floor_ms": 1e3 * warp_instr / (sms * 4 * clk * 1e6),
+            "issue_floor_at_max_clock_ms": 1e3 * warp_instr / (sms * 4 * clk_max * 1e6),
+            "device_over_floor": (device_time / (1e3 * warp_instr / (sms * 4 * clk * 1e6))
+                                  if device_time else None)}
 
 
 def bound(b_bytes: float, b_ops: float) -> dict:
@@ -568,7 +738,7 @@ def pack_report(rng, launched):
     }
 
 
-def k3_report(rng, launched, set_size):
+def k3_report(rng, launched, set_size, sass):
     """K3 at every ``(1, E, ell)`` one path launched it at; the path pads
     |S| = ``set_size`` keys up to E.  Headline: the longest launch."""
     rows = []
@@ -576,12 +746,15 @@ def k3_report(rng, launched, set_size):
         n_valid = min(set_size, E)
         e, s, v = k3_case(rng, E, ell, n_valid)
         err = max_err((tow_sketch(e, s, v, ell=ell), tow_sketch_plain(e, s, v)))
+        dev = device_ms(lambda: tow_sketch(e, s, v, ell=ell), "tow_sketch")
+        kern = "tow_rows_warp_kernel" if E <= 1024 else "tow_rows_block_kernel"
         rows.append({"shape": [1, E, ell], "valid": n_valid, "launches": count,
                      "max_abs_err": err,
-                     "ms": time_ms(lambda: tow_sketch(e, s, v, ell=ell), 20),
-                     **device_ms(lambda: tow_sketch(e, s, v, ell=ell), "tow_sketch"),
+                     "ms": time_ms(lambda: tow_sketch(e, s, v, ell=ell), 20), **dev,
                      **masked_bound(n_valid, E, 2 * ell * 4,
-                                    MIX32_OPS + ell * K3_OPS_PER_KEY_SEED)})
+                                    MIX32_OPS + ell * K3_OPS_PER_KEY_SEED),
+                     **issue_floor(sass.get((kern, seeds_per_lane(ell))), n_valid * ell,
+                                   dev["device_ms"])})
     head = max(rows, key=lambda r: r["shape"][1])
     _, E, ell = head["shape"]
     e, s, v = k3_case(rng, E, ell, head["valid"])
@@ -591,35 +764,80 @@ def k3_report(rng, launched, set_size):
         "ms": head["ms"], "device_ms": head["device_ms"], "device_ms_by": head["device_ms_by"],
         "plain_ms": time_ms(lambda: tow_sketch_plain(e, s, v), 2),
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "issue_floor_ms": head["issue_floor_ms"], "sass_per_hash": head["sass_per_hash"],
         "library_ms": None,
         "launched_shapes": rows,
     }
 
 
-def k4_report(captured, launched):
-    """K4 at every shape the tree path launched it at, on the rows that path
-    gave it (``captured``); headline: the largest launch."""
+def k4_report(captured, launched, sass):
+    """K4 at every shape the tree path launched it at, on the ranges that
+    path gave it (``captured``: keys, lo, cnt, seeds, width): the ragged
+    entry the walk calls, compared with its plain version and with the
+    padded entry on ``range_rows`` of the same ranges, timed and bounded;
+    beside it the old route on the same rows — the ``range_rows`` gather
+    plus the padded kernel — with events (``old_route_ms``), all of its
+    device activity (``old_route_device_ms``: gather, copies, kernel) and
+    the padded kernel alone (``padded_device_ms``).  ``ragged_all_device_ms``
+    is every device activity of the ragged entry (descriptor copy, memset,
+    kernel).  The bound counts what the function needs: 4 B and ell hashes
+    per key, the descriptors (lo, cnt: 8 B a row; 12 B a tail tile), the
+    seeds and the output.  Headline: the largest launch."""
     rows = []
     for (R, Ep, ell), count in sorted(launched.items()):
-        elems, valid, seeds = captured[(R, Ep, ell)]
-        err = check_k4(elems, valid, seeds)
-        ts = times_ms(lambda: tree_digest(elems, valid, seeds, ell=ell), 20)
-        n_valid = int(valid.sum())
+        keys, lo, cnt, seeds, width = captured[(R, Ep, ell)]
+
+        def call():
+            return tree_digest_ranges(keys, lo, cnt, seeds, ell=ell, width=width)
+
+        def old():
+            return tree_digest(*range_rows(keys, lo, cnt, width), seeds, ell=ell)
+
+        def padded():
+            return tree_digest(mat, valid, seeds, ell=ell)
+
+        err = check_k4_ranges(keys, lo, cnt, seeds, width)
+        mat, valid = range_rows(keys, lo, cnt, width)
+        ts = times_ms(call, 20)
+        n_valid = int(cnt.sum())
+        tile = ragged_tile(n_valid, torch.cuda.get_device_properties(0).multi_processor_count)
+        n_tail = range_tiles(lo, cnt, tile)[1]
+        dev = device_ms(call, "tree_digest")
+        padded_ms = device_ms(padded, "tree_digest_padded")["device_ms"]
+        del mat, valid
         rows.append({
-            "shape": [R, Ep, ell], "valid": n_valid, "launches": count, "max_abs_err": err,
-            "ms": float(np.mean(ts)), "ms_min": min(ts),
-            **device_ms(lambda: tree_digest(elems, valid, seeds, ell=ell), "tree_digest"),
-            **masked_bound(n_valid, valid.numel(), ell * 4 + R * ell * 4,
-                           MIX32_OPS + ell * K3_OPS_PER_KEY_SEED)})
+            "shape": [R, Ep, ell], "valid": n_valid, "tile": tile, "tail_tiles": n_tail,
+            "launches": count,
+            "max_abs_err": err, "ms": float(np.mean(ts)), "ms_min": min(ts), **dev,
+            "ragged_all_device_ms": device_ms(call, "tree_digest", every_activity=True)[
+                "device_ms"],
+            "old_route_ms": time_ms(old, 10),
+            "old_route_device_ms": device_ms(old, "tree_digest_padded", every_activity=True)[
+                "device_ms"],
+            "padded_device_ms": padded_ms,
+            **bound((n_valid * 4 + 8 * R + 12 * n_tail + ell * 4 + R * ell * 4) / HBM_BYTES_PER_S,
+                    n_valid * (MIX32_OPS + ell * K3_OPS_PER_KEY_SEED) / ALU32_OPS_PER_S),
+            **issue_floor(sass.get(("tow_ranges_kernel", seeds_per_lane(ell))),
+                          n_valid * ell, dev["device_ms"])})
     head = max(rows, key=lambda r: r["shape"][0] * r["shape"][1])
-    elems, valid, seeds = captured[tuple(head["shape"])]
+    keys, lo, cnt, seeds, width = captured[tuple(head["shape"])]
     return {
-        "shapes": {"elems": head["shape"][:2], "ell": head["shape"][2], "valid": head["valid"]},
+        "shapes": {"keys": [int(keys.shape[0])], "rows": head["shape"][0],
+                   "padded_as": head["shape"][:2], "ell": head["shape"][2],
+                   "valid": head["valid"]},
+        "entry": "tree_digest_ranges",
         "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": head["ms"], "device_ms": head["device_ms"], "device_ms_by": head["device_ms_by"],
-        "plain_ms": time_ms(lambda: tree_digest_plain(elems, valid, seeds), 2),
-        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        **{k: head[k] for k in ("ms", "device_ms", "device_ms_by", "ragged_all_device_ms",
+                                "old_route_ms", "old_route_device_ms", "padded_device_ms",
+                                "bound_ms", "bound_by", "issue_floor_ms", "sass_per_hash")},
+        "plain_ms": time_ms(
+            lambda: tree_digest_ranges_plain(keys, lo, cnt, seeds, width=width), 2),
         "library_ms": None,
+        "sum_device_ms": sum(r["device_ms"] * r["launches"] for r in rows),
+        "sum_ragged_all_device_ms": sum((r["ragged_all_device_ms"] or 0) * r["launches"]
+                                        for r in rows),
+        "sum_old_route_device_ms": sum((r["old_route_device_ms"] or 0) * r["launches"]
+                                       for r in rows),
         "launched_shapes": rows,
     }
 
@@ -658,7 +876,7 @@ def k5_report(rng, launched):
     }
 
 
-def main_shape_phase(args, rng, launched, tree_inputs):
+def main_shape_phase(args, rng, launched, tree_inputs, sass):
     """Every kernel at exactly the shapes each path launched it at
     (``launched[path]``: ``platform.launch_shapes()`` read just after that
     path's run): compared with its plain version, timed and held against its
@@ -668,8 +886,8 @@ def main_shape_phase(args, rng, launched, tree_inputs):
     reports = {
         "bin_xorsum_units": lambda shapes: k1_report(rng, shapes),
         "gf2_matmul": lambda shapes: k2_report(rng, shapes),
-        "tow_sketch": lambda shapes: k3_report(rng, shapes, args.size),
-        "tree_digest": lambda shapes: k4_report(tree_inputs, shapes),
+        "tow_sketch": lambda shapes: k3_report(rng, shapes, args.size, sass),
+        "tree_digest": lambda shapes: k4_report(tree_inputs, shapes, sass),
         "bin_parity_xorsum": lambda shapes: k5_report(rng, shapes),
         "gf2_pack_bits": lambda shapes: pack_report(rng, shapes),
     }
@@ -842,10 +1060,12 @@ def tree_run(label, a, b, cfg, pool, captured):
     """``tree_reconcile`` of one pair on the card, checked against the
     truth, per leaf against ``core.pbs.reconcile``, and on bytes per diff
     against plain PBS told a 10x-wrong d; then a warm re-walk, which also
-    keeps in ``captured`` the ``tree_digest`` inputs of each launched shape
-    ``(R, Ep, ell)`` not yet there — so the kernel is later measured on the
-    rows the path really gave it (two real rows of 16 at the root, say).
-    Returns the launches and launched shapes of the counted run."""
+    keeps in ``captured`` the ``tree_digest_ranges`` inputs of each
+    launched shape ``(R, Ep, ell)`` not yet there — so the kernel is later
+    measured on the ranges the path really gave it (two real rows of 16 at
+    the root, say) — and splits the walk's set-up outside its level spans
+    (``walk_setup_split``).  Returns the launches and launched shapes of the
+    counted run."""
     tcfg = TreeConfig()
     rec = Recorder()
     torch.cuda.reset_peak_memory_stats()
@@ -889,31 +1109,34 @@ def tree_run(label, a, b, cfg, pool, captured):
     assert tree_bpd < wrongd_bpd, (label, tree_bpd, wrongd_bpd)
 
     # the warm walk alone, its levels split by the walk's own spans into
-    # dispatch (bounds, device gather, launch) and collect (readback wait,
-    # verdicts, byte ledger); the rest is np.unique, prefix sums, upload.
-    # Each level's rows are fresh tensors, so keeping a reference is enough.
-    launch = tree_partition.tree_digest
+    # dispatch (bounds, descriptors, launch) and collect (readback wait,
+    # verdicts, byte ledger).  The ragged entry's inputs of each launched
+    # shape are kept (the key array is one tensor a walk; lo and cnt copied).
+    launch = tree_partition.tree_digest_ranges
 
-    def recording(elems, valid, seeds, *, ell, tile):
-        key = (elems.shape[0], max(tile, -(-elems.shape[1] // tile) * tile), ell)
+    def recording(keys, lo, cnt, seeds, *, ell, width, tile):
+        key = (len(cnt), max(tile, -(-width // tile) * tile), ell)
         if key not in captured:
-            captured[key] = (elems, valid, seeds)
-        return launch(elems, valid, seeds, ell=ell, tile=tile)
+            captured[key] = (keys, np.array(lo), np.array(cnt), seeds, width)
+        return launch(keys, lo, cnt, seeds, ell=ell, width=width, tile=tile)
 
     tracer = Tracer()
-    tree_partition.tree_digest = recording
+    tree_partition.tree_digest_ranges = recording
     try:
         t0 = time.perf_counter()
         warm_leaves, warm = partition_pair(a, b, tcfg, tracer=tracer)
         torch.cuda.synchronize()
         walk_s = time.perf_counter() - t0
     finally:
-        tree_partition.tree_digest = launch
+        tree_partition.tree_digest_ranges = launch
     span_s = {}
     for ev in tracer.events():
         if ev.get("ph") == "X":
             span_s[ev["name"]] = span_s.get(ev["name"], 0.0) + ev["dur"] / 1e6
     assert warm.retraces == 0, (label, warm)
+    split = walk_setup_split(a, b)
+    split["rest_s"] = (walk_s - span_s["tree.level.dispatch"] - span_s["tree.level.collect"]
+                       - sum(split.values()))
     assert warm_leaves == tr.leaves and warm.launches == warm.levels == st.levels, label
     emit({
         "phase": "tree", "pair": label, "size_a": len(au), "size_b": len(bu), "d": d,
@@ -927,11 +1150,34 @@ def tree_run(label, a, b, cfg, pool, captured):
         "tree_reconcile_s": wall_s, "warm_walk_s": walk_s,
         "warm_walk_dispatch_s": span_s["tree.level.dispatch"],
         "warm_walk_collect_s": span_s["tree.level.collect"],
+        **{f"warm_walk_{k}": v for k, v in split.items()},
         "leaf_run_s": rec.value("server.total_s"), "leaf_device_s": rec.value("server.device_s"),
         "oracle_check_s": oracle_s, "launches": launches,
         "peak_memory_above_start_bytes": peak, "all_leaves_match_oracle": True,
     })
     return launches, shapes
+
+
+def walk_setup_split(a, b, reps: int = 3) -> dict:
+    """The set-up pieces of ``partition_pair`` outside its level spans, each
+    timed alone on the same pair as the walk runs them (median of ``reps``):
+    ``np.unique`` of each side, the two checksum prefix sums, the key
+    upload."""
+    times = {"unique_s": [], "prefix_s": [], "upload_s": []}
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        ua = np.unique(np.asarray(a, dtype=np.uint32))
+        ub = np.unique(np.asarray(b, dtype=np.uint32))
+        t1 = time.perf_counter()
+        tree_partition._checksum_prefix(ua)
+        tree_partition._checksum_prefix(ub)
+        t2 = time.perf_counter()
+        platform.upload(np.concatenate([ua, ub]), DEV)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        for k, v in zip(times, (t1 - t0, t2 - t1, t3 - t2)):
+            times[k].append(v)
+    return {k: float(np.median(v)) for k, v in times.items()}
 
 
 def tree_phase(args, pool):
@@ -1084,6 +1330,9 @@ def main() -> None:
     libs = platform.build_kernels(verbose=True)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": sorted(p.name for p in libs.values())})
+    sass = sass_inner_loops(libs["tow_sketch"])
+    emit({"phase": "sass", "tow_sketch_inner_loops": [
+        {"kernel": k, "NS": ns, **v} for (k, ns), v in sorted(sass.items())]})
 
     kernel_sweeps(rng)
     if not args.kernels_only:
@@ -1092,7 +1341,7 @@ def main() -> None:
             launches["serve"], launched["serve"] = serve_phase(args, rng, pool)
             launches["tree"], launched["tree"], tree_inputs = tree_phase(args, pool)
         launches["encode_group"], launched["encode_group"] = encode_group_phase(rng)
-        report = main_shape_phase(args, rng, launched, tree_inputs)
+        report = main_shape_phase(args, rng, launched, tree_inputs, sass)
         emit({"kernels": [
             {"name": name, **meta, "launches": launches[HOME_PATH[name]][name], **report[name],
              "launches_by_path": {path: n[name] for path, n in launches.items() if name in n}}

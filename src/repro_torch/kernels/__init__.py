@@ -37,7 +37,12 @@ from .ops import (
 )
 from .platform import launch_counts, reset_launch_counts, resolve_device
 from .tow_sketch import tow_sketch, tow_sketch_plain
-from .tree_digest import tree_digest, tree_digest_plain
+from .tree_digest import (
+    tree_digest,
+    tree_digest_plain,
+    tree_digest_ranges,
+    tree_digest_ranges_plain,
+)
 
 __all__ = [
     "bch_decode_batched",
@@ -69,6 +74,8 @@ __all__ = [
     "tow_sketch_plain",
     "tree_digest",
     "tree_digest_plain",
+    "tree_digest_ranges",
+    "tree_digest_ranges_plain",
     "unpack_bits",
     "xor_bits_to_u32",
 ]

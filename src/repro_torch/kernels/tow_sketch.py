@@ -4,12 +4,13 @@
 — the two-round mix32 ±1 family of ``core.tow`` (the ±(2d²−2d)/ℓ variance
 contract is validated for this family by the reference's kernel tests).
 
-On CUDA tensors the hand-written kernel ``csrc/tow_sketch.cu`` runs; on CPU
-tensors ``tow_sketch_plain`` runs.  A CUDA tensor launches the kernel or
-raises.  The kernel has a row axis: ``launch_rows`` sketches R padded rows
-in one launch, and both ``tow_sketch`` (one row) and the tree front end's
-``tree_digest`` (R range rows) launch through it, each counting its own
-launches.
+On CUDA tensors the hand-written masked-rows kernels of
+``csrc/tow_sketch.cu`` run; on CPU tensors ``tow_sketch_plain`` runs.  A
+CUDA tensor launches the kernel or raises.  The kernels have a row axis:
+``launch_rows`` sketches R padded rows in one launch, and both
+``tow_sketch`` (one row) and the tree front end's padded ``tree_digest``
+(R range rows) launch through it, each counting its own launches.  The same
+source holds the ragged-rows kernel behind ``tree_digest_ranges``.
 """
 from __future__ import annotations
 
@@ -79,9 +80,10 @@ def launch_rows(
             raise ValueError(f"valid {tuple(valid.shape)} != elems {(R, E)}")
         vptr = valid.data_ptr()
     fn = load_kernel_lib("tow_sketch").tow_sketch_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2 + [ctypes.c_int,
+                                                                     ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    out = torch.zeros((R, ell), dtype=torch.int32, device=dev)
+    out = torch.empty((R, ell), dtype=torch.int32, device=dev)   # the launch fills it
     with torch.cuda.device(dev):
         rc = fn(elems.data_ptr(), vptr, seeds.data_ptr(), out.data_ptr(),
                 R, E, ell, current_stream_ptr())

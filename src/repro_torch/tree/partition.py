@@ -13,9 +13,9 @@ checksum, and a small-ℓ ToW sketch — and the per-range verdict is
   PBS as an ordinary known-d session,
 * ``TREE_RECURSE`` — divergent and still hot: split in half and go deeper.
 
-A whole level's digests are one batched, padded+masked ``tree_digest``
-kernel sweep (rows/row-length at ``pow2_bucket`` shapes so the variant
-ledger stays warm across frontiers, DESIGN.md §12): the in-process walk stacks
+A whole level's digests are one batched ``tree_digest`` kernel sweep (rows
+and row length keyed at ``pow2_bucket`` shapes so the variant ledger stays
+warm across frontiers, DESIGN.md §12): the in-process walk stacks
 both sides into a single launch per level, the wire peers run one launch
 per side.  Residual d̂ per range reuses the phase-0 estimator algebra
 (numerator Σ(ΔY)², ``planned_d`` inflation) capped by the range's total
@@ -31,12 +31,14 @@ ledger bits the leaf sessions report.
 On the device: ``range_bounds``, the checksums and the verdicts stay numpy
 on the host — keys live on the device as int32 bit patterns, whose signed
 order is not the uint32 order, so no search or sort runs there.  Each side's
-sorted keys are uploaded once per walk, and every level's padded
-``(2·rows, width)`` range matrix is built on the device by one int64 gather
-from them (``lo_idx[:, None] + col``, masked by ``col < count``) at the
-reference's shapes, so the launch and variant ledgers read as the
-reference's: one ``tree_digest`` launch per level, ``retraces == 0`` on a
-warm re-walk.  ``device=None`` means the CUDA card and raises without one.
+sorted keys are uploaded once per walk, and every level hands the ranges'
+``(lo, count)`` host arrays to ``kernels.tree_digest_ranges``: on the card
+its ragged kernel reads only the ranges' keys, with no padded level matrix;
+on the CPU it packs the reference's padded ``(2·rows, width)`` matrix
+(``_range_rows``) and runs the plain version.  Either way the launch and
+variant ledgers read as the reference's, keyed by the padded shape: one
+``tree_digest`` launch per level, ``retraces == 0`` on a warm re-walk.
+``device=None`` means the CUDA card and raises without one.
 """
 from __future__ import annotations
 
@@ -49,7 +51,8 @@ from ..core.hashing import derive_seed
 from ..core.pbs import KEY_BITS, PBSConfig
 from ..core.tow import GAMMA, planned_d, tow_seeds, tow_sketches
 from ..kernels.platform import pow2_bucket, resolve_device, retrace_count, upload
-from ..kernels.tree_digest import tree_digest
+from ..kernels.tree_digest import range_rows as _range_rows  # noqa: F401 (the padded gather)
+from ..kernels.tree_digest import tree_digest_ranges
 from ..obs.trace import NULL_TRACER
 from ..recon.server import ReconcileServer
 from ..wire import frames as wf
@@ -135,22 +138,6 @@ def range_bounds(elems: np.ndarray, frontier) -> tuple[np.ndarray, np.ndarray]:
     return np.searchsorted(elems, los), np.searchsorted(elems, his)
 
 
-def _range_rows(keys: torch.Tensor, lo_idx: np.ndarray, counts: np.ndarray, width: int):
-    """Pack range slices of the device key array ``keys`` into a
-    ``(len(lo_idx), width)`` int32 matrix + bool mask, on ``keys``' device:
-    row r holds ``keys[lo_idx[r] : lo_idx[r] + counts[r]]`` then zeros (a row
-    with count 0 is all padding)."""
-    dev = keys.device
-    lo = torch.from_numpy(np.ascontiguousarray(lo_idx, dtype=np.int64)).to(dev)
-    cnt = torch.from_numpy(np.ascontiguousarray(counts, dtype=np.int64)).to(dev)
-    col = torch.arange(width, dtype=torch.int64, device=dev)
-    valid = col[None, :] < cnt[:, None]
-    if keys.numel() == 0:
-        return torch.zeros(valid.shape, dtype=torch.int32, device=dev), valid
-    idx = (lo[:, None] + col).clamp_(max=keys.numel() - 1)
-    return torch.where(valid, keys[idx], 0), valid
-
-
 def _checksums(prefix: np.ndarray, lo_idx, hi_idx) -> np.ndarray:
     """Per-range ``core.pbs.checksum`` (sum mod 2**32) from a prefix-sum."""
     return ((prefix[hi_idx] - prefix[lo_idx]) & np.uint64(0xFFFFFFFF)).astype(
@@ -175,7 +162,7 @@ def level_digests(
 ):
     """One side's frontier digests: (counts, checksums, (R, ell) sketches).
 
-    One ``tree_digest`` launch for the whole frontier, padded to
+    One ``tree_digest`` launch for the whole frontier, keyed at
     ``pow2_bucket`` rows and row length so repeat walks meet no new variant
     (``stats["retraces"] == 0`` after warmup).
     """
@@ -191,9 +178,9 @@ def level_digests(
     lo = np.zeros(rows, dtype=np.int64)
     cnt = np.zeros(rows, dtype=np.int64)
     lo[:n_r], cnt[:n_r] = lo_idx, counts
-    mat, valid = _range_rows(upload(np.asarray(elems, dtype=np.uint32), dev), lo, cnt, width)
-    sk = tree_digest(
-        mat, valid, upload(tree_seeds(tcfg), dev), ell=tcfg.ell, tile=tcfg.tile
+    sk = tree_digest_ranges(
+        upload(np.asarray(elems, dtype=np.uint32), dev), lo, cnt,
+        upload(tree_seeds(tcfg), dev), ell=tcfg.ell, width=width, tile=tcfg.tile,
     )
     if launches is not None:
         launches["kernel_launches"] = launches.get("kernel_launches", 0) + 1
@@ -292,9 +279,8 @@ def partition_pair(
             cnt = np.zeros(2 * rows, dtype=np.int64)
             lo[:n_r], cnt[:n_r] = lo_a, cnt_a
             lo[rows : rows + n_r], cnt[rows : rows + n_r] = lo_b + len(a), cnt_b
-            mat, valid = _range_rows(keys, lo, cnt, width)
-            sk = tree_digest(  # one launch: both sides stacked
-                mat, valid, seeds, ell=tcfg.ell, tile=tcfg.tile
+            sk = tree_digest_ranges(  # one launch: both sides stacked
+                keys, lo, cnt, seeds, ell=tcfg.ell, width=width, tile=tcfg.tile
             )
             stats.launches += 1
         with tracer.span("tree.level.collect", level=level, ranges=n_r):
