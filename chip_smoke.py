@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--sessions-per-d 7] [--size 1000000] [--seed 0] [--out PATH]
+    python3 chip_smoke.py [--sessions-per-d 5] [--size 1000000] [--seed 0] [--out PATH]
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``,
 holds each against its plain PyTorch version on the card (exact equality —
-everything is integer / GF(2) arithmetic, tolerance 0), then drives three
+everything is integer / GF(2) arithmetic, tolerance 0), then drives four
 paths of the port on the card, each with the launch counts set to 0 just
 before it and read just after:
 
@@ -16,11 +16,17 @@ before it and read just after:
   session of the server) on a uniform pair of union 10^6, d = 10^4, and on
   a clustered pair whose whole difference sits in one 2^16-wide window;
 * ``encode_group`` — ``kernels.ops.encode_group`` on a 10^6-key set and a
-  4096-key group, and a two-sided encode/decode round trip.
+  4096-key group, and a two-sided encode/decode round trip;
+* ``wire`` — ``net.AliceEndpoint`` / ``net.BobEndpoint`` reconciling over
+  frames only (``run_pair``, Bob on a worker thread): 7 of the serve
+  phase's sessions over ``InMemoryDuplex`` (phase 0 over ``MSG_TOW_SKETCH``
+  and rateless ``MSG_PARITY`` included), 2 over a TCP loopback socket, and
+  ``submit_tree`` of the tree phase's uniform pair over ``MSG_TREE``.
 
 Every result is compared with the package's own numpy oracle
 ``core.pbs.reconcile`` (per session, per tree leaf) and with the true set
-difference.  Last, every kernel is compared with its plain version, timed
+difference; every wire result with the in-process result of the same
+session (serve phase, tree phase).  Last, every kernel is compared with its plain version, timed
 and held against its bound at exactly the shapes its path launched it at
 (read from the launch ledger).  Each shape gets two times: ``ms``, CUDA
 events around the wrapper (host issue included), and ``device_ms``, the
@@ -40,6 +46,7 @@ exits non-zero.  The last line of standard output is
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import multiprocessing
 import os
@@ -96,6 +103,15 @@ from repro_torch.kernels.tree_digest import (  # noqa: E402
     tree_digest_plain,
     tree_digest_ranges,
     tree_digest_ranges_plain,
+)
+from repro_torch.core.hashing import derive_seed  # noqa: E402
+from repro_torch.core.tow import tow_sketches  # noqa: E402
+from repro_torch.net import (  # noqa: E402
+    AliceEndpoint,
+    BobEndpoint,
+    InMemoryDuplex,
+    run_pair,
+    tcp_loopback_pair,
 )
 from repro_torch.obs import Recorder, Tracer  # noqa: E402
 from repro_torch.recon import ReconcileServer  # noqa: E402
@@ -169,6 +185,7 @@ PATHS = {
     "serve": ("bin_xorsum_units", "gf2_matmul", "tow_sketch"),
     "tree": ("tree_digest", "bin_xorsum_units", "gf2_matmul"),
     "encode_group": ("bin_parity_xorsum", "gf2_pack_bits", "gf2_matmul"),
+    "wire": ("bin_xorsum_units", "gf2_matmul", "tree_digest"),
 }
 HOME_PATH = {"bin_xorsum_units": "serve", "gf2_matmul": "serve", "tow_sketch": "serve",
              "tree_digest": "tree", "bin_parity_xorsum": "encode_group",
@@ -876,26 +893,27 @@ def k5_report(rng, launched):
     }
 
 
-def main_shape_phase(args, rng, launched, tree_inputs, sass):
+def main_shape_phase(args, rng, launched, k4_inputs, sass):
     """Every kernel at exactly the shapes each path launched it at
     (``launched[path]``: ``platform.launch_shapes()`` read just after that
     path's run): compared with its plain version, timed and held against its
     bound.  A kernel's headline numbers are those of its home path
     (``HOME_PATH``); its shapes on every other path that launched it are
-    measured the same way under ``other_paths``."""
+    measured the same way under ``other_paths``.  K4 runs on the ranges
+    each path gave it (``k4_inputs[path]``)."""
     reports = {
-        "bin_xorsum_units": lambda shapes: k1_report(rng, shapes),
-        "gf2_matmul": lambda shapes: k2_report(rng, shapes),
-        "tow_sketch": lambda shapes: k3_report(rng, shapes, args.size, sass),
-        "tree_digest": lambda shapes: k4_report(tree_inputs, shapes, sass),
-        "bin_parity_xorsum": lambda shapes: k5_report(rng, shapes),
-        "gf2_pack_bits": lambda shapes: pack_report(rng, shapes),
+        "bin_xorsum_units": lambda path, shapes: k1_report(rng, shapes),
+        "gf2_matmul": lambda path, shapes: k2_report(rng, shapes),
+        "tow_sketch": lambda path, shapes: k3_report(rng, shapes, args.size, sass),
+        "tree_digest": lambda path, shapes: k4_report(k4_inputs[path], shapes, sass),
+        "bin_parity_xorsum": lambda path, shapes: k5_report(rng, shapes),
+        "gf2_pack_bits": lambda path, shapes: pack_report(rng, shapes),
     }
     report = {}
     for name, fn in reports.items():
         home = HOME_PATH[name]
-        rep = fn(launched[home][name])
-        others = {path: fn(shapes[name]) for path, shapes in launched.items()
+        rep = fn(home, launched[home][name])
+        others = {path: fn(path, shapes[name]) for path, shapes in launched.items()
                   if path != home and name in shapes}
         if others:
             rep["other_paths"] = others
@@ -1024,7 +1042,7 @@ def serve_phase(args, rng, pool):
     })
     if args.profile:
         profile_run(sessions, args.profile)
-    return launches, launched
+    return launches, launched, sessions, results
 
 
 # ---------------------------------------------------------------------------
@@ -1110,25 +1128,13 @@ def tree_run(label, a, b, cfg, pool, captured):
 
     # the warm walk alone, its levels split by the walk's own spans into
     # dispatch (bounds, descriptors, launch) and collect (readback wait,
-    # verdicts, byte ledger).  The ragged entry's inputs of each launched
-    # shape are kept (the key array is one tensor a walk; lo and cnt copied).
-    launch = tree_partition.tree_digest_ranges
-
-    def recording(keys, lo, cnt, seeds, *, ell, width, tile):
-        key = (len(cnt), max(tile, -(-width // tile) * tile), ell)
-        if key not in captured:
-            captured[key] = (keys, np.array(lo), np.array(cnt), seeds, width)
-        return launch(keys, lo, cnt, seeds, ell=ell, width=width, tile=tile)
-
+    # verdicts, byte ledger), keeping the ragged entry's inputs
     tracer = Tracer()
-    tree_partition.tree_digest_ranges = recording
-    try:
+    with recording_k4(captured):
         t0 = time.perf_counter()
         warm_leaves, warm = partition_pair(a, b, tcfg, tracer=tracer)
         torch.cuda.synchronize()
         walk_s = time.perf_counter() - t0
-    finally:
-        tree_partition.tree_digest_ranges = launch
     span_s = {}
     for ev in tracer.events():
         if ev.get("ph") == "X":
@@ -1155,7 +1161,28 @@ def tree_run(label, a, b, cfg, pool, captured):
         "oracle_check_s": oracle_s, "launches": launches,
         "peak_memory_above_start_bytes": peak, "all_leaves_match_oracle": True,
     })
-    return launches, shapes
+    return launches, shapes, tr
+
+
+@contextlib.contextmanager
+def recording_k4(captured):
+    """Keep in ``captured`` the ``tree_digest_ranges`` inputs of each launched
+    shape ``(R, Ep, ell)`` not yet there (the key array is one tensor a walk;
+    lo and cnt are copied), so K4 is later measured on the ranges a path
+    really gave it."""
+    launch = tree_partition.tree_digest_ranges
+
+    def recording(keys, lo, cnt, seeds, *, ell, width, tile):
+        key = (len(cnt), max(tile, -(-width // tile) * tile), ell)
+        if key not in captured:
+            captured[key] = (keys, np.array(lo), np.array(cnt), seeds, width)
+        return launch(keys, lo, cnt, seeds, ell=ell, width=width, tile=tile)
+
+    tree_partition.tree_digest_ranges = recording
+    try:
+        yield
+    finally:
+        tree_partition.tree_digest_ranges = launch
 
 
 def walk_setup_split(a, b, reps: int = 3) -> dict:
@@ -1180,20 +1207,27 @@ def walk_setup_split(a, b, reps: int = 3) -> dict:
     return {k: float(np.median(v)) for k, v in times.items()}
 
 
+def merge_launches(launches, launched, counts, shapes) -> None:
+    """Add one run's launch counts and launched shapes to a path's totals."""
+    for name, n in counts.items():
+        launches[name] = launches.get(name, 0) + n
+    for name, by_shape in shapes.items():
+        for shape, n in by_shape.items():
+            launched.setdefault(name, {})
+            launched[name][shape] = launched[name].get(shape, 0) + n
+
+
 def tree_phase(args, pool):
     """Both pairs through ``tree_reconcile``; returns the launches of both
-    runs by kernel, the shapes they launched each kernel at, and the
-    ``tree_digest`` inputs by shape."""
-    launches, launched, captured = {}, {}, {}
+    runs by kernel, the shapes they launched each kernel at, the
+    ``tree_digest`` inputs by shape, and ``{label: (a, b, cfg, TreeResult)}``."""
+    launches, launched, captured, trees = {}, {}, {}, {}
     for label, a, b in tree_pairs(args):
-        counts, shapes = tree_run(label, a, b, PBSConfig(seed=args.seed), pool, captured)
-        for name, n in counts.items():
-            launches[name] = launches.get(name, 0) + n
-        for name, by_shape in shapes.items():
-            for shape, n in by_shape.items():
-                launched.setdefault(name, {})
-                launched[name][shape] = launched[name].get(shape, 0) + n
-    return launches, launched, captured
+        cfg = PBSConfig(seed=args.seed)
+        counts, shapes, tr = tree_run(label, a, b, cfg, pool, captured)
+        merge_launches(launches, launched, counts, shapes)
+        trees[label] = (a, b, cfg, tr)
+    return launches, launched, captured, trees
 
 
 # ---------------------------------------------------------------------------
@@ -1245,6 +1279,201 @@ def encode_group_phase(rng):
     return launches, platform.launch_shapes()
 
 
+# ---------------------------------------------------------------------------
+# the wire pair
+# ---------------------------------------------------------------------------
+
+# the ReconcileResult fields a wire result must share with the in-process one
+WIRE_FIELDS = ("diff", "bytes_per_round", "bytes_sent", "estimator_bytes", "rounds",
+               "success", "decode_failures", "fake_rejections")
+
+
+def wire_picks(sessions) -> list:
+    """The wire phase's sessions, as indices into the serve phase's set: the
+    first known-d session at each d, the first estimator session, the
+    two-sided and the rateless one."""
+    picked, seen = [], set()
+    for sid, (label, *_) in enumerate(sessions):
+        if label not in seen:
+            seen.add(label)
+            picked.append(sid)
+    return picked
+
+
+def cohort_rounds(tracer) -> int:
+    """Cohort-rounds one endpoint encoded (its ``round.encode`` spans)."""
+    return sum(ev["args"]["cohorts"] for ev in tracer.events()
+               if ev.get("ph") == "X" and ev["name"] == "round.encode")
+
+
+def drive_pair(transport, submit):
+    """Connect a port Alice and Bob over ``transport()`` (each on the card,
+    ``device`` left at its default), let ``submit(alice, bob)`` stage both
+    sides, and run the pair with the launch counts reset just before.
+    Returns (alice, bob, results, timings, launches, launched shapes)."""
+    ta, tb = transport()
+    alice, bob = AliceEndpoint(ta, tracer=Tracer()), BobEndpoint(tb, tracer=Tracer())
+    try:
+        submit_s = submit(alice, bob)
+        platform.reset_launch_counts()
+        t0 = time.perf_counter()
+        results = run_pair(alice, bob)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches, shapes = platform.launch_counts(), platform.launch_shapes()
+    finally:
+        ta.close()
+        tb.close()
+    return alice, bob, results, {"run_pair_s": run_s, **submit_s}, launches, shapes
+
+
+def side_report(ep, levels: int) -> dict:
+    """One endpoint's wire ledger and the launches it dispatched: K1 = K2 =
+    one each per cohort encode (plain or rateless), K4 one per tree level."""
+    enc = ep.launches["kernel_launches"] - levels
+    assert enc % 2 == 0, ep.launches
+    phase0 = sum(ev["dur"] / 1e6 for ev in ep.tracer.events()
+                 if ev.get("ph") == "X" and ev["name"] == "phase0")
+    return {"wire_stats": ep.wire_stats,
+            "launches": {"bin_xorsum_units": enc // 2, "gf2_matmul": enc // 2,
+                         "tree_digest": levels, "bch_decode_batched": ep.launches[
+                             "decode_launches"]},
+            "cohort_rounds": cohort_rounds(ep.tracer), "phase0_span_s": phase0,
+            "parity_extensions": ep.parity_extensions}
+
+
+def check_pair_launches(alice, bob, launches, levels: int) -> None:
+    """The global launch ledger agrees with what both endpoints dispatched."""
+    for name in ("bin_xorsum_units", "gf2_matmul"):
+        assert launches.get(name, 0) > 0, f"wire pair never launched {name}: {launches}"
+    enc = alice.launches["kernel_launches"] + bob.launches["kernel_launches"] - 2 * levels
+    assert launches["bin_xorsum_units"] == launches["gf2_matmul"] == enc // 2, (
+        launches, alice.launches, bob.launches)
+    assert launches.get("tree_digest", 0) == 2 * levels, (launches, levels)
+    assert alice.launches["decode_launches"] == 0 < bob.launches["decode_launches"]
+
+
+def wire_sessions_run(label, transport, picks, sessions, serve_results):
+    """Serve-phase sessions ``picks`` over one transport; every result equal
+    to the in-process server's for the same session."""
+    def submit(alice, bob):
+        t0 = time.perf_counter()
+        for sid in picks:
+            _, a, _, cfg, dk = sessions[sid]
+            alice.submit(a, cfg=cfg, d_known=dk)
+        t1 = time.perf_counter()
+        for sid in picks:
+            _, _, b, cfg, dk = sessions[sid]
+            bob.submit(b, cfg=cfg, d_known=dk)
+        return {"alice_submit_s": t1 - t0, "bob_submit_s": time.perf_counter() - t1}
+
+    alice, bob, results, times, launches, shapes = drive_pair(transport, submit)
+    assert sorted(results) == list(range(len(picks))), label
+    for i, sid in enumerate(picks):
+        got, want = results[i], serve_results[sid]
+        for f in WIRE_FIELDS:
+            assert getattr(got, f) == getattr(want, f), (label, sessions[sid][0], f)
+    assert alice.verified == bob.verified == [True] * len(picks), label
+    assert alice.parity_extensions == bob.parity_extensions, label
+    check_pair_launches(alice, bob, launches, 0)
+    sa, sb = side_report(alice, 0), side_report(bob, 0)
+    wa, wb = sa["wire_stats"], sb["wire_stats"]
+    assert wa["frame_bytes_out"] == wb["frame_bytes_in"], label
+    assert wa["frame_bytes_in"] == wb["frame_bytes_out"], label
+    for k in ("estimator_frame_bytes", "protocol_frame_bytes", "verify_frame_bytes"):
+        assert wa[k] == wb[k], (label, k)
+    diffs = sum(len(results[i].diff) for i in range(len(picks)))
+    ledger = sum(results[i].bytes_sent + results[i].estimator_bytes for i in range(len(picks)))
+    framed = wa["frame_bytes_out"] + wa["frame_bytes_in"]
+    emit({"phase": "wire", "run": label, "sessions": [sessions[s][0] for s in picks],
+          "set_size": len(sessions[picks[0]][1]), **times,
+          "diffs": diffs, "ledger_bytes_per_diff": ledger / diffs,
+          "framed_bytes_per_diff": framed / diffs,
+          "alice": sa, "bob": sb, "launches": launches,
+          "decode_launches_per_cohort_round": sb["launches"]["bch_decode_batched"]
+          / sb["cohort_rounds"],
+          "all_results_match_in_process": True})
+    return alice, bob, launches, shapes
+
+
+def wire_tree_run(a, b, cfg, tr, captured):
+    """``submit_tree`` of one pair over ``InMemoryDuplex``: the union of the
+    leaf diffs is the true difference, every leaf result equals the
+    in-process walk's (``tr``), and so do the tree's bytes, leaves and
+    depth; one ``tree_digest_ranges`` launch a level a side."""
+    tcfg = TreeConfig()
+
+    def submit(alice, bob):
+        t0 = time.perf_counter()
+        alice.submit_tree(a, cfg, tcfg)
+        t1 = time.perf_counter()
+        bob.submit_tree(b, cfg, tcfg)
+        return {"alice_submit_s": t1 - t0, "bob_submit_s": time.perf_counter() - t1}
+
+    with recording_k4(captured):
+        alice, bob, results, times, launches, shapes = drive_pair(
+            InMemoryDuplex.pair, submit)
+    st = tr.stats
+    levels = alice.tree_depth + 1
+    assert levels == st.levels, (levels, st)
+    assert alice.tree_leaves == bob.tree_leaves == st.leaves, (alice.tree_leaves, st)
+    assert alice.tree_depth == bob.tree_depth == st.depth, st
+    diff = set()
+    for sid in range(st.leaves):
+        assert results[sid] == tr.results[sid], sid          # every result field
+        diff |= results[sid].diff
+    assert sorted(results) == list(range(st.leaves))
+    assert diff == set(np.setxor1d(a, b).tolist())
+    assert bob.verified == [True] * st.leaves
+    sa, sb = side_report(alice, levels), side_report(bob, levels)
+    tree_bytes = sa["wire_stats"]["tree_frame_bytes"]
+    assert tree_bytes == sb["wire_stats"]["tree_frame_bytes"] == tr.tree_bytes, (
+        tree_bytes, tr.tree_bytes)
+    check_pair_launches(alice, bob, launches, levels)
+    emit({"phase": "wire", "run": "tree over InMemoryDuplex", "pair": "uniform",
+          "size_a": len(a), "size_b": len(b), "d": len(diff), **times,
+          "levels": levels, "depth": st.depth, "leaves": st.leaves,
+          "tree_frame_bytes": tree_bytes, "pbs_bytes": sum(r.bytes_sent for r in results.values()),
+          "bytes_per_diff": (tree_bytes + sum(r.bytes_sent for r in results.values()))
+          / len(diff),
+          "alice": sa, "bob": sb, "launches": launches,
+          "all_leaves_match_in_process": True})
+    return launches, shapes
+
+
+def wire_phase(sessions, serve_results, trees):
+    """The wire pair on the card (see the module docstring).  Returns the
+    launches of its runs by kernel, the shapes they launched each kernel
+    at, and the ``tree_digest`` inputs by shape."""
+    t_phase = time.perf_counter()
+    launches, launched, captured = {}, {}, {}
+    picks = wire_picks(sessions)
+    est = next(s for s in picks if sessions[s][4] is None)
+    _, a, _, cfg, _ = sessions[est]
+    t0 = time.perf_counter()
+    tow_sketches(np.unique(a), derive_seed(cfg.seed, 0x70), cfg.ell)
+    emit({"phase": "wire", "host_phase0_sketch_s": time.perf_counter() - t0,
+          "keys": len(a), "ell": cfg.ell})
+
+    _, _, counts, shapes = wire_sessions_run(
+        "pair over InMemoryDuplex", InMemoryDuplex.pair, picks, sessions, serve_results)
+    merge_launches(launches, launched, counts, shapes)
+    tcp = [s for s in picks if sessions[s][0] in ("known d=100", "known d=1000")]
+    alice, _, counts, shapes = wire_sessions_run(
+        "pair over tcp_loopback_pair", tcp_loopback_pair, tcp, sessions, serve_results)
+    ws = alice.wire_stats
+    assert ws["transport_bytes_out"] == ws["frame_bytes_out"], ws
+    merge_launches(launches, launched, counts, shapes)
+    a, b, cfg, tr = trees["uniform"]
+    counts, shapes = wire_tree_run(a, b, cfg, tr, captured)
+    merge_launches(launches, launched, counts, shapes)
+    for name in PATHS["wire"]:
+        assert launches.get(name, 0) > 0, f"wire path never launched {name}: {launches}"
+    emit({"phase": "wire", "wire_phase_s": time.perf_counter() - t_phase,
+          "launches": launches})
+    return launches, launched, captured
+
+
 def profile_run(sessions, out_path):
     """One more warm ``run()`` under ``torch.profiler``: device time by
     kernel name and the device's busy share of the run, written as JSON."""
@@ -1291,7 +1520,9 @@ def profile_run(sessions, out_path):
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--sessions-per-d", type=int, default=7,
+    # 7 until the wire phase joined the run; 5 keeps the whole script near
+    # the time it took before
+    ap.add_argument("--sessions-per-d", type=int, default=5,
                     help="known-d sessions per d in {10, 100, 1000, 10000}")
     ap.add_argument("--size", type=int, default=1_000_000, help="|A| per session")
     ap.add_argument("--seed", type=int, default=0)
@@ -1337,11 +1568,17 @@ def main() -> None:
     kernel_sweeps(rng)
     if not args.kernels_only:
         launches, launched = {}, {}
+        k4_inputs = {}
         with oracle_pool() as pool:
-            launches["serve"], launched["serve"] = serve_phase(args, rng, pool)
-            launches["tree"], launched["tree"], tree_inputs = tree_phase(args, pool)
+            launches["serve"], launched["serve"], sessions, serve_results = serve_phase(
+                args, rng, pool)
+            launches["tree"], launched["tree"], k4_inputs["tree"], trees = tree_phase(
+                args, pool)
         launches["encode_group"], launched["encode_group"] = encode_group_phase(rng)
-        report = main_shape_phase(args, rng, launched, tree_inputs, sass)
+        launches["wire"], launched["wire"], k4_inputs["wire"] = wire_phase(
+            sessions, serve_results, trees)
+        del sessions, serve_results, trees
+        report = main_shape_phase(args, rng, launched, k4_inputs, sass)
         emit({"kernels": [
             {"name": name, **meta, "launches": launches[HOME_PATH[name]][name], **report[name],
              "launches_by_path": {path: n[name] for path, n in launches.items() if name in n}}

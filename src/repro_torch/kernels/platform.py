@@ -18,7 +18,8 @@ Three things every kernel wrapper and executor of the port shares:
   a new (entry point, static args, shape bucket) key, so a serving loop can
   assert ``stats["retraces"] == 0`` once its shape buckets are warm; the
   *launch ledger* counts every launch of a hand-written kernel by name, so
-  a run can show it really went through the kernels.
+  a run can show it really went through the kernels.  Both are guarded by
+  one lock: a wire pair launches kernels from two threads at once.
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -38,10 +40,18 @@ import torch
 
 _RETRACES: dict = {"total": 0, "by_fn": {}}
 _SEEN_VARIANTS: set = set()
+# guards both ledgers' read-modify-writes (not re-entrant: no guarded
+# block calls another guarded function)
+_LEDGER_LOCK = threading.Lock()
 
 
 def count_retrace(name: str) -> None:
     """Record one new executor variant of entry point ``name``."""
+    with _LEDGER_LOCK:
+        _count_retrace(name)
+
+
+def _count_retrace(name: str) -> None:
     _RETRACES["total"] += 1
     _RETRACES["by_fn"][name] = _RETRACES["by_fn"].get(name, 0) + 1
 
@@ -55,15 +65,17 @@ def note_variant(name: str, key: tuple) -> None:
     seen before in this process counts, so a warm serving loop reads 0.
     """
     k = (name, key)
-    if k not in _SEEN_VARIANTS:
-        _SEEN_VARIANTS.add(k)
-        count_retrace(name)
+    with _LEDGER_LOCK:
+        if k not in _SEEN_VARIANTS:
+            _SEEN_VARIANTS.add(k)
+            _count_retrace(name)
 
 
 def clear_variant_ledger() -> None:
     """Forget every seen variant (the next dispatch of each counts again).
     The monotone totals are kept — callers diff them."""
-    _SEEN_VARIANTS.clear()
+    with _LEDGER_LOCK:
+        _SEEN_VARIANTS.clear()
 
 
 def retrace_count() -> int:
@@ -74,7 +86,8 @@ def retrace_count() -> int:
 
 def retrace_counts() -> dict:
     """Per-entry-point variant totals (diagnostic view of the same ledger)."""
-    return dict(_RETRACES["by_fn"])
+    with _LEDGER_LOCK:
+        return dict(_RETRACES["by_fn"])
 
 
 # ---------------------------------------------------------------------------
@@ -89,25 +102,29 @@ def count_launch(name: str, shape: tuple) -> None:
     """Record one launch of hand-written kernel ``name`` at problem size
     ``shape``.  Called by the kernel's wrapper at the launch site and
     nowhere else."""
-    _LAUNCHES[name] = _LAUNCHES.get(name, 0) + 1
-    by_shape = _LAUNCH_SHAPES.setdefault(name, {})
-    by_shape[shape] = by_shape.get(shape, 0) + 1
+    with _LEDGER_LOCK:
+        _LAUNCHES[name] = _LAUNCHES.get(name, 0) + 1
+        by_shape = _LAUNCH_SHAPES.setdefault(name, {})
+        by_shape[shape] = by_shape.get(shape, 0) + 1
 
 
 def launch_counts() -> dict:
     """Launches per kernel name since the last reset."""
-    return dict(_LAUNCHES)
+    with _LEDGER_LOCK:
+        return dict(_LAUNCHES)
 
 
 def launch_shapes() -> dict:
     """``{kernel name: {shape: launches}}`` since the last reset, so a run
     can be measured at exactly the sizes it gave its kernels."""
-    return {name: dict(by_shape) for name, by_shape in _LAUNCH_SHAPES.items()}
+    with _LEDGER_LOCK:
+        return {name: dict(by_shape) for name, by_shape in _LAUNCH_SHAPES.items()}
 
 
 def reset_launch_counts() -> None:
-    _LAUNCHES.clear()
-    _LAUNCH_SHAPES.clear()
+    with _LEDGER_LOCK:
+        _LAUNCHES.clear()
+        _LAUNCH_SHAPES.clear()
 
 
 # ---------------------------------------------------------------------------

@@ -23,7 +23,9 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
     proc = _run("""
         import sys
         import repro_torch.recon, repro_torch.kernels, repro_torch.obs, repro_torch.core.pbs
-        import repro_torch.tree, repro_torch.wire
+        import repro_torch.tree, repro_torch.wire, repro_torch.net
+        import repro_torch.net.endpoint, repro_torch.net.resilience
+        import repro_torch.net.transport, repro_torch.wire.frames
         bad = sorted(
             m for m in sys.modules
             if m == "jax" or m.startswith("jax.") or m == "jaxlib"
@@ -144,3 +146,42 @@ def test_variant_and_launch_ledgers():
     assert platform.launch_counts() == {} and platform.launch_shapes() == {}
     assert platform.pow2_bucket(5, 8) == 8 and platform.pow2_bucket(1025, 128) == 2048
     assert platform.ceil_to(130, 128) == 256
+
+
+def test_ledgers_count_exactly_from_many_threads():
+    """A wire pair launches kernels from two threads at once: the launch and
+    variant ledgers lose no count when several threads update them."""
+    import sys
+    import threading
+
+    from repro_torch.kernels import platform
+
+    platform.reset_launch_counts()
+    before = platform.retrace_count()
+    n_threads, per_thread = 8, 2000
+    start = threading.Barrier(n_threads)
+
+    def work(i):
+        start.wait()
+        for j in range(per_thread):
+            platform.count_launch("k", (j % 3,))
+            platform.count_launch(f"k{i}", (1,))
+            platform.note_variant("threads", (i, j % 50))
+
+    threads = [threading.Thread(target=work, args=(i,)) for i in range(n_threads)]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)           # switch threads as often as possible
+    try:
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+    finally:
+        sys.setswitchinterval(interval)
+    counts, shapes = platform.launch_counts(), platform.launch_shapes()
+    assert counts["k"] == n_threads * per_thread
+    assert sum(shapes["k"].values()) == n_threads * per_thread
+    assert all(counts[f"k{i}"] == per_thread for i in range(n_threads))
+    assert platform.retrace_count() - before == n_threads * 50
+    platform.reset_launch_counts()
+    platform.clear_variant_ledger()
