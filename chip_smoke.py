@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--sessions-per-d 5] [--size 1000000] [--seed 0] [--out PATH]
+    python3 chip_smoke.py [--sessions-per-d 3] [--size 1000000] [--seed 0] [--out PATH]
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``,
 holds each against its plain PyTorch version on the card (exact equality —
-everything is integer / GF(2) arithmetic, tolerance 0), then drives four
-paths of the port on the card, each with the launch counts set to 0 just
-before it and read just after:
+everything is integer / GF(2) arithmetic, tolerance 0), then drives six
+paths of the port on the card, each run with the launch counts set to 0
+just before it and read just after:
 
 * ``serve`` — ``ReconcileServer.submit -> run`` over sessions of |A| = 10^6
   uint32 keys;
@@ -18,17 +18,25 @@ before it and read just after:
 * ``encode_group`` — ``kernels.ops.encode_group`` on a 10^6-key set and a
   4096-key group, and a two-sided encode/decode round trip;
 * ``wire`` — ``net.AliceEndpoint`` / ``net.BobEndpoint`` reconciling over
-  frames only (``run_pair``, Bob on a worker thread): 7 of the serve
+  frames only (``run_pair``, Bob on a worker thread): 4 of the serve
   phase's sessions over ``InMemoryDuplex`` (phase 0 over ``MSG_TOW_SKETCH``
   and rateless ``MSG_PARITY`` included), 2 over a TCP loopback socket, and
-  ``submit_tree`` of the tree phase's uniform pair over ``MSG_TREE``.
+  ``submit_tree`` of the tree phase's uniform pair over ``MSG_TREE``;
+* ``hub`` — one ``net.HubEndpoint`` serving 8 ``AliceEndpoint``s on threads
+  (``run_hub``): 7 of the serve phase's sessions (one over TCP loopback) and a
+  tree peer on the tree phase's uniform pair, every peer's round work fused
+  into 2 encode launches and 1 decode launch per cohort-round; then a
+  2-peer hub where one peer crashes and resumes through ``MSG_RESUME``;
+* ``sync`` — a continuous hub (``run_hub_epoch``) with 2 peers of |A| =
+  10^6 for 3 epochs of seeded churn, the resident stores patched in place.
 
 Every result is compared with the package's own numpy oracle
 ``core.pbs.reconcile`` (per session, per tree leaf) and with the true set
 difference; every wire result with the in-process result of the same
-session (serve phase, tree phase).  Last, every kernel is compared with its plain version, timed
-and held against its bound at exactly the shapes its path launched it at
-(read from the launch ledger).  Each shape gets two times: ``ms``, CUDA
+session (serve phase, tree phase), every hub result likewise, and every
+epoch of the sync phase with ``core.pbs.reconcile``.  Last, every kernel is
+compared with its plain version, timed and held against its bound at
+exactly the shapes its path launched it at (read from the launch ledger).  Each shape gets two times: ``ms``, CUDA
 events around the wrapper (host issue included), and ``device_ms``, the
 kernel's own duration from ``torch.profiler`` (or a CUDA-graph replay where
 the profiler records none; ``device_ms_by`` says which).  Bounds count one
@@ -67,7 +75,7 @@ if not torch.cuda.is_available():
     sys.exit(1)
 
 from repro_torch.core.bch import BCHCode  # noqa: E402
-from repro_torch.core.pbs import PBSConfig, reconcile  # noqa: E402
+from repro_torch.core.pbs import PBSConfig, plan_from_d_known, reconcile  # noqa: E402
 from repro_torch.core.simdata import make_pair, make_pair_two_sided  # noqa: E402
 from repro_torch.kernels import platform  # noqa: E402
 from repro_torch.kernels.bin_xorsum import (  # noqa: E402
@@ -109,10 +117,17 @@ from repro_torch.core.tow import tow_sketches  # noqa: E402
 from repro_torch.net import (  # noqa: E402
     AliceEndpoint,
     BobEndpoint,
+    ChaosTransport,
+    FaultPlan,
+    HubEndpoint,
     InMemoryDuplex,
+    TransportError,
+    run_hub,
+    run_hub_epoch,
     run_pair,
     tcp_loopback_pair,
 )
+from repro_torch.net.hub import _drive_hub as drive_hub  # noqa: E402
 from repro_torch.obs import Recorder, Tracer  # noqa: E402
 from repro_torch.recon import ReconcileServer  # noqa: E402
 from repro_torch.tree import TreeConfig, leaf_slices, partition_pair, tree_reconcile  # noqa: E402
@@ -186,6 +201,8 @@ PATHS = {
     "tree": ("tree_digest", "bin_xorsum_units", "gf2_matmul"),
     "encode_group": ("bin_parity_xorsum", "gf2_pack_bits", "gf2_matmul"),
     "wire": ("bin_xorsum_units", "gf2_matmul", "tree_digest"),
+    "hub": ("bin_xorsum_units", "gf2_matmul", "tree_digest"),
+    "sync": ("bin_xorsum_units", "gf2_matmul"),
 }
 HOME_PATH = {"bin_xorsum_units": "serve", "gf2_matmul": "serve", "tow_sketch": "serve",
              "tree_digest": "tree", "bin_parity_xorsum": "encode_group",
@@ -1289,9 +1306,9 @@ WIRE_FIELDS = ("diff", "bytes_per_round", "bytes_sent", "estimator_bytes", "roun
 
 
 def wire_picks(sessions) -> list:
-    """The wire phase's sessions, as indices into the serve phase's set: the
-    first known-d session at each d, the first estimator session, the
-    two-sided and the rateless one."""
+    """The sessions the wire, hub and sync phases draw from, as indices
+    into the serve phase's set: the first known-d session at each d, the
+    first estimator session, the two-sided and the rateless one."""
     picked, seen = [], set()
     for sid, (label, *_) in enumerate(sessions):
         if label not in seen:
@@ -1455,8 +1472,12 @@ def wire_phase(sessions, serve_results, trees):
     emit({"phase": "wire", "host_phase0_sketch_s": time.perf_counter() - t0,
           "keys": len(a), "ell": cfg.ell})
 
+    # the known d = 10 and 10 000 sessions run over the hub only, and the
+    # d = 100 one over TCP: a depth cut that keeps the script's time
+    memory = [s for s in picks
+              if sessions[s][0] not in ("known d=10", "known d=100", "known d=10000")]
     _, _, counts, shapes = wire_sessions_run(
-        "pair over InMemoryDuplex", InMemoryDuplex.pair, picks, sessions, serve_results)
+        "pair over InMemoryDuplex", InMemoryDuplex.pair, memory, sessions, serve_results)
     merge_launches(launches, launched, counts, shapes)
     tcp = [s for s in picks if sessions[s][0] in ("known d=100", "known d=1000")]
     alice, _, counts, shapes = wire_sessions_run(
@@ -1472,6 +1493,386 @@ def wire_phase(sessions, serve_results, trees):
     emit({"phase": "wire", "wire_phase_s": time.perf_counter() - t_phase,
           "launches": launches})
     return launches, launched, captured
+
+
+# ---------------------------------------------------------------------------
+# the hub
+# ---------------------------------------------------------------------------
+
+
+def frame_totals(stats_list) -> dict:
+    """Framed bytes by class, and frames, summed over ``wire_stats`` dicts."""
+    keys = ("frames_out", "frames_in", "frame_bytes_out", "frame_bytes_in",
+            "estimator_frame_bytes", "protocol_frame_bytes", "verify_frame_bytes",
+            "tree_frame_bytes", "resume_frame_bytes", "epoch_envelope_bytes",
+            "mux_bytes_out", "mux_bytes_in")
+    return {k: sum(ws[k] for ws in stats_list) for k in keys}
+
+
+def alice_encodes(alices, levels: int) -> int:
+    """Cohort encodes the Alices dispatched (each one K1 and one K2 launch):
+    their ``kernel_launches`` less one ``tree_digest`` launch a tree level."""
+    enc = sum(ep.launches["kernel_launches"] for ep in alices.values()) - levels
+    assert enc % 2 == 0, [ep.launches for ep in alices.values()]
+    return enc // 2
+
+
+def check_hub_launches(hub, alices, launches, levels: int) -> None:
+    """The global launch ledger equals what the hub and its peers counted:
+    K1 = K2 = the hub's cohort encodes plus the Alices', one ``tree_digest``
+    a level a side; only the hub decodes."""
+    hub_enc = hub.stats["kernel_launches"]
+    assert hub_enc % 2 == 0, hub.stats
+    enc = hub_enc // 2 + alice_encodes(alices, levels)
+    assert launches["bin_xorsum_units"] == launches["gf2_matmul"] == enc, (
+        launches, hub.stats, [ep.launches for ep in alices.values()])
+    assert launches.get("tree_digest", 0) == 2 * levels, (launches, levels)
+    assert all(ep.launches["decode_launches"] == 0 for ep in alices.values())
+
+
+def hub_run(sessions, serve_results, trees, captured):
+    """One ``HubEndpoint`` on the card serving 8 port ``AliceEndpoint``s on
+    threads (``run_hub``): 7 of the serve phase's sessions of |A| = 10^6 (the
+    known d = 100 one over a TCP loopback socket, the others over
+    ``InMemoryDuplex``) and a tree peer on the tree phase's uniform pair.
+    Every plain result equals serve's for the same session, every tree leaf
+    the in-process walk's; the hub's launches are fused (2 encodes and 1
+    decode a cohort-round, whatever the peer count) and the global launch
+    ledger equals hub plus Alices.  Keeps the ``tree_digest_ranges``
+    inputs in ``captured``."""
+    picks = wire_picks(sessions)
+    a3, b3, cfg3, tr = trees["uniform"]
+    tcfg = TreeConfig()
+    hub = HubEndpoint(tracer=Tracer())      # device=None: the card
+    alices, sid_of, links = {}, {}, []
+    walls = {"hub_submit_s": 0.0, "alice_submit_s": 0.0}
+
+    def timed(key, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        walls[key] = walls.get(key, 0.0) + time.perf_counter() - t0
+        return out
+
+    try:
+        for sid in picks:
+            label, a, b, cfg, dk = sessions[sid]
+            ta, tb = (tcp_loopback_pair if label == "known d=100" else InMemoryDuplex.pair)()
+            links += [ta, tb]
+            ch = hub.add_peer(tb, label=label)
+            timed("hub_submit_s", hub.submit, ch, b, cfg=cfg, d_known=dk)
+            alices[ch] = AliceEndpoint(ta, channel=ch)
+            timed("alice_submit_s", alices[ch].submit, a, cfg=cfg, d_known=dk)
+            sid_of[ch] = sid
+        ta, tb = InMemoryDuplex.pair()
+        links += [ta, tb]
+        ch_tree = hub.add_peer(tb, label="tree uniform")
+        timed("hub_submit_tree_s", hub.submit_tree, ch_tree, b3, cfg=cfg3, tree=tcfg)
+        alices[ch_tree] = AliceEndpoint(ta, channel=ch_tree)
+        timed("alice_submit_tree_s", alices[ch_tree].submit_tree, a3, cfg3, tcfg)
+        platform.reset_launch_counts()
+        with recording_k4(captured):
+            t0 = time.perf_counter()
+            outcomes, results, errors = run_hub(hub, alices)
+            torch.cuda.synchronize()
+            walls["run_hub_s"] = time.perf_counter() - t0
+        launches, shapes = platform.launch_counts(), platform.launch_shapes()
+    finally:
+        for t in links:
+            t.close()
+    assert not errors, errors
+
+    for ch, sid in sid_of.items():
+        got, want = results[ch][0], serve_results[sid]
+        for f in WIRE_FIELDS:
+            assert getattr(got, f) == getattr(want, f), (sessions[sid][0], f)
+    st, ts = hub.stats, tr.stats
+    for sid in range(ts.leaves):
+        assert results[ch_tree][sid] == tr.results[sid], sid      # every result field
+    assert sorted(results[ch_tree]) == list(range(ts.leaves))
+    tree_diff = set().union(*(r.diff for r in results[ch_tree].values()))
+    assert tree_diff == set(np.setxor1d(a3, b3).tolist())
+    for ch, o in outcomes.items():
+        assert o.ok and o.error_kind is None, (ch, o.error)
+        assert o.verified == [True] * len(results[ch]), ch
+        assert o.wire_stats["frame_bytes_in"] == alices[ch].wire_stats["frame_bytes_out"], ch
+        assert o.wire_stats["frame_bytes_out"] == alices[ch].wire_stats["frame_bytes_in"], ch
+    o3 = outcomes[ch_tree]
+    assert (o3.tree_leaves, o3.tree_depth, st["tree_levels"]) == (ts.leaves, ts.depth, ts.levels)
+    assert alices[ch_tree].wire_stats["tree_frame_bytes"] == o3.wire_stats[
+        "tree_frame_bytes"] == tr.tree_bytes
+
+    # fusion: one rateless session, so each ladder level is one cohort and
+    # parity_extensions counts the ladder's cohort-levels
+    ext = st["parity_extensions"]
+    assert ext > 0, st
+    assert st["kernel_launches"] == 2 * (st["cohort_rounds"] + ext), st
+    assert st["decode_launches"] == st["cohort_rounds"] + ext, st
+    check_hub_launches(hub, alices, launches, ts.levels)
+    peer_enc = alice_encodes(alices, ts.levels)
+    assert st["kernel_launches"] // 2 < peer_enc, (st, peer_enc)
+
+    plain = [results[ch][0] for ch in sid_of]
+    diffs = sum(len(r.diff) for r in plain) + len(tree_diff)
+    ledger = (sum(r.bytes_sent + r.estimator_bytes for r in plain)
+              + sum(r.bytes_sent for r in results[ch_tree].values()) + tr.tree_bytes)
+    frames = frame_totals([o.wire_stats for o in outcomes.values()])
+    emit({"phase": "hub", "run": "8 peers",
+          "peers": [sessions[sid][0] for sid in sid_of.values()] + ["tree uniform"],
+          "set_size": len(sessions[picks[0]][1]), **walls,
+          "rounds": st["rounds"], "cohort_rounds": st["cohort_rounds"],
+          "parity_extensions": ext, "tree_levels": st["tree_levels"],
+          "tree_leaves": st["tree_leaves"],
+          "hub_kernel_launches": st["kernel_launches"],
+          "hub_decode_launches": st["decode_launches"],
+          "alices_kernel_launches": sum(ep.launches["kernel_launches"] for ep in alices.values()),
+          "alices_cohort_encodes": peer_enc,
+          "alices_decode_launches": sum(ep.launches["decode_launches"] for ep in alices.values()),
+          "peer_rounds": sum(r.rounds for res in results.values() for r in res.values()),
+          "hub_frames": frames, "diffs": diffs,
+          "ledger_bytes_per_diff": ledger / diffs,
+          "framed_bytes_per_diff": (frames["frame_bytes_in"] + frames["frame_bytes_out"])
+          / diffs,
+          "h2d_bytes": st["h2d_bytes"], "store_uploads": st["store_uploads"],
+          "retraces": st["retraces"], "launches": launches,
+          "all_results_match_serve": True, "all_leaves_match_in_process": True})
+    return launches, shapes
+
+
+def hub_resume_run(sessions, serve_results):
+    """A 2-peer hub with a resume window on the card, serving serve's known
+    d = 100 and d = 1000 sessions; the peer whose session runs more rounds
+    crashes after two sends (``FaultPlan(crash_after_sends=2)``), reconnects
+    over a fresh duplex and resumes through ``MSG_RESUME``.  Both results
+    equal serve's; the crashed peer's outcome is ``resumed``."""
+    picks = [sid for sid in wire_picks(sessions)
+             if sessions[sid][0] in ("known d=100", "known d=1000")]
+    crash_sid = max(picks, key=lambda s: serve_results[s].rounds)
+    hub = HubEndpoint(resume_window=30.0)
+    alices, sid_of, links, pending, calls = {}, {}, [], {}, {}
+    try:
+        for sid in picks:
+            label, a, b, cfg, dk = sessions[sid]
+            ta, tb = InMemoryDuplex.pair()
+            links += [ta, tb]
+            if sid == crash_sid:
+                ta = ChaosTransport(ta, FaultPlan(crash_after_sends=2))
+            ch = hub.add_peer(tb, label=label)
+            hub.submit(ch, b, cfg=cfg, d_known=dk)
+            alices[ch] = AliceEndpoint(ta, channel=ch)
+            alices[ch].submit(a, cfg=cfg, d_known=dk)
+            sid_of[ch] = sid
+            calls[ch] = alices[ch].run
+        ch_crash = next(ch for ch, s in sid_of.items() if s == crash_sid)
+        crash = {}
+
+        def crasher():
+            try:
+                return alices[ch_crash].run()
+            except TransportError as e:
+                crash["error"] = repr(e)
+            na, nh = InMemoryDuplex.pair()
+            links.extend([na, nh])
+            pending["t"] = nh
+            alices[ch_crash].resume(na)
+            return alices[ch_crash].resume_run()
+
+        def on_barrier(rnd):
+            if "t" in pending and hub._peers[ch_crash].suspended:
+                hub.resume_peer(ch_crash, pending.pop("t"))
+
+        calls[ch_crash] = crasher
+        hub.on_barrier = on_barrier
+        platform.reset_launch_counts()
+        t0 = time.perf_counter()
+        outcomes, results, errors = drive_hub(hub, calls, join_timeout=120.0)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches, shapes = platform.launch_counts(), platform.launch_shapes()
+    finally:
+        for t in links:
+            t.close()
+    assert not errors, errors
+    assert "error" in crash, "the scripted crash never fired"
+    st = hub.stats
+    for ch, sid in sid_of.items():
+        got, want = results[ch][0], serve_results[sid]
+        for f in WIRE_FIELDS:
+            assert getattr(got, f) == getattr(want, f), (sessions[sid][0], f)
+        assert outcomes[ch].ok and outcomes[ch].verified == [True], ch
+    assert outcomes[ch_crash].error_kind == "resumed" and alices[ch_crash].resumes == 1
+    assert st["peers_resumed"] == 1 and st["peers_failed"] == 0, st
+    check_hub_launches(hub, alices, launches, 0)
+    aw = alices[ch_crash].wire_stats
+    assert aw["resume_frame_bytes"] == outcomes[ch_crash].wire_stats["resume_frame_bytes"] > 0
+    emit({"phase": "hub", "run": "resume", "sessions": [sessions[s][0] for s in picks],
+          "crashed": sessions[crash_sid][0], "crash": crash["error"],
+          "crashed_rounds": serve_results[crash_sid].rounds, "run_hub_s": run_s,
+          "error_kinds": {sessions[sid_of[ch]][0]: o.error_kind for ch, o in outcomes.items()},
+          "peers_resumed": st["peers_resumed"],
+          "resume_replay_bytes": st["resume_replay_bytes"],
+          "resume_frame_bytes": aw["resume_frame_bytes"],
+          "hub_kernel_launches": st["kernel_launches"],
+          "hub_decode_launches": st["decode_launches"], "cohort_rounds": st["cohort_rounds"],
+          "launches": launches, "all_results_match_serve": True})
+    return launches, shapes
+
+
+def hub_phase(sessions, serve_results, trees):
+    """The hub on the card (see the module docstring).  Returns the
+    launches of its runs by kernel, the shapes they launched each kernel
+    at, and the ``tree_digest`` inputs by shape."""
+    t_phase = time.perf_counter()
+    launches, launched, captured = {}, {}, {}
+    counts, shapes = hub_run(sessions, serve_results, trees, captured)
+    merge_launches(launches, launched, counts, shapes)
+    counts, shapes = hub_resume_run(sessions, serve_results)
+    merge_launches(launches, launched, counts, shapes)
+    for name in PATHS["hub"]:
+        assert launches.get(name, 0) > 0, f"hub path never launched {name}: {launches}"
+    emit({"phase": "hub", "hub_phase_s": time.perf_counter() - t_phase, "launches": launches})
+    return launches, launched, captured
+
+
+# ---------------------------------------------------------------------------
+# continuous sync over the hub
+# ---------------------------------------------------------------------------
+
+SYNC_EPOCHS = 3
+SYNC_CHURN = 1000       # keys added and keys removed per side per epoch
+
+
+def epoch_churn(rng, base, n: int):
+    """Each side's churn of one epoch over the shared converged set
+    ``base``: ``n`` fresh keys added and ``n`` keys removed a side, the two
+    sides' keys disjoint, so the epoch's difference is exactly 4n keys."""
+    removed = rng.permutation(base)[: 2 * n]
+    fresh = np.setdiff1d(
+        np.unique(rng.integers(1, 1 << 32, size=3 * n, dtype=np.uint64).astype(np.uint32)),
+        base)
+    fresh = rng.permutation(fresh)[: 2 * n]
+    assert len(fresh) == 2 * n
+    return (fresh[:n], removed[:n]), (fresh[n:], removed[n:])
+
+
+def sync_run(args, sessions, pool, cold=None):
+    """One continuous hub (``run_hub_epoch``) on the card with 2 peers,
+    serve's known d = 100 and d = 1000 pairs of |A| = 10^6, for
+    ``SYNC_EPOCHS`` epochs of seeded churn (``SYNC_CHURN`` keys added and
+    removed a side).  The sessions pin the layout planned for the epochs'
+    d = 4 * SYNC_CHURN (n, t, g overrides, as the reference's churn soak pins
+    its layout), so every epoch patches the resident stores in place.  Each
+    epoch's results equal ``core.pbs.reconcile`` in ``pool`` and the true
+    difference, or, given the rows of an earlier run ``cold`` over the same
+    epochs, that run's results.  No store rebuilds after epoch 0 and
+    cumulative delta H2D <= 25 % of rebuilding every epoch.  Returns the
+    per-epoch rows, and the launches and launched shapes of the run."""
+    rng = np.random.default_rng(args.seed + 99)
+    d_epoch = 4 * SYNC_CHURN
+    plan = plan_from_d_known(PBSConfig(), d_epoch)
+    layout = {"n_override": plan.n, "t_override": plan.t, "g_override": plan.g}
+    picks = [sid for sid in wire_picks(sessions)
+             if sessions[sid][0] in ("known d=100", "known d=1000")]
+    hub = HubEndpoint(continuous=True)
+    alices, cfgs, dks, links = {}, {}, {}, []
+    try:
+        t0 = time.perf_counter()
+        for sid in picks:
+            label, a, b, cfg, dk = sessions[sid]
+            cfg = PBSConfig(seed=cfg.seed, **layout)
+            ta, tb = InMemoryDuplex.pair()
+            links += [ta, tb]
+            ch = hub.add_peer(tb, label=label)
+            hub.submit(ch, b, cfg=cfg, d_known=dk)
+            alices[ch] = AliceEndpoint(ta, channel=ch, continuous=True)
+            alices[ch].submit(a, cfg=cfg, d_known=dk)
+            cfgs[ch], dks[ch] = cfg, dk
+        submit_s = time.perf_counter() - t0
+        platform.reset_launch_counts()
+        rows, store_bytes, delta = [], None, []
+        for e in range(SYNC_EPOCHS + 1):
+            t0 = time.perf_counter()
+            if e:
+                hub_muts, alice_muts = {}, {}
+                for ch, ep in alices.items():
+                    base = outcomes[ch].sessions[0].state.b      # converged last epoch
+                    (a_add, a_rem), (b_add, b_rem) = epoch_churn(rng, base, SYNC_CHURN)
+                    hub_muts[ch] = {0: (b_add, b_rem)}
+                    alice_muts[ch] = {0: (a_add, a_rem)}
+                hub.advance_epoch(hub_muts, d_known={ch: {0: d_epoch} for ch in alices})
+                for ch, ep in alices.items():
+                    ep.advance_epoch(alice_muts[ch], d_known={0: d_epoch})
+                    dks[ch] = d_epoch
+            advance_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            outcomes, results, errors = (run_hub_epoch if e else run_hub)(hub, alices)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            assert not errors, (e, errors)
+            st = hub.stats
+            got = [results[ch][0] for ch in alices]
+            if cold is None:
+                jobs = [(alices[ch].sessions[0].state.a, outcomes[ch].sessions[0].state.b,
+                         cfgs[ch], dks[ch]) for ch in alices]
+                for r, want, (a_e, b_e, _, _) in zip(got, pool.starmap(reconcile, jobs), jobs):
+                    assert r.success and r == want, (e, r, want)
+                    truth = set(np.setxor1d(a_e, b_e).tolist())
+                    assert r.diff == truth and (e == 0 or len(truth) == d_epoch), e
+            else:
+                assert got == cold[e]["results"], e
+            assert all(o.ok and o.verified == [True] for o in outcomes.values()), e
+            if e == 0:
+                store_bytes = st["h2d_store_bytes"]
+                assert store_bytes > 0 and st["store_builds"] == st["store_uploads"], st
+            else:
+                assert st["store_builds"] == 0 and st["store_compactions"] == 0, (e, st)
+                assert 0 < st["h2d_delta_bytes"] < store_bytes, (e, st)
+                delta.append(st["h2d_delta_bytes"])
+            rows.append({"epoch": e, "advance_s": advance_s, "run_s": run_s,
+                         "diffs": sum(len(r.diff) for r in got),
+                         "rounds": st["rounds"], "cohort_rounds": st["cohort_rounds"],
+                         "kernel_launches": st["kernel_launches"],
+                         "decode_launches": st["decode_launches"],
+                         "store_builds": st["store_builds"],
+                         "h2d_store_bytes": st["h2d_store_bytes"],
+                         "h2d_delta_bytes": st["h2d_delta_bytes"],
+                         "h2d_round_bytes": st["h2d_round_bytes"], "retraces": st["retraces"],
+                         "frames": frame_totals([o.wire_stats for o in outcomes.values()]),
+                         "results": got})
+        launches, shapes = platform.launch_counts(), platform.launch_shapes()
+    finally:
+        for t in links:
+            t.close()
+    frac = sum(delta) / (SYNC_EPOCHS * store_bytes)
+    assert frac <= 0.25, (frac, delta, store_bytes)
+    return {"sessions": [sessions[s][0] for s in picks], "layout": layout,
+            "submit_s": submit_s, "store_bytes": store_bytes,
+            "delta_h2d_fraction_of_rebuild": frac, "rows": rows}, launches, shapes
+
+
+def sync_phase(args, sessions, pool):
+    """The sync path on the card: a cold continuous hub over the epochs (the
+    counted run: every epoch against the oracle), then a second hub over the
+    same epochs in the warmed process, equal to the first epoch for epoch,
+    which must meet no new executor variant in any epoch (``retraces`` 0:
+    the shape buckets a workload's epochs need are all seen after one pass
+    over them; which buckets rounds 2 and 3 need depends on the epoch's
+    data, so a first pass may still meet new ones in any epoch)."""
+    t_phase = time.perf_counter()
+    cold, launches, shapes = sync_run(args, sessions, pool)
+    for name in PATHS["sync"]:
+        assert launches.get(name, 0) > 0, f"sync path never launched {name}: {launches}"
+    assert cold["rows"][0]["retraces"] > 0, "a cold hub met no new executor variant"
+    warm, _, _ = sync_run(args, sessions, None, cold=cold["rows"])
+    assert [r["retraces"] for r in warm["rows"]] == [0] * (SYNC_EPOCHS + 1), warm["rows"]
+
+    def public(run):
+        return {**run, "rows": [{k: v for k, v in r.items() if k != "results"}
+                                for r in run["rows"]]}
+
+    emit({"phase": "sync", "set_size": len(sessions[0][1]), "churn_per_side": SYNC_CHURN,
+          "cold": public(cold), "warm": public(warm), "launches": launches,
+          "sync_phase_s": time.perf_counter() - t_phase, "all_epochs_match_oracle": True})
+    return launches, shapes
 
 
 def profile_run(sessions, out_path):
@@ -1520,9 +1921,9 @@ def profile_run(sessions, out_path):
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    # 7 until the wire phase joined the run; 5 keeps the whole script near
-    # the time it took before
-    ap.add_argument("--sessions-per-d", type=int, default=5,
+    # 7 before the wire phase joined the run, 5 before the hub and sync
+    # phases did; 3 keeps the whole script near the time it took before
+    ap.add_argument("--sessions-per-d", type=int, default=3,
                     help="known-d sessions per d in {10, 100, 1000, 10000}")
     ap.add_argument("--size", type=int, default=1_000_000, help="|A| per session")
     ap.add_argument("--seed", type=int, default=0)
@@ -1574,9 +1975,12 @@ def main() -> None:
                 args, rng, pool)
             launches["tree"], launched["tree"], k4_inputs["tree"], trees = tree_phase(
                 args, pool)
-        launches["encode_group"], launched["encode_group"] = encode_group_phase(rng)
-        launches["wire"], launched["wire"], k4_inputs["wire"] = wire_phase(
-            sessions, serve_results, trees)
+            launches["encode_group"], launched["encode_group"] = encode_group_phase(rng)
+            launches["wire"], launched["wire"], k4_inputs["wire"] = wire_phase(
+                sessions, serve_results, trees)
+            launches["hub"], launched["hub"], k4_inputs["hub"] = hub_phase(
+                sessions, serve_results, trees)
+            launches["sync"], launched["sync"] = sync_phase(args, sessions, pool)
         del sessions, serve_results, trees
         report = main_shape_phase(args, rng, launched, k4_inputs, sass)
         emit({"kernels": [

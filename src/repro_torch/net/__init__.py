@@ -23,8 +23,17 @@ runs the tree front end's walk over ``MSG_TREE`` before phase 0 (§15), and
 and scripts seeded faults under any transport (``FaultPlan`` /
 ``ChaosTransport``).  Frames are the contract: a port endpoint pairs with
 a reference endpoint over either package's transports.
+
+``HubEndpoint`` (DESIGN.md §10) scales the serving side to N concurrent
+peers on channel-multiplexed transports: all peers' sessions fuse into one
+shared cohort pipeline on the hub's ``device`` (2 encode launches and 1
+decode launch per cohort per round, whatever the number of peers), with
+per-peer round-barrier deadlines, ``MSG_RESUME`` resumption
+(``resume_peer``), tree-phase joiners and continuous epochs
+(``run_hub_epoch``).
 """
 from .endpoint import AliceEndpoint, BobEndpoint, run_pair, run_pair_epoch
+from .hub import HubEndpoint, PeerOutcome, run_hub, run_hub_epoch
 from .resilience import ChaosTransport, FaultPlan, PeerDeadline, classify_error
 from .transport import (
     FrameStream,
@@ -44,8 +53,10 @@ __all__ = [
     "ChaosTransport",
     "FaultPlan",
     "FrameStream",
+    "HubEndpoint",
     "InMemoryDuplex",
     "PeerDeadline",
+    "PeerOutcome",
     "ReliableTransport",
     "SimulatedChannel",
     "SocketTransport",
@@ -53,6 +64,8 @@ __all__ = [
     "TransportError",
     "TransportTimeout",
     "classify_error",
+    "run_hub",
+    "run_hub_epoch",
     "run_pair",
     "run_pair_epoch",
     "tcp_loopback_pair",

@@ -26,6 +26,7 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
         import repro_torch.tree, repro_torch.wire, repro_torch.net
         import repro_torch.net.endpoint, repro_torch.net.resilience
         import repro_torch.net.transport, repro_torch.wire.frames
+        import repro_torch.net.hub, repro_torch.sync
         bad = sorted(
             m for m in sys.modules
             if m == "jax" or m.startswith("jax.") or m == "jaxlib"
