@@ -43,9 +43,11 @@ the profiler records none; ``device_ms_by`` says which).  Bounds count one
 bit per 0/1 entry (parity bitmaps, K2's A, B and C).  K1 and K2 are measured
 through the packed entries the main path calls, K4 through the ragged entry
 ``tree_digest_ranges`` the walk calls, with the old route (the padded level
-gather plus the masked-rows kernel) timed beside it on the same ranges.  K3
-and K4 also get an issue floor: SASS instructions per hash from
-``cuobjdump -sass`` of the built kernels (phase ``sass``).
+gather plus the masked-rows kernel) timed beside it on the same ranges.  K5
+is timed per call over every stage (fold and merge, split by kernel) with
+its launch geometry, and its PR 13 route (one cluster) beside it on the
+same keys.  K3, K4 and K5 also get an issue floor: SASS instructions per
+hash from ``cuobjdump -sass`` of the built kernels (phase ``sass``).
 
 Each phase prints one JSON line; any failed phase raises and the process
 exits non-zero.  The last line of standard output is
@@ -55,6 +57,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import json
 import multiprocessing
 import os
@@ -85,6 +88,7 @@ from repro_torch.kernels.bin_xorsum import (  # noqa: E402
     bin_parity_xorsum_units_packed,
     bin_parity_xorsum_units_packed_plain,
     bin_parity_xorsum_units_plain,
+    set_plan,
 )
 from repro_torch.kernels.gf2_matmul import (  # noqa: E402
     gf2_matmul,
@@ -191,7 +195,9 @@ SYMBOLS = {
     # the tree path's entry is the ragged one; the padded contract runs K3's
     "tree_digest": ("tow_ranges_kernel",),
     "tree_digest_padded": ("tow_rows_warp_kernel", "tow_rows_block_kernel"),
-    "bin_parity_xorsum": ("long_rows_kernel",),
+    # the fold stage first: each call launches it once (device_ms per_call)
+    "bin_parity_xorsum": ("set_fold_kernel", "set_merge_kernel"),
+    "bin_parity_xorsum_cluster": ("long_rows_kernel",),
     "gf2_pack_bits": ("gf2_pack_kernel",),
 }
 # the kernels each path must launch, and the path whose run gives each
@@ -242,7 +248,8 @@ def time_ms(fn, reps: int) -> float:
     return float(np.mean(times_ms(fn, reps)))
 
 
-def device_ms(fn, name: str, reps: int = 20, every_activity: bool = False) -> dict:
+def device_ms(fn, name: str, reps: int = 20, every_activity: bool = False,
+              per_call: bool = False) -> dict:
     """Device time per call of ``fn``, which launches kernel ``name`` once:
     the mean CUDA duration of its symbols (``SYMBOLS[name]``) over the
     launches ``torch.profiler`` recorded in ``reps`` calls (it may keep
@@ -252,7 +259,11 @@ def device_ms(fn, name: str, reps: int = 20, every_activity: bool = False) -> di
     every device activity of a call (kernels, copies, memsets) summed over
     the window and divided by the launches of ``name``'s symbols it kept
     (the calls it recorded); no fallback (``device_ms`` None where it kept
-    none)."""
+    none).  ``per_call``: for a wrapper that may launch several kernels a
+    call — every device activity of the window over the calls it recorded,
+    counted as the launches of ``name``'s first symbol (one a call), each
+    symbol's share beside it (``device_ms_by_symbol``); the graph replay
+    where it recorded none."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -263,6 +274,7 @@ def device_ms(fn, name: str, reps: int = 20, every_activity: bool = False) -> di
             fn()
         torch.cuda.synchronize()
     total_us, calls, every_us = 0.0, 0, 0.0
+    sym_us, sym_calls = dict.fromkeys(SYMBOLS[name], 0.0), dict.fromkeys(SYMBOLS[name], 0)
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA:
             continue
@@ -272,6 +284,18 @@ def device_ms(fn, name: str, reps: int = 20, every_activity: bool = False) -> di
         if any(k in ev.key for k in SYMBOLS[name]):
             total_us += us
             calls += ev.count
+        for k in SYMBOLS[name]:
+            if k in ev.key:
+                sym_us[k] += us
+                sym_calls[k] += ev.count
+    first = SYMBOLS[name][0]
+    if per_call and sym_calls[first] > 0 and every_us > 0:
+        n = sym_calls[first]
+        return {"device_ms": every_us / n / 1e3,
+                "device_ms_by": f"profiler, every device activity per call ({first} launches)",
+                "profiled_launches": n,
+                "device_ms_by_symbol": {k: sym_us[k] / n / 1e3 for k in SYMBOLS[name]},
+                "launches_by_symbol": sym_calls}
     if every_activity:
         return {"device_ms": every_us / calls / 1e3 if calls and every_us > 0 else None,
                 "device_ms_by": "profiler, every device activity", "profiled_launches": calls}
@@ -294,7 +318,8 @@ def device_ms(fn, name: str, reps: int = 20, every_activity: bool = False) -> di
     graph.replay()
     end.record()
     torch.cuda.synchronize()
-    return {"device_ms": start.elapsed_time(end) / 50, "device_ms_by": "cuda_graph_replay"}
+    by = "cuda_graph_replay, every device activity per call" if per_call else "cuda_graph_replay"
+    return {"device_ms": start.elapsed_time(end) / 50, "device_ms_by": by}
 
 
 def dev_u32(arr: np.ndarray) -> torch.Tensor:
@@ -444,10 +469,35 @@ def check_k4_ranges(keys, lo, cnt, seeds, width):
                    (out, padded))
 
 
-def check_k5(elems, n_bins, seed):
+def check_k5(elems, n_bins, seed, poison=False):
+    """K5 against its plain version; ``poison``: first fill freed blocks of
+    the outputs' and the partials' sizes with a pattern, so the caching
+    allocator hands the kernel memory where a word it fails to write shows."""
+    if poison:
+        plan = set_plan(elems.shape[0], n_bins, DEV)
+        part = plan["partials"] * (n_bins + packed_words(n_bins)) if plan["partials"] > 1 else 0
+        junk = [torch.full((size,), -0x5A5A5A5B, dtype=torch.int32, device=DEV)
+                for size in (n_bins, n_bins, part)]
+        del junk
     p, x = bin_parity_xorsum(elems, n_bins=n_bins, seed=seed)
     pp, xp = bin_parity_xorsum_plain(elems, n_bins=n_bins, seed=seed)
     return max_err((p, pp), (x, xp))
+
+
+def k5_cluster_route(elems, n_bins, seed):
+    """K5 on its PR 13 route (``long_rows_kernel<true>``: one cluster of at
+    most 16 blocks), for the before/after times only: no wrapper calls it,
+    and it counts no launch."""
+    fn = platform.load_kernel_lib("bin_xorsum").bin_parity_xorsum_cluster_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_uint, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    parity = torch.empty(n_bins, dtype=torch.int32, device=DEV)
+    xors = torch.empty(n_bins, dtype=torch.int32, device=DEV)
+    rc = fn(elems.data_ptr(), seed & 0xFFFFFFFF, parity.data_ptr(), xors.data_ptr(),
+            elems.shape[0], n_bins, platform.current_stream_ptr())
+    platform.check_launch("bin_parity_xorsum_cluster", rc)
+    return parity, xors
 
 
 def kernel_sweeps(rng):
@@ -549,6 +599,28 @@ def kernel_sweeps(rng):
                 elems[E // 2] = 0
             err = max(err, check_k5(elems, n_bins, int(rng.integers(1 << 32))))
             shapes.append([E, n_bins, E >= 100])
+    # over the set-wide geometry (one block to E = 8192, a cluster pair,
+    # the whole card, 4 slices a thread at 4 * 10^6), n up to the limit;
+    # key 0 first or last in turn, the outputs over a poisoned pool; one hot
+    # bin (every key equal, an odd count); scalar loads (one element into a
+    # larger tensor)
+    i = 0
+    for n_bins in (3, 63, 255, 8191, 16383, 28000):
+        for E in (0, 1, 100, 8191, 8192, 8193, 65537, (1 << 20) + 3, 1_000_000, 4_000_000):
+            elems = dev_u32(extra.integers(0, 1 << 32, size=E, dtype=np.uint64))
+            if E:
+                elems[0 if i % 2 == 0 else E - 1] = 0
+            err = max(err, check_k5(elems, n_bins, int(extra.integers(1 << 32)), poison=True))
+            shapes.append([E, n_bins, "key 0 " + ("first" if i % 2 == 0 else "last")])
+            i += 1
+    hot = torch.full((1_000_001,), int(extra.integers(1, 1 << 31)), dtype=torch.int32, device=DEV)
+    err = max(err, check_k5(hot, 8191, 5, poison=True))
+    shapes.append([1_000_001, 8191, "every key equal"])
+    longer = dev_u32(extra.integers(0, 1 << 32, size=1_000_001, dtype=np.uint64))
+    longer[500_000] = 0
+    for n_bins in (255, 8191):
+        err = max(err, check_k5(longer[1:], n_bins, 9, poison=True))
+        shapes.append([1_000_000, n_bins, "unaligned view"])
     checks.append({"name": "bin_parity_xorsum", "shapes": shapes, "equal": err == 0})
 
     torch.cuda.synchronize()
@@ -568,17 +640,31 @@ def seeds_per_lane(ell: int) -> int:
 _MIX_MUL = ("0x85ebca6b", "-0x7a143595")
 
 
+# the kernels whose inner loops phase ``sass`` counts: key -> a piece of the
+# mangled name (the template arguments pick the instantiation)
+SASS_KERNELS = {
+    **{(kern, ns): f"{kern}ILi{ns}E"
+       for kern in ("tow_rows_warp_kernel", "tow_rows_block_kernel", "tow_ranges_kernel")
+       for ns in (1, 2, 4)},
+    ("set_fold_kernel", "wide"): "set_fold_kernelILb0E",
+    ("set_fold_kernel", "packed"): "set_fold_kernelILb1E",
+    ("long_rows_kernel", "modulo"): "long_rows_kernelILb1E",
+}
+
+
 def sass_inner_loops(lib: Path) -> dict:
-    """Instructions per hash in the inner loop of each ``tow_sketch.cu``
-    kernel, from ``cuobjdump -sass`` of the built library.  Candidates are
+    """Instructions per hash in the inner loop of each kernel of
+    ``SASS_KERNELS`` that ``lib`` holds (``tow_sketch.cu``'s, and K5's fold
+    in ``bin_xorsum.cu``, new and old), from ``cuobjdump -sass`` of the
+    built library.  Candidates are
     the innermost loops (a backward branch and its target) and the basic
     blocks (cut at branch targets and after branches) of each function; the
     one with the most mix32 multiplies (a loop where they tie) is the walk
     over a full group's keys — an unrolled loop, or straight-line code where
     the walk is unrolled whole — and its instructions over those multiplies
-    are the SASS per (key, seed), the shuffles and any loop control
-    included.  ``{(kernel, NS): {...}}``; empty where the toolchain has no
-    ``cuobjdump``."""
+    are the SASS per (key, seed), the shuffles, atomics and any loop
+    control included.  ``{key of SASS_KERNELS: {...}}``; empty where the
+    toolchain has no ``cuobjdump``."""
     tool = Path(platform._nvcc()).parent / "cuobjdump"
     if not tool.exists():
         return {}
@@ -608,11 +694,10 @@ def sass_inner_loops(lib: Path) -> dict:
         best = max(((len([o for o in r if not o.startswith("NOP")]),
                      sum(any(c in o.lower() for c in _MIX_MUL) for o in r)) for r in regions),
                    key=lambda nh: nh[1], default=(0, 0))
-        for kern in ("tow_rows_warp_kernel", "tow_rows_block_kernel", "tow_ranges_kernel"):
-            for ns in (1, 2, 4):
-                if best[1] and f"{kern}ILi{ns}E" in (fn or ""):
-                    out[(kern, ns)] = {"region_instructions": best[0], "region_hashes": best[1],
-                                       "per_hash": best[0] / best[1]}
+        for key, piece in SASS_KERNELS.items():
+            if best[1] and piece in (fn or ""):
+                out[key] = {"region_instructions": best[0], "region_hashes": best[1],
+                            "per_hash": best[0] / best[1]}
 
     for line in sh([str(tool), "-sass", str(lib)]).splitlines():
         stripped = line.strip()
@@ -876,9 +961,20 @@ def k4_report(captured, launched, sass):
     }
 
 
-def k5_report(rng, launched):
-    """K5 at every ``(E, n)`` the encode_group path launched it at; bound:
-    every key read, the folds and one bit a bin written."""
+def k5_floor(sass_entry, keys: int, device_time) -> dict:
+    """``issue_floor`` of K5's fold over ``keys`` keys, one hash a key."""
+    floor = issue_floor(sass_entry, keys, device_time)
+    floor["sass_per_key"] = floor.pop("sass_per_hash")
+    return floor
+
+
+def k5_report(rng, launched, sass):
+    """K5 at every ``(E, n)`` the encode_group path launched it at: the
+    launch geometry (``set_plan``), events over the wrapper, the device
+    time per call summed over every stage (``device_ms_by_symbol`` splits
+    fold and merge), the issue floor of the fold; beside them the PR 13
+    route on the same keys (``old_route_*``: one cluster, ``long_rows_kernel``).
+    Bound: every key read, the folds and one bit a bin written."""
     g = torch.Generator(device=DEV)
     g.manual_seed(int(rng.integers(1 << 62)))
     rows, cases = [], {}
@@ -889,22 +985,38 @@ def k5_report(rng, launched):
         def call():
             return bin_parity_xorsum(elems, n_bins=n, seed=seed)
 
+        def old():
+            return k5_cluster_route(elems, n, seed)
+
+        geometry = set_plan(E, n, DEV)
         ts = times_ms(call, 50)
+        dev = device_ms(call, "bin_parity_xorsum", per_call=True)
+        old_dev = device_ms(old, "bin_parity_xorsum_cluster")["device_ms"]
         rows.append({
-            "shape": [E, n], "launches": count, "max_abs_err": check_k5(elems, n, seed),
+            "shape": [E, n], "launches": count,
+            "max_abs_err": max(check_k5(elems, n, seed), max_err(*zip(old(), call()))),
+            "geometry": geometry,
             "ms": float(np.mean(ts)), "ms_min": min(ts), "ms_median": float(np.median(ts)),
-            **device_ms(call, "bin_parity_xorsum"),
+            **dev,
             **bound((E * 4 + n * 4 + n / 8) / HBM_BYTES_PER_S,
-                    E * K1_OPS_PER_KEY / ALU32_OPS_PER_S)})
+                    E * K1_OPS_PER_KEY / ALU32_OPS_PER_S),
+            **k5_floor(sass.get(("set_fold_kernel", geometry["table"])), E, dev["device_ms"]),
+            "old_route_ms": time_ms(old, 20), "old_route_device_ms": old_dev,
+            **{f"old_route_{k}": v for k, v in k5_floor(
+                sass.get(("long_rows_kernel", "modulo")), E, old_dev).items()
+               if k in ("sass_per_key", "issue_floor_ms")}})
     head = max(rows, key=lambda r: r["shape"][0])
     elems, seed = cases[tuple(head["shape"])]
     n = head["shape"][1]
     return {
         "shapes": {"elems": [head["shape"][0]], "n_bins": n},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": head["ms"], "device_ms": head["device_ms"], "device_ms_by": head["device_ms_by"],
+        **{k: head[k] for k in ("geometry", "ms", "device_ms", "device_ms_by",
+                                "device_ms_by_symbol", "bound_ms", "bound_by",
+                                "issue_floor_ms", "sass_per_key", "old_route_ms",
+                                "old_route_device_ms", "old_route_sass_per_key",
+                                "old_route_issue_floor_ms") if k in head},
         "plain_ms": time_ms(lambda: bin_parity_xorsum_plain(elems, n_bins=n, seed=seed), 5),
-        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": None,
         "launched_shapes": rows,
     }
@@ -923,7 +1035,7 @@ def main_shape_phase(args, rng, launched, k4_inputs, sass):
         "gf2_matmul": lambda path, shapes: k2_report(rng, shapes),
         "tow_sketch": lambda path, shapes: k3_report(rng, shapes, args.size, sass),
         "tree_digest": lambda path, shapes: k4_report(k4_inputs[path], shapes, sass),
-        "bin_parity_xorsum": lambda path, shapes: k5_report(rng, shapes),
+        "bin_parity_xorsum": lambda path, shapes: k5_report(rng, shapes, sass),
         "gf2_pack_bits": lambda path, shapes: pack_report(rng, shapes),
     }
     report = {}
@@ -1962,9 +2074,13 @@ def main() -> None:
     libs = platform.build_kernels(verbose=True)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": sorted(p.name for p in libs.values())})
-    sass = sass_inner_loops(libs["tow_sketch"])
+    sass = {**sass_inner_loops(libs["tow_sketch"]), **sass_inner_loops(libs["bin_xorsum"])}
     emit({"phase": "sass", "tow_sketch_inner_loops": [
-        {"kernel": k, "NS": ns, **v} for (k, ns), v in sorted(sass.items())]})
+        {"kernel": k, "NS": ns, **v}
+        for (k, ns), v in sorted(i for i in sass.items() if i[0][0].startswith("tow_"))],
+        "bin_parity_xorsum_inner_loops": [
+            {"kernel": k, "table": t, **v} for (k, t), v in sass.items()
+            if not k.startswith("tow_")]})
 
     kernel_sweeps(rng)
     if not args.kernels_only:

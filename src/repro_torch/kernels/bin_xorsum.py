@@ -9,11 +9,12 @@ behind ``ops.encode_group``, binning with the historical ``mix32(e, seed) %
 n`` (``ref.bin_parity_xorsum_ref``).
 
 On CUDA tensors the hand-written kernels of ``csrc/bin_xorsum.cu`` run
-(shared-memory ``atomicXor`` scatter; short rows several to a block, long
-rows one thread-block cluster each); on CPU tensors the ``*_plain``
-versions — the same functions in plain PyTorch ops — run.  The dispatch is
-on the tensors' device and nothing else: a CUDA tensor launches the kernel
-or raises.
+(shared-memory ``atomicXor`` scatter; K1's short rows several to a block,
+its long rows one thread-block cluster each; K5's one set over every SM in
+clusters of two, the partial tables merged after); on CPU tensors the
+``*_plain`` versions — the same functions in plain PyTorch ops — run.  The
+dispatch is on the tensors' device and nothing else: a CUDA tensor
+launches the kernel or raises.
 
 ``bin_parity_xorsum_units_packed`` is the entry of the main path.  It
 returns the parity bitmaps in the packed layout of ``kernels.gf2_matmul``
@@ -201,27 +202,57 @@ def bin_parity_xorsum_units(
     return unpack_bits(words, n_bins), xors
 
 
+def fastmod_magic(n_bins: int) -> int:
+    """The reciprocal K5 bins with: ``M = floor((2^64 - 1) / n) + 1`` mod 2^64,
+    so that ``h % n == ((M * h mod 2^64) * n) >> 64`` for every 32-bit h
+    (Lemire's direct remainder)."""
+    return (((1 << 64) - 1) // n_bins + 1) & ((1 << 64) - 1)
+
+
+def set_plan(E: int, n_bins: int, device: torch.device) -> dict:
+    """K5's launch geometry at ``(E, n_bins)`` on ``device``: grid, threads
+    a block, cluster size, shared bytes a block, the partial tables the
+    merge stage folds (1: no merge) and the table layout ("wide": a parity
+    word a bin; "packed": parity bits packed 32 to a word)."""
+    _check_bins(n_bins)
+    fn = load_kernel_lib("bin_xorsum").bin_parity_xorsum_plan
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 6)()
+    with torch.cuda.device(device):
+        check_launch("bin_parity_xorsum_plan", fn(E, n_bins, out))
+    plan = dict(zip(("grid", "threads", "cluster", "smem", "partials"), out))
+    plan["table"] = "packed" if out[5] else "wide"
+    return plan
+
+
 def bin_parity_xorsum(elems: torch.Tensor, *, n_bins: int, seed: int):
     """One set of uint32 keys (``(E,)`` int32 bit patterns, every entry a
     member) -> ``(parity (n_bins,) int32, xors (n_bins,) int32 bit
-    patterns)``, binned by ``mix32(e, seed) % n_bins``.  One kernel launch
-    on a CUDA tensor.  The reference returns ``(n_bins, 32)`` bit planes;
-    the folds come back packed here, as ``encode_group`` keeps them."""
+    patterns)``, binned by ``mix32(e, seed) % n_bins``.  On a CUDA tensor
+    the set is folded over the whole card (``set_plan``): one launch, and
+    a merge of the partial tables where there is more than one.  The
+    reference returns ``(n_bins, 32)`` bit planes; the folds come back
+    packed here, as ``encode_group`` keeps them."""
     _check_bins(n_bins)
     if elems.device.type != "cuda":
         return bin_parity_xorsum_plain(elems, n_bins=n_bins, seed=seed)
     dev = elems.device
     require(elems, "elems", torch.int32, 1, dev)
     E = elems.shape[0]
+    plan = set_plan(E, n_bins, dev)
     fn = load_kernel_lib("bin_xorsum").bin_parity_xorsum_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_uint, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_uint, ctypes.c_uint64] + [ctypes.c_void_p] * 3 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     parity = torch.empty(n_bins, dtype=torch.int32, device=dev)
     xors = torch.empty(n_bins, dtype=torch.int32, device=dev)
+    # partial tables: n fold words and ceil(n/32) packed parity words each
+    words = plan["partials"] * (n_bins + packed_words(n_bins)) if plan["partials"] > 1 else 0
+    part = torch.empty(words, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        rc = fn(elems.data_ptr(), int(seed) & _M32, parity.data_ptr(), xors.data_ptr(),
-                E, n_bins, current_stream_ptr())
+        rc = fn(elems.data_ptr(), int(seed) & _M32, fastmod_magic(n_bins), parity.data_ptr(),
+                xors.data_ptr(), part.data_ptr(), words, E, n_bins, current_stream_ptr())
     check_launch("bin_parity_xorsum", rc)
     count_launch("bin_parity_xorsum", (E, n_bins))
     return parity, xors

@@ -30,6 +30,7 @@ from repro_torch.kernels.bin_xorsum import (
     bin_parity_xorsum_plain,
     bin_parity_xorsum_units,
     bin_parity_xorsum_units_plain,
+    fastmod_magic,
     mix32,
     mulshift_bins,
     to_i32,
@@ -271,8 +272,8 @@ def _bin_parity_xorsum_three_way(elems, n_bins, seed):
     return parity, xors
 
 
-@pytest.mark.parametrize("n_bins", [63, 127, 255, 1023])
-@pytest.mark.parametrize("n_elems", [1, 100, 1000, 5000])
+@pytest.mark.parametrize("n_bins", [63, 127, 255, 1023, 8191, 28000])
+@pytest.mark.parametrize("n_elems", [0, 1, 100, 1000, 5000, 8193])
 def test_bin_parity_xorsum_sweep(n_bins, n_elems):
     rng = np.random.default_rng(n_bins + n_elems)
     elems = rng.integers(1, 1 << 32, size=n_elems, dtype=np.uint64).astype(np.uint32)
@@ -348,3 +349,19 @@ def test_kernel_pipeline_vs_protocol_roundtrip():
     assert bool(ok[0])
     recovered = {int(_u32(xa ^ xb)[p]) for p in pos[0][: int(cnt[0])].tolist()}
     assert len(recovered & (set(a.tolist()) ^ set(b.tolist()))) >= 4
+
+
+@pytest.mark.parametrize("n_bins", [1, 2, 3, 63, 255, 8191, 28000])
+def test_fastmod_magic_is_an_exact_remainder(n_bins):
+    """K5 bins by ``h % n`` with the reciprocal the wrapper passes in, as the
+    kernel takes it: the low 64 bits of M * h, then their product with n
+    in two 32-bit halves — equal to ``h % n`` for every 32-bit h."""
+    magic = fastmod_magic(n_bins)
+    assert 0 <= magic < 1 << 64
+    rng = np.random.default_rng(n_bins)
+    edges = [0, 1, n_bins - 1, n_bins, n_bins + 1, 1 << 31, (1 << 32) - 1]
+    for h in edges + rng.integers(0, 1 << 32, size=10_000, dtype=np.uint64).tolist():
+        h = int(h)
+        low = (magic * h) % (1 << 64)
+        assert (low * n_bins) >> 64 == h % n_bins
+        assert ((low >> 32) * n_bins + (((low & 0xFFFFFFFF) * n_bins) >> 32)) >> 32 == h % n_bins
