@@ -5,7 +5,7 @@
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``,
 holds each against its plain PyTorch version on the card (exact equality —
-everything is integer / GF(2) arithmetic, tolerance 0), then drives six
+everything is integer / GF(2) arithmetic, tolerance 0), then drives eight
 paths of the port on the card, each run with the launch counts set to 0
 just before it and read just after:
 
@@ -28,13 +28,22 @@ just before it and read just after:
   into 2 encode launches and 1 decode launch per cohort-round; then a
   2-peer hub where one peer crashes and resumes through ``MSG_RESUME``;
 * ``sync`` — a continuous hub (``run_hub_epoch``) with 2 peers of |A| =
-  10^6 for 3 epochs of seeded churn, the resident stores patched in place.
+  10^6 for 3 epochs of seeded churn, the resident stores patched in place;
+* ``obs`` — the observability layer at deployment size: a 2-peer chaos hub
+  (one peer crashes and resumes, one sits behind a lossy ARQ channel) with
+  one shared ``Tracer(torch_profiler=True)`` as every component's tracer
+  and the engine's dispatch tracer, its whole ``serve`` inside
+  ``torch.profiler``: the acceptance trace's events, both exports loading
+  equal, the profiler's K1/K2 device launches equal to the launch ledgers,
+  and each thread's host / device / wire split of its spans;
+* ``examples`` — each ``examples/*_torch.py`` twin's ``main()`` on the card
+  at its default size (its own asserts against ``core.pbs.reconcile``).
 
 Every result is compared with the package's own numpy oracle
 ``core.pbs.reconcile`` (per session, per tree leaf) and with the true set
 difference; every wire result with the in-process result of the same
-session (serve phase, tree phase), every hub result likewise, and every
-epoch of the sync phase with ``core.pbs.reconcile``.  Last, every kernel is
+session (serve phase, tree phase), every hub result likewise (the obs
+phase's too), and every epoch of the sync phase with ``core.pbs.reconcile``.  Last, every kernel is
 compared with its plain version, timed and held against its bound at
 exactly the shapes its path launched it at (read from the launch ledger).  Each shape gets two times: ``ms``, CUDA
 events around the wrapper (host issue included), and ``device_ms``, the
@@ -64,6 +73,8 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -209,6 +220,8 @@ PATHS = {
     "wire": ("bin_xorsum_units", "gf2_matmul", "tree_digest"),
     "hub": ("bin_xorsum_units", "gf2_matmul", "tree_digest"),
     "sync": ("bin_xorsum_units", "gf2_matmul"),
+    "obs": ("bin_xorsum_units", "gf2_matmul"),
+    "examples": ("bin_xorsum_units", "gf2_matmul", "tow_sketch"),
 }
 HOME_PATH = {"bin_xorsum_units": "serve", "gf2_matmul": "serve", "tow_sketch": "serve",
              "tree_digest": "tree", "bin_parity_xorsum": "encode_group",
@@ -1033,7 +1046,8 @@ def main_shape_phase(args, rng, launched, k4_inputs, sass):
     reports = {
         "bin_xorsum_units": lambda path, shapes: k1_report(rng, shapes),
         "gf2_matmul": lambda path, shapes: k2_report(rng, shapes),
-        "tow_sketch": lambda path, shapes: k3_report(rng, shapes, args.size, sass),
+        "tow_sketch": lambda path, shapes: k3_report(
+            rng, shapes, EXAMPLES_LARGEST_SET if path == "examples" else args.size, sass),
         "tree_digest": lambda path, shapes: k4_report(k4_inputs[path], shapes, sass),
         "bin_parity_xorsum": lambda path, shapes: k5_report(rng, shapes, sass),
         "gf2_pack_bits": lambda path, shapes: pack_report(rng, shapes),
@@ -1987,6 +2001,307 @@ def sync_phase(args, sessions, pool):
     return launches, shapes
 
 
+# ---------------------------------------------------------------------------
+# the observability layer, traced on the card
+# ---------------------------------------------------------------------------
+
+# the events a traced chaos hub must show (the acceptance trace)
+OBS_EVENTS = ("peer.round.reply", "arq.retransmit", "peer.suspend", "peer.resume",
+              "resume", "chaos.crash")
+OBS_WINDOWS = ("repro.encode_side", "repro.encode_side_ext")
+
+
+def union_us(intervals) -> float:
+    """Covered length of possibly overlapping (start, end) intervals."""
+    total, end = 0.0, float("-inf")
+    for s, e in sorted(intervals):
+        if s > end:
+            total += e - s
+            end = e
+        elif e > end:
+            total += e - end
+            end = e
+    return total
+
+
+def span_split(events) -> dict:
+    """Per thread of a trace: its span window (first start to last end) and
+    how the spans cover it — ``device`` (``cat="device"``), ``wire``
+    (``cat="wire"``), the rest host — each category's spans unioned, as
+    ``tools/trace_report.py`` splits occupancy; times in ms and shares of
+    the window."""
+    names = {e["tid"]: e["args"]["name"] for e in events
+             if e.get("ph") == "M" and e.get("name") == "thread_name"}
+    by_tid = {}
+    for e in events:
+        if e.get("ph") == "X":
+            by_tid.setdefault(e["tid"], {}).setdefault(e.get("cat", "host"), []).append(
+                (e["ts"], e["ts"] + e["dur"]))
+    out = {}
+    for tid, cats in by_tid.items():
+        spans = [iv for ivs in cats.values() for iv in ivs]
+        wall = max(e for _, e in spans) - min(s for s, _ in spans)
+        device, wire = union_us(cats.get("device", [])), union_us(cats.get("wire", []))
+        host = union_us(spans) - device - wire
+        out[names.get(tid, str(tid))] = {
+            "window_ms": wall / 1e3, "device_ms": device / 1e3, "wire_ms": wire / 1e3,
+            "host_ms": host / 1e3, "spans": len(spans),
+            **{f"{k}_share": v / wall if wall else 0.0
+               for k, v in (("device", device), ("wire", wire), ("host", host))}}
+    return out
+
+
+def profiled_kernels(prof) -> dict:
+    """The device side of a ``torch.profiler`` capture: K1 and K2 launches
+    (their ``SYMBOLS``) with their summed duration, every device activity's
+    summed duration and the union of their intervals (the card's busy time).
+    The device timeline's user annotations (each ``record_function``
+    window's span over the kernels it launched) are counted apart, not as
+    activity."""
+    from torch.autograd import DeviceType
+
+    out = {"bin_xorsum_units": 0, "gf2_matmul": 0, "k1_k2_device_ms": 0.0,
+           "device_activities": 0, "every_activity_device_ms": 0.0,
+           "device_annotations": 0}
+    busy = []
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        if getattr(ev, "is_user_annotation", False) or ev.name.startswith(("repro.", "obs.")):
+            out["device_annotations"] += 1
+            continue
+        us = ev.time_range.end - ev.time_range.start
+        out["device_activities"] += 1
+        out["every_activity_device_ms"] += us / 1e3
+        busy.append((ev.time_range.start, ev.time_range.end))
+        for name in ("bin_xorsum_units", "gf2_matmul"):
+            if any(k in ev.name for k in SYMBOLS[name]):
+                out[name] += 1
+                out["k1_k2_device_ms"] += us / 1e3
+    out["device_busy_ms"] = union_us(busy) / 1e3
+    return out
+
+
+def obs_phase(sessions, serve_results):
+    """The acceptance trace at deployment size: one ``HubEndpoint`` with a
+    resume window on the card serves two port Alices, serve's known d = 100
+    and d = 1000 sessions of |A| = 10^6.  Peer 0 (the session of more
+    rounds) runs over ``ChaosTransport(FaultPlan(crash_after_sends=1))``,
+    then reconnects and resumes; peer 1 sits behind a seeded lossy
+    ``ChaosTransport`` and ``ReliableTransport`` on both sides.  One shared
+    ``Tracer(torch_profiler=True)`` covers hub, Alices, transports and
+    injectors and is the engine's dispatch tracer; the whole ``serve`` runs
+    inside ``torch.profiler`` (CPU and CUDA, every thread).  Both results
+    equal serve's, peer 0 resumes, the trace holds every acceptance event
+    and both exports load equal; the profiler's K1 and K2 launches equal
+    the launch ledgers and what hub and Alices counted.  Returns the
+    launches by kernel and the launched shapes."""
+    t_phase = time.perf_counter()
+    from torch._C._profiler import _ExperimentalConfig
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.net import ReliableTransport
+    from repro_torch.obs import load_events
+    from repro_torch.recon import engine
+
+    picks = [sid for sid in wire_picks(sessions)
+             if sessions[sid][0] in ("known d=100", "known d=1000")]
+    # peer 0 crashes: the session of more rounds, so the crash falls mid-protocol
+    picks.sort(key=lambda s: -serve_results[s].rounds)
+    labels = ("crasher", "lossy")
+    tracer = Tracer(torch_profiler=True)
+    hub = HubEndpoint(resume_window=30.0, tracer=tracer)      # device=None: the card
+    alices, sid_of, links, pending, calls, crash = {}, {}, [], {}, {}, {}
+    try:
+        for i, sid in enumerate(picks):
+            label, a, b, cfg, dk = sessions[sid]
+            raw, th = InMemoryDuplex.pair()
+            links += [raw, th]
+            if i == 0:
+                ta = ChaosTransport(raw, FaultPlan(crash_after_sends=1), tracer=tracer)
+            else:
+                chaos = ChaosTransport(raw, FaultPlan(seed=73, loss=0.15, dup=0.05),
+                                       tracer=tracer)
+                ta = ReliableTransport(chaos, timeout=0.02, max_retries=400, seed=1,
+                                       tracer=tracer)
+                th = ReliableTransport(th, timeout=0.02, max_retries=400, seed=101,
+                                       tracer=tracer)
+                links += [ta, th]
+            ch = hub.add_peer(th, label=labels[i])
+            hub.submit(ch, b, cfg=cfg, d_known=dk)
+            alices[ch] = AliceEndpoint(ta, channel=ch, tracer=tracer)
+            alices[ch].submit(a, cfg=cfg, d_known=dk)
+            sid_of[ch] = sid
+            calls[ch] = alices[ch].run
+        ch0, ch1 = list(sid_of)
+        label_of = dict(zip(sid_of, labels))
+
+        def crasher():
+            try:
+                return alices[ch0].run()
+            except TransportError as e:
+                crash["error"] = repr(e)
+            na, nh = InMemoryDuplex.pair()
+            links.extend([na, nh])
+            pending["t"] = nh
+            alices[ch0].resume(na)
+            return alices[ch0].resume_run()
+
+        def on_barrier(rnd):
+            if "t" in pending and hub._peers[ch0].suspended:
+                hub.resume_peer(ch0, pending.pop("t"))
+
+        calls[ch0] = crasher
+        hub.on_barrier = on_barrier
+        engine.set_dispatch_tracer(tracer)
+        platform.reset_launch_counts()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     experimental_config=_ExperimentalConfig(profile_all_threads=True)) as prof:
+            with record_function("obs.hub_serve"):      # marks the hub's thread
+                t0 = time.perf_counter()
+                outcomes, results, errors = drive_hub(hub, calls, join_timeout=120.0)
+                torch.cuda.synchronize()
+                serve_s = time.perf_counter() - t0
+        launches, shapes = platform.launch_counts(), platform.launch_shapes()
+    finally:
+        engine.set_dispatch_tracer(None)
+        for t in links:
+            t.close()
+    assert not errors, errors
+    assert "error" in crash, "the scripted crash never fired"
+
+    # the results, the resume and the ledgers
+    st = hub.stats
+    for ch, sid in sid_of.items():
+        got, want = results[ch][0], serve_results[sid]
+        for f in WIRE_FIELDS:
+            assert getattr(got, f) == getattr(want, f), (sessions[sid][0], f)
+    assert outcomes[ch0].error_kind == "resumed" and alices[ch0].resumes == 1, outcomes
+    assert outcomes[ch1].ok and outcomes[ch1].verified == [True], outcomes[ch1]
+    assert st["peers_resumed"] == 1 and st["resume_replay_bytes"] > 0, st
+    check_hub_launches(hub, alices, launches, 0)
+    retransmits = sum(ep.wire_stats.get("retransmits", 0) for ep in alices.values())
+    assert retransmits >= 1, "the lossy peer needed no retransmit"
+
+    # the acceptance trace, and both exports loading equal
+    events = tracer.events()
+    names = {e["name"] for e in events}
+    missing = [n for n in OBS_EVENTS if n not in names]
+    assert not missing, f"trace lacks {missing}"
+    replies = {e["args"]["peer"] for e in events if e["name"] == "peer.round.reply"}
+    assert replies == set(labels), replies
+    assert sum(e["ph"] == "M" for e in events) >= 2, "fewer than two named threads"
+    with tempfile.TemporaryDirectory() as tmp:
+        chrome, jsonl = Path(tmp) / "obs.json", Path(tmp) / "obs.jsonl"
+        n = tracer.export_chrome(chrome)
+        assert n == tracer.export_jsonl(jsonl) == len(events)
+        loaded = load_events(chrome)
+        assert loaded == load_events(jsonl) and len(loaded) == n
+        doc = json.loads(chrome.read_text())
+    for e in doc["traceEvents"]:
+        assert all(k in e for k in ("name", "ph", "pid", "tid")), e
+        assert e["ph"] != "X" or ("ts" in e and "dur" in e), e
+        assert e["ph"] != "i" or e["s"] == "t", e
+
+    # the profiler: K1 and K2 device launches against the ledgers
+    kern = profiled_kernels(prof)
+    hub_enc = st["kernel_launches"] // 2
+    alice_enc = {ch: ep.launches["kernel_launches"] // 2 for ch, ep in alices.items()}
+    enc = hub_enc + sum(alice_enc.values())
+    assert kern["bin_xorsum_units"] == kern["gf2_matmul"] == enc == launches[
+        "bin_xorsum_units"], (kern, st, alice_enc, launches)
+
+    # the dispatch windows per profiler thread (host-side events; the
+    # profiler mirrors each window on the device timeline too, as a GPU user
+    # annotation); the hub serves on the thread of ``obs.hub_serve``
+    windows, hub_thread, device_windows = {}, None, 0
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CPU:
+            device_windows += ev.name in OBS_WINDOWS
+        elif ev.name == "obs.hub_serve":
+            hub_thread = ev.thread
+        elif ev.name in OBS_WINDOWS:
+            windows[ev.thread] = windows.get(ev.thread, 0) + 1
+    hub_windows = windows.pop(hub_thread, 0)
+    assert hub_windows == hub_enc, (hub_windows, hub_enc, windows)
+    assert sorted(windows.values()) == sorted(n for n in alice_enc.values() if n), (
+        windows, alice_enc)
+
+    split = span_split(events)
+    hub_name = next(e["args"]["name"] for e in events if e.get("ph") == "M"
+                    and e["tid"] == threading.get_ident())
+    emit({"phase": "obs", "sessions": {label_of[ch]: sessions[sid][0]
+                                       for ch, sid in sid_of.items()},
+          "set_size": len(sessions[picks[0]][1]), "crash": crash["error"],
+          "serve_s_under_profiler": serve_s, "trace_events": len(events),
+          "obs_phase_s": time.perf_counter() - t_phase,
+          "error_kinds": {label_of[ch]: o.error_kind for ch, o in outcomes.items()},
+          "peers_resumed": st["peers_resumed"], "resume_replay_bytes": st["resume_replay_bytes"],
+          "retransmits": retransmits, "cohort_rounds": st["cohort_rounds"],
+          "hub_kernel_launches": st["kernel_launches"],
+          "alices_kernel_launches": {ch: ep.launches["kernel_launches"]
+                                     for ch, ep in alices.items()},
+          "launches": launches, "profiled": kern,
+          "hub_device_span_ms": split[hub_name]["device_ms"],
+          "hub_thread": hub_name, "span_split_by_thread": split,
+          "encode_windows": {"hub": hub_windows, "other_threads": sorted(windows.values()),
+                             "device_timeline_annotations": device_windows},
+          "all_results_match_serve": True, "acceptance_events": list(OBS_EVENTS)})
+    return launches, shapes
+
+
+# ---------------------------------------------------------------------------
+# the examples' torch twins
+# ---------------------------------------------------------------------------
+
+# the largest set a twin sketches in phase 0 (quickstart's |A|): K3 on the
+# examples path is held to its bound at min(this, E) valid keys a launch
+EXAMPLES_LARGEST_SET = 100_000
+# each twin and the kernels it must launch on the card
+TWINS = {
+    "quickstart": ("tow_sketch", "bin_xorsum_units", "gf2_matmul"),
+    "serve_batch": ("tow_sketch", "bin_xorsum_units", "gf2_matmul"),
+    "serve_endpoints": ("bin_xorsum_units", "gf2_matmul"),
+    "blockchain_relay": ("bin_xorsum_units", "gf2_matmul"),
+}
+
+
+def examples_phase():
+    """Each ``examples/*_torch.py``'s ``main()`` on the card at its default
+    size, the launch counts reset before each; the twins' own asserts (every
+    result against ``core.pbs.reconcile``) are the check, and a twin that
+    raises fails the run.  Their printed reports go to standard error.
+    Returns the launches by kernel and the launched shapes of all four."""
+    import importlib.util
+
+    t_phase = time.perf_counter()
+    launches, launched, rows = {}, {}, {}
+    for name, kernels in TWINS.items():
+        path = ROOT / "examples" / f"{name}_torch.py"
+        spec = importlib.util.spec_from_file_location(f"{name}_torch", path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        platform.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            mod.main()                           # device=None: the card
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts, shapes = platform.launch_counts(), platform.launch_shapes()
+        for k in kernels:
+            assert counts.get(k, 0) > 0, f"{name} never launched {k}: {counts}"
+        assert counts["bin_xorsum_units"] == counts["gf2_matmul"], (name, counts)
+        merge_launches(launches, launched, counts, shapes)
+        rows[name] = {"wall_s": wall, "launches": counts}
+    for name in PATHS["examples"]:
+        assert launches.get(name, 0) > 0, f"examples never launched {name}: {launches}"
+    emit({"phase": "examples", "twins": rows, "launches": launches,
+          "examples_phase_s": time.perf_counter() - t_phase})
+    return launches, launched
+
+
 def profile_run(sessions, out_path):
     """One more warm ``run()`` under ``torch.profiler``: device time by
     kernel name and the device's busy share of the run, written as JSON."""
@@ -2097,6 +2412,8 @@ def main() -> None:
             launches["hub"], launched["hub"], k4_inputs["hub"] = hub_phase(
                 sessions, serve_results, trees)
             launches["sync"], launched["sync"] = sync_phase(args, sessions, pool)
+            launches["obs"], launched["obs"] = obs_phase(sessions, serve_results)
+            launches["examples"], launched["examples"] = examples_phase()
         del sessions, serve_results, trees
         report = main_shape_phase(args, rng, launched, k4_inputs, sass)
         emit({"kernels": [

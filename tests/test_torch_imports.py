@@ -26,7 +26,7 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
         import repro_torch.tree, repro_torch.wire, repro_torch.net
         import repro_torch.net.endpoint, repro_torch.net.resilience
         import repro_torch.net.transport, repro_torch.wire.frames
-        import repro_torch.net.hub, repro_torch.sync
+        import repro_torch.net.hub, repro_torch.sync, repro_torch.core.baselines
         bad = sorted(
             m for m in sys.modules
             if m == "jax" or m.startswith("jax.") or m == "jaxlib"
@@ -42,7 +42,9 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
 
 def test_sources_name_no_jax_import():
     root = Path(SRC) / "repro_torch"
-    files = list(root.rglob("*.py")) + [Path(SRC).parent / "chip_smoke.py"]
+    twins = sorted((Path(SRC).parent / "examples").glob("*_torch.py"))
+    assert len(twins) == 4
+    files = list(root.rglob("*.py")) + [Path(SRC).parent / "chip_smoke.py"] + twins
     assert len(files) > 18
     for path in files:
         for line in path.read_text().splitlines():
@@ -50,6 +52,31 @@ def test_sources_name_no_jax_import():
             assert not s.startswith(("import jax", "from jax")), (path, line)
             assert not s.startswith(("import repro ", "import repro.", "from repro ",
                                      "from repro.")), (path, line)
+
+
+def test_example_twins_import_no_jax_and_no_reference_package():
+    """Each ``examples/*_torch.py``, imported by path (its ``main`` not run),
+    pulls in neither JAX nor the JAX package."""
+    proc = _run(f"""
+        import importlib.util, sys
+        from pathlib import Path
+        paths = sorted(Path({str(Path(SRC).parent / "examples")!r}).glob("*_torch.py"))
+        assert len(paths) == 4, paths
+        for path in paths:
+            spec = importlib.util.spec_from_file_location(path.stem, path)
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+            assert callable(mod.main), path
+        bad = sorted(
+            m for m in sys.modules
+            if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+            or m == "repro" or m.startswith("repro.")
+        )
+        assert not bad, bad
+        print("clean", len(paths))
+    """)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "clean 4"
 
 
 def test_every_kernel_has_source_and_plain_version():
