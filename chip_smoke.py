@@ -5,7 +5,7 @@
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``,
 holds each against its plain PyTorch version on the card (exact equality —
-everything is integer / GF(2) arithmetic, tolerance 0), then drives eight
+everything is integer / GF(2) arithmetic, tolerance 0), then drives nine
 paths of the port on the card, each run with the launch counts set to 0
 just before it and read just after:
 
@@ -37,7 +37,20 @@ just before it and read just after:
   equal, the profiler's K1/K2 device launches equal to the launch ledgers,
   and each thread's host / device / wire split of its spans;
 * ``examples`` — each ``examples/*_torch.py`` twin's ``main()`` on the card
-  at its default size (its own asserts against ``core.pbs.reconcile``).
+  at its default size (its own asserts against ``core.pbs.reconcile``);
+* ``model_serve`` — the model scaffold's serving path, which runs no PBS
+  kernel (the launch counts must read 0): first the smoke-width qwen2-1.5b
+  served through ``serve.scheduler.BatchScheduler`` on the CPU and on the
+  card from one float32 weight set (equal completions, last-position logits
+  within ``SMOKE_LOGIT_ATOL``); then qwen2-1.5b at full width and depth in
+  bfloat16, weights from a seeded ``torch.Generator``, serving 20 requests
+  in three prompt-length buckets (8 x 128, 8 x 512, 4 x 1536 tokens, 32 new
+  tokens each, batch 8, ``max_len`` 2048), every generated token held
+  against the no-cache ``models.backbone.forward`` (equal wherever the
+  forward's top-2 margin exceeds ``MARGIN_TOL``, at least half the
+  positions checked), and prefill and decode timed with CUDA events beside
+  their bounds (bytes for a decode step, bf16 tensor operations for a
+  prefill).
 
 Every result is compared with the package's own numpy oracle
 ``core.pbs.reconcile`` (per session, per tree leaf) and with the true set
@@ -58,8 +71,9 @@ its launch geometry, and its PR 13 route (one cluster) beside it on the
 same keys.  K3, K4 and K5 also get an issue floor: SASS instructions per
 hash from ``cuobjdump -sass`` of the built kernels (phase ``sass``).
 
-Each phase prints one JSON line; any failed phase raises and the process
-exits non-zero.  The last line of standard output is
+Each phase prints one JSON line (a few print more); any failed phase
+raises and the process exits non-zero.  ``--kernels-only`` skips every
+path, ``model_serve`` included.  The last line of standard output is
 ``{"ok": true, "device": {...}}``.  Needs a CUDA device: exits 1 without one.
 """
 from __future__ import annotations
@@ -147,6 +161,20 @@ from repro_torch.obs import Recorder, Tracer  # noqa: E402
 from repro_torch.recon import ReconcileServer  # noqa: E402
 from repro_torch.tree import TreeConfig, leaf_slices, partition_pair, tree_reconcile  # noqa: E402
 from repro_torch.tree import partition as tree_partition  # noqa: E402
+from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
+from repro_torch.launch.mesh import make_local_mesh  # noqa: E402
+from repro_torch.models.backbone import forward, model_spec, vocab_logits  # noqa: E402
+from repro_torch.models.config import n_params_dense  # noqa: E402
+from repro_torch.models.spec import (  # noqa: E402
+    count_params,
+    init_params,
+    params_from_numpy,
+    tree_map,
+    tree_map_p,
+)
+from repro_torch.serve.engine import make_serve_fns  # noqa: E402
+from repro_torch.serve.scheduler import BatchScheduler, Request  # noqa: E402
+from repro_torch.train.step import mesh_ctx  # noqa: E402
 
 DEV = torch.device("cuda", 0)
 
@@ -155,6 +183,7 @@ DEV = torch.device("cuda", 0)
 # held to); 67 T op/s for 32-bit arithmetic outside the tensor cores (the
 # float32 figure — the integer pipes are narrower, so the bound is generous).
 HBM_BYTES_PER_S = 3.35e12
+BF16_TENSOR_FLOPS = 989e12        # dense bf16 tensor-core rate (phase model_serve)
 INT8_TENSOR_OPS_PER_S = 1979e12
 ALU32_OPS_PER_S = 67e12
 
@@ -2302,6 +2331,245 @@ def examples_phase():
     return launches, launched
 
 
+# ---------------------------------------------------------------------------
+# the model scaffold's serving path
+# ---------------------------------------------------------------------------
+
+MODEL_ARCH = "qwen2-1.5b"
+# smoke width, float32 weights on both devices: the card's last-position
+# logits within this of the CPU's.  Float32 matmuls on the card differ from
+# the CPU's in summation order only (7.45e-7 measured on an H100); a TF32
+# matmul (10 mantissa bits) would miss by ~1e-3 on these logits and fail.
+SMOKE_LOGIT_ATOL = 1e-5
+# full width, bfloat16: a decoded token must equal the no-cache forward's
+# argmax wherever the forward's top-2 logit margin exceeds this.  The two
+# paths round bfloat16 activations in other places (blockwise attention
+# against one-query attention over a bfloat16 cache; other matmul shapes),
+# so near ties may go either way.  Logits are bfloat16 products; the top
+# ones lie in [2, 4), where a bfloat16 ulp is 1/64: 4 ulps.
+MARGIN_TOL = 0.0625
+# the full-width traffic: (prompt tokens, requests), max_new 32 each
+SERVE_BUCKETS = ((128, 8), (512, 8), (1536, 4))
+SERVE_BATCH, SERVE_MAX_LEN, SERVE_MAX_NEW = 8, 2048, 32
+
+
+def draw_np(spec, rng):
+    """float32 numpy weights for a port spec: norms near 1, biases small but
+    non-zero, weights at their init scale."""
+    def draw(p):
+        if p.init == "ones":
+            return (1 + 0.1 * rng.standard_normal(p.shape)).astype(np.float32)
+        if p.init == "zeros":
+            return (0.1 * rng.standard_normal(p.shape)).astype(np.float32)
+        fan = p.shape[-2] if len(p.shape) >= 2 else p.shape[-1]
+        scale = p.scale if p.scale is not None else 1 / np.sqrt(fan)
+        return (scale * rng.standard_normal(p.shape)).astype(np.float32)
+
+    return tree_map_p(draw, spec)
+
+
+def smoke_width_check(rng) -> dict:
+    """The scheduler at smoke width with one float32 weight set carried to
+    the CPU and to the card: equal ``Completion``s and ``ServeStats``
+    counts, and last-position logits within ``SMOKE_LOGIT_ATOL``."""
+    cfg = get_smoke_config(MODEL_ARCH)
+    meshes = {"cpu": make_local_mesh(device="cpu"), "card": make_local_mesh()}
+    arrays = draw_np(model_spec(cfg, mesh_ctx(meshes["card"])), rng)
+    prompts = [[int(x) for x in rng.integers(0, cfg.vocab, n)] for n in (8, 8, 12, 12, 12, 5)]
+    outs, stats, last = {}, {}, {}
+    for name, mesh in meshes.items():
+        params = params_from_numpy(arrays, mesh.device)
+        reqs = [Request(i, p, 6) for i, p in enumerate(prompts)]
+        outs[name], stats[name] = BatchScheduler(cfg, mesh, batch=2, max_len=64, eos_id=-1).run(
+            params, reqs)
+        toks = torch.tensor(prompts[2:5], dtype=torch.int32, device=mesh.device)
+        x = forward(params, toks, mesh_ctx(mesh), cfg)
+        last[name] = vocab_logits(params["embed"], x[:, -1], mesh_ctx(mesh), cfg).cpu()
+    for rid, c in outs["cpu"].items():
+        g = outs["card"][rid]
+        assert (g.tokens, g.finished) == (c.tokens, c.finished), (rid, g, c)
+    for f in ("requests", "prefill_tokens", "decode_steps", "batches"):
+        assert getattr(stats["card"], f) == getattr(stats["cpu"], f), f
+    err = float((last["card"] - last["cpu"]).abs().max())
+    assert err <= SMOKE_LOGIT_ATOL, err
+    return {"config": f"{MODEL_ARCH} smoke (n_layers {cfg.n_layers}, d {cfg.d_model}, "
+                      f"vocab {cfg.vocab}), float32",
+            "requests": len(prompts), "completions_equal": True,
+            "last_logits_max_abs_err": err, "tolerance": SMOKE_LOGIT_ATOL}
+
+
+def device_profile(fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: host wall (profiler on),
+    the card's busy time (union of its activities) and share of that wall,
+    and the device time by kernel name, largest first."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy, by_name = [], {}
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA or getattr(ev, "is_user_annotation", False):
+            continue
+        busy.append((ev.time_range.start, ev.time_range.end))
+        key = ev.name[:90]
+        by_name[key] = by_name.get(key, 0.0) + (ev.time_range.end - ev.time_range.start) / 1e3
+    busy_ms = union_us(busy) / 1e3
+    return {"wall_ms_under_profiler": wall_ms, "device_busy_ms": busy_ms,
+            "device_busy_share": busy_ms / wall_ms, "device_activities": len(busy),
+            "top_device_ms": dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:6])}
+
+
+def forward_check(params, cfg, ctx, out, requests) -> dict:
+    """Every generated token against the no-cache ``forward`` over prompt +
+    generated tokens (one batched forward a bucket): equal to its argmax
+    wherever its top-2 margin exceeds ``MARGIN_TOL`` (the checked
+    positions).  Also each token's regret, the forward's best logit less
+    the decoded token's, whose largest value bounds from below twice the
+    logit error between the decode and forward paths."""
+    checked = skipped = mismatched = unequal = 0
+    max_regret, by_bucket = 0.0, {}
+    for plen in sorted({len(r.prompt) for r in requests}):
+        reqs = [r for r in requests if len(r.prompt) == plen]
+        seq = torch.tensor([r.prompt + out[r.rid].tokens[:-1] for r in reqs],
+                           dtype=torch.int32, device=DEV)
+        x = forward(params, seq, ctx, cfg)[:, plen - 1:]            # (n, max_new, d)
+        logits = vocab_logits(params["embed"], x, ctx, cfg)
+        gen = torch.tensor([out[r.rid].tokens for r in reqs], device=DEV)
+        top2 = logits.topk(2, dim=-1)
+        margin = (top2.values[..., 0] - top2.values[..., 1]).cpu()
+        regret = (top2.values[..., 0] - logits.gather(-1, gen[..., None].long())[..., 0]).cpu()
+        ok, check = (top2.indices[..., 0] == gen).cpu(), margin > MARGIN_TOL
+        checked += int(check.sum())
+        skipped += int((~check).sum())
+        mismatched += int((check & ~ok).sum())
+        unequal += int((~ok).sum())
+        max_regret = max(max_regret, float(regret.max()))
+        by_bucket[plen] = {"positions": int(check.numel()), "equal": int(ok.sum()),
+                           "checked": int(check.sum()),
+                           "median_margin": float(margin.median())}
+        del x, logits
+    return {"positions_checked": checked, "positions_skipped_for_margin": skipped,
+            "checked_mismatches": mismatched, "unequal_positions": unequal,
+            "margin_tol": MARGIN_TOL, "max_regret": max_regret, "by_bucket": by_bucket}
+
+
+def model_serve_phase(args, smi) -> None:
+    """qwen2-1.5b at full width and depth on the card, weights from a seeded
+    ``torch.Generator``: ``BatchScheduler.run`` (prefill / decode through
+    ``serve.engine.make_serve_fns``) over 20 requests in three prompt-length
+    buckets, every generated token held against the no-cache ``forward``,
+    then prefill and decode timed with CUDA events beside their bounds.
+    First the cross-device check at smoke width."""
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(args.seed)
+    smoke = smoke_width_check(rng)
+
+    cfg = get_config(MODEL_ARCH)
+    mesh = make_local_mesh()                      # device=None: the card
+    ctx = mesh_ctx(mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    spec = model_spec(cfg, ctx)
+    t0 = time.perf_counter()
+    params = init_params(spec, torch.Generator(device=DEV).manual_seed(args.seed), mesh.device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = []
+    tree_map(leaves.append, params)
+    param_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    n_params = count_params(spec)
+    embed_params = params["embed"]["tok"].numel()
+
+    requests, rid = [], 0
+    for plen, n in SERVE_BUCKETS:
+        for _ in range(n):
+            requests.append(Request(rid, [int(x) for x in rng.integers(0, cfg.vocab, plen)],
+                                    SERVE_MAX_NEW))
+            rid += 1
+    platform.reset_launch_counts()
+    sched = BatchScheduler(cfg, mesh, batch=SERVE_BATCH, max_len=SERVE_MAX_LEN, eos_id=-1)
+    out, stats = sched.run(params, requests)
+    pbs_launches = platform.launch_counts()
+    assert not pbs_launches, pbs_launches      # the model path launches no PBS kernel
+    assert sorted(out) == [r.rid for r in requests]
+    for r in requests:
+        c = out[r.rid]
+        assert len(c.tokens) == SERVE_MAX_NEW and c.finished, (r.rid, c)
+        assert all(0 <= t < cfg.vocab for t in c.tokens), (r.rid, c.tokens)
+    assert stats.decode_steps == len(requests) * (SERVE_MAX_NEW - 1), stats
+    assert stats.prefill_tokens == sum(p * n for p, n in SERVE_BUCKETS), stats
+    assert stats.batches == 3, stats
+    check = forward_check(params, cfg, ctx, out, requests)
+    emit({"phase": "model_serve", "step": "forward_check", "gpu": smi, **check})
+    assert check["checked_mismatches"] == 0, check
+    total = check["positions_checked"] + check["positions_skipped_for_margin"]
+    assert check["positions_checked"] * 2 >= total, check
+
+    # timing: prefill per bucket, decode per step, on the scheduler's engine
+    sv = make_serve_fns(cfg, mesh, batch=SERVE_BATCH, max_len=SERVE_MAX_LEN)
+    non_embed = n_params - embed_params
+    prefill = {}
+    for plen, n in SERVE_BUCKETS:
+        rows = [r.prompt for r in requests if len(r.prompt) == plen]
+        rows += [rows[0]] * (SERVE_BATCH - len(rows))
+        toks = torch.tensor(rows, dtype=torch.int32, device=DEV)
+        ms = float(np.median(times_ms(lambda: sv.prefill(params, {"tokens": toks}), 3)))
+        bound = 2 * non_embed * SERVE_BATCH * plen / BF16_TENSOR_FLOPS * 1e3
+        prefill[plen] = {"batch_rows": SERVE_BATCH, "real_rows": n, "ms": ms,
+                         "tok_per_s": SERVE_BATCH * plen / (ms / 1e3),
+                         "real_tok_per_s": n * plen / (ms / 1e3),
+                         "bound_ms": bound, "bound_by": "operations",
+                         "bound_share": bound / ms}
+    toks = torch.tensor([r.prompt for r in requests if len(r.prompt) == 512],
+                        dtype=torch.int32, device=DEV)
+    caches, tok = sv.prefill(params, {"tokens": toks})
+    state = {"caches": caches, "tok": tok}
+
+    def step():
+        state["tok"], state["caches"] = sv.decode(params, state["caches"], state["tok"][:, None])
+
+    step_ms = times_ms(step, SERVE_MAX_NEW - 5)       # + 1 warm-up + 4 profiled steps
+    decode_ms = float(np.median(step_ms))
+    decode_profile = device_profile(lambda: [step() for _ in range(4)])
+    prefill_profile = device_profile(lambda: sv.prefill(params, {"tokens": toks}))
+    kv_bytes = sum(state["caches"][g][n].numel() * state["caches"][g][n].element_size()
+                   for g in state["caches"] for n in ("k", "v"))
+    decode_bound = (param_bytes + kv_bytes) / HBM_BYTES_PER_S * 1e3
+    del caches, state
+    emit({
+        "phase": "model_serve", "gpu": smi,
+        "config": {"arch": MODEL_ARCH, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+                   "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads, "d_ff": cfg.d_ff,
+                   "vocab": cfg.vocab, "dtype": "bfloat16", "weights": f"torch.Generator seed {args.seed}"},
+        "smoke_width_cpu_vs_card": smoke,
+        "params": n_params, "n_params_dense": n_params_dense(cfg), "param_bytes": param_bytes,
+        "init_s": init_s,
+        "traffic": {"buckets": [{"prompt_tokens": p, "requests": n} for p, n in SERVE_BUCKETS],
+                    "max_new": SERVE_MAX_NEW, "batch": SERVE_BATCH, "max_len": SERVE_MAX_LEN},
+        "run": {"wall_s": stats.wall_s, "prefill_tokens": stats.prefill_tokens,
+                "decode_steps": stats.decode_steps, "batches": stats.batches,
+                "decode_tok_per_s": stats.decode_tok_per_s},
+        "forward_check": check,
+        "prefill_by_bucket": prefill,
+        "decode": {"batch_rows": SERVE_BATCH, "kv_positions": SERVE_MAX_LEN,
+                   "ms_per_step_median": decode_ms, "ms_per_step_mean": float(np.mean(step_ms)),
+                   "ms_per_step_min": float(np.min(step_ms)),
+                   "tok_per_s": SERVE_BATCH / (decode_ms / 1e3),
+                   "kv_cache_bytes": kv_bytes, "bound_ms": decode_bound, "bound_by": "bytes",
+                   "bound_share": decode_bound / decode_ms},
+        "profile": {"prefill_8x512": prefill_profile, "decode_4_steps": decode_profile},
+        "peak_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "model_serve_phase_s": time.perf_counter() - t_phase,
+    })
+    del params
+    torch.cuda.empty_cache()
+
+
 def profile_run(sessions, out_path):
     """One more warm ``run()`` under ``torch.profiler``: device time by
     kernel name and the device's busy share of the run, written as JSON."""
@@ -2415,6 +2683,7 @@ def main() -> None:
             launches["obs"], launched["obs"] = obs_phase(sessions, serve_results)
             launches["examples"], launched["examples"] = examples_phase()
         del sessions, serve_results, trees
+        model_serve_phase(args, smi)
         report = main_shape_phase(args, rng, launched, k4_inputs, sass)
         emit({"kernels": [
             {"name": name, **meta, "launches": launches[HOME_PATH[name]][name], **report[name],

@@ -1,0 +1,20 @@
+"""internlm2-1.8b [dense] — GQA kv=8.  24L d=2048 16H d_ff=8192 vocab=92544
+[arXiv:2403.17297]."""
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="internlm2-1.8b",
+    family="dense",
+    n_layers=24,
+    d_model=2048,
+    n_heads=16,
+    n_kv_heads=8,
+    d_ff=8192,
+    vocab=92544,
+    rope_theta=1e6,
+    norm_type="rmsnorm",
+)
+
+SMOKE_CONFIG = CONFIG.scaled(
+    n_layers=2, d_model=128, n_heads=4, n_kv_heads=2, d_ff=256, vocab=512,
+)

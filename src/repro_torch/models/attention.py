@@ -1,0 +1,203 @@
+"""GQA attention blocks on one card: prefill and one-token decode.
+
+The reference (``repro.models.attention``) shards query/out projections over
+'model' and the KV cache along the sequence (context parallelism, partials
+LSE-combined across shards).  On one card the same functions run with one
+shard: ``kv_map`` / ``local_kv_map`` coincide, the combine is a division.
+
+The KV cache is bfloat16, as in the reference.  Its position ``len`` is a
+host ``int``: the host always knows it, so decode reads nothing back from
+the device to place the new K/V, and it refuses a write past the cache's
+capacity where the reference's ``dynamic_update_slice`` clamps the index and
+silently overwrites the last slot.  Decode writes the new K/V into the
+cache tensors in place (the reference donates the cache): a caller must not
+reuse the cache it passed in.
+
+Sliding-window, cross and MLA attention come with later slices (ROADMAP
+Queue A).
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from .config import ModelConfig
+from .layers import (
+    MeshCtx,
+    ag_seq,
+    attention_partial_lse,
+    blockwise_attention,
+    combine_partials,
+    matmul,
+    pad_to,
+    rms_head_norm,
+    rope,
+    rs_seq,
+)
+from .spec import P
+
+
+def _hq_pad(cfg: ModelConfig, ctx: MeshCtx) -> int:
+    return pad_to(cfg.n_heads, ctx.model_size)
+
+
+@functools.lru_cache(maxsize=None)
+def _kv_map(n_heads: int, n_kv_heads: int, hq: int, device: torch.device) -> torch.Tensor:
+    # one upload per (heads, device), not one per layer and step; read-only
+    group = max(1, n_heads // n_kv_heads)
+    full = np.minimum(np.arange(hq) // group, n_kv_heads - 1)
+    return torch.as_tensor(full, dtype=torch.int32, device=device)
+
+
+def kv_map(cfg: ModelConfig, ctx: MeshCtx, device=None) -> torch.Tensor:
+    """Global (padded) q-head -> kv-head index map."""
+    return _kv_map(cfg.n_heads, cfg.n_kv_heads, _hq_pad(cfg, ctx), torch.device(device or "cpu"))
+
+
+def local_kv_map(cfg: ModelConfig, ctx: MeshCtx, device=None) -> torch.Tensor:
+    qpr = _hq_pad(cfg, ctx) // ctx.model_size
+    return kv_map(cfg, ctx, device)[ctx.midx() * qpr:(ctx.midx() + 1) * qpr]
+
+
+def _mask_pad_heads(out, cfg: ModelConfig, ctx: MeshCtx, *, local: bool = True):
+    """Zero the outputs of padding query heads (Hq padded to the axis size;
+    none on one card)."""
+    hq = _hq_pad(cfg, ctx)
+    if hq == cfg.n_heads:
+        return out
+    Hl = out.shape[1]
+    start = ctx.midx() * Hl if (local and ctx.model_size > 1) else 0
+    gid = start + torch.arange(Hl, device=out.device)
+    return out * (gid < cfg.n_heads)[None, :, None, None].to(out.dtype)
+
+
+# --------------------------------------------------------------------------
+# GQA
+# --------------------------------------------------------------------------
+
+
+def gqa_spec(cfg: ModelConfig, ctx: MeshCtx) -> dict:
+    d, dh = cfg.d_model, cfg.resolved_head_dim
+    hq = _hq_pad(cfg, ctx)
+    hl = cfg.n_heads * dh  # logical (unpadded) head dim
+    spec = {
+        "wq": P((d, hq * dh), (None, "model"), logical=(d, hl)),
+        "wk": P((d, cfg.n_kv_heads * dh), (None, None)),
+        "wv": P((d, cfg.n_kv_heads * dh), (None, None)),
+        "wo": P((hq * dh, d), ("model", None), logical=(hl, d)),
+    }
+    if cfg.qkv_bias:
+        spec["bq"] = P((hq * dh,), ("model",), "zeros")
+        spec["bk"] = P((cfg.n_kv_heads * dh,), (None,), "zeros")
+        spec["bv"] = P((cfg.n_kv_heads * dh,), (None,), "zeros")
+    if cfg.qk_norm:
+        spec["q_norm"] = P((dh,), (None,), "ones")
+        spec["k_norm"] = P((dh,), (None,), "ones")
+    return spec
+
+
+def _qkv(p, xg, cfg: ModelConfig, ctx: MeshCtx, positions, *, apply_rope=True):
+    """xg (B, T, d) -> q (B, Hl, T, Dh), k/v (B, Hkv, T, Dh)."""
+    B, T, _ = xg.shape
+    dh = cfg.resolved_head_dim
+    q = matmul(xg, p["wq"])
+    k = matmul(xg, p["wk"])
+    v = matmul(xg, p["wv"])
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(B, T, -1, dh).transpose(1, 2)
+    k = k.reshape(B, T, cfg.n_kv_heads, dh).transpose(1, 2)
+    v = v.reshape(B, T, cfg.n_kv_heads, dh).transpose(1, 2)
+    if cfg.qk_norm:
+        q = rms_head_norm(p["q_norm"], q)
+        k = rms_head_norm(p["k_norm"], k)
+    if apply_rope:
+        q = rope(q, positions[:, None, :], cfg.rope_theta)
+        k = rope(k, positions[:, None, :], cfg.rope_theta)
+    return q, k, v
+
+
+def gqa_apply(
+    p,
+    x_sp,                 # (B, T, d) residual stream
+    ctx: MeshCtx,
+    cfg: ModelConfig,
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    return_kv: bool = False,
+):
+    """Self-attention over the whole sequence (train / prefill)."""
+    xg = ag_seq(x_sp, ctx)
+    B, T, _ = xg.shape
+    positions = torch.arange(T, device=xg.device).expand(B, T)
+    q, k, v = _qkv(p, xg, cfg, ctx, positions)
+    out = blockwise_attention(
+        q, k, v, local_kv_map(cfg, ctx, xg.device), causal=causal, window=window
+    )
+    out = _mask_pad_heads(out, cfg, ctx)
+    B, Hl, T, dh = out.shape
+    o = matmul(out.transpose(1, 2).reshape(B, T, Hl * dh), p["wo"])
+    o = rs_seq(o, ctx)
+    if return_kv:
+        return o, (k, v)
+    return o
+
+
+def gqa_init_cache(cfg: ModelConfig, ctx: MeshCtx, batch: int, max_len: int, device=None):
+    """A zeroed KV cache of ``max_len`` positions."""
+    dh = cfg.resolved_head_dim
+    tc = max_len // ctx.model_size
+    shape = (batch, cfg.n_kv_heads, tc, dh)
+    return {
+        "k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
+        "v": torch.zeros(shape, dtype=torch.bfloat16, device=device),
+        "len": 0,
+    }
+
+
+def gqa_fill_cache(cache, k, v, ctx: MeshCtx):
+    """Write freshly computed prefill K/V into a zeroed cache, in place.
+
+    Prompts shorter than the cache capacity are right-padded (decode masks
+    positions >= len)."""
+    tc = cache["k"].shape[2]
+    t = k.shape[2]
+    if t > tc:
+        raise ValueError(f"prefill of {t} positions into a cache of {tc}")
+    cache["k"][:, :, :t] = k.to(torch.bfloat16)
+    cache["v"][:, :, :t] = v.to(torch.bfloat16)
+    return {"k": cache["k"], "v": cache["v"], "len": t}
+
+
+def gqa_decode(p, x, cache, ctx: MeshCtx, cfg: ModelConfig):
+    """One-token decode against the cache.  x: (B, 1, d).
+
+    The new K/V go into slot ``len`` of ``cache`` in place; attention reads
+    the whole cache with positions > len masked, as the reference does.
+    Raises ``ValueError`` when the cache is full."""
+    B = x.shape[0]
+    dh = cfg.resolved_head_dim
+    pos = cache["len"]
+    tc = cache["k"].shape[2]
+    if pos >= tc:
+        raise ValueError(f"KV cache full: position {pos} of a {tc}-position cache")
+    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    q, k_new, v_new = _qkv(p, x, cfg, ctx, positions)
+
+    k_c, v_c = cache["k"], cache["v"]
+    k_c[:, :, pos:pos + 1] = k_new.to(torch.bfloat16)
+    v_c[:, :, pos:pos + 1] = v_new.to(torch.bfloat16)
+
+    kvm = kv_map(cfg, ctx, x.device)
+    num, m, l = attention_partial_lse(
+        q, k_c, v_c, kvm, k_offset=0, kv_valid_len=pos + 1,
+        q_pos=torch.full((1,), pos, device=x.device),
+    )
+    out = combine_partials(num, m, l, ctx)  # (B, Hq_pad, 1, dh)
+    out = _mask_pad_heads(out, cfg, ctx, local=False)
+    hq = out.shape[1]
+    o = matmul(out.transpose(1, 2).reshape(B, 1, hq * dh), p["wo"])
+    return o, {"k": k_c, "v": v_c, "len": pos + 1}
