@@ -39,18 +39,21 @@ just before it and read just after:
 * ``examples`` — each ``examples/*_torch.py`` twin's ``main()`` on the card
   at its default size (its own asserts against ``core.pbs.reconcile``);
 * ``model_serve`` — the model scaffold's serving path, which runs no PBS
-  kernel (the launch counts must read 0): first the smoke-width qwen2-1.5b
-  served through ``serve.scheduler.BatchScheduler`` on the CPU and on the
-  card from one float32 weight set (equal completions, last-position logits
-  within ``SMOKE_LOGIT_ATOL``); then qwen2-1.5b at full width and depth in
-  bfloat16, weights from a seeded ``torch.Generator``, serving 20 requests
-  in three prompt-length buckets (8 x 128, 8 x 512, 4 x 1536 tokens, 32 new
-  tokens each, batch 8, ``max_len`` 2048), every generated token held
-  against the no-cache ``models.backbone.forward`` (equal wherever the
-  forward's top-2 margin exceeds ``MARGIN_TOL``, at least half the
-  positions checked), and prefill and decode timed with CUDA events beside
-  their bounds (bytes for a decode step, bf16 tensor operations for a
-  prefill).
+  kernel (the launch counts must read 0), for each row of ``MODEL_ROWS``:
+  qwen2-1.5b (dense GQA), recurrentgemma-2b (RG-LRU with sliding-window
+  attention) and mamba2-780m (SSD).  First the model at smoke width served
+  through ``serve.scheduler.BatchScheduler`` on the CPU and on the card
+  from one float32 weight set (equal completions, last-position logits
+  within ``SMOKE_LOGIT_ATOL``); then at full width and depth in bfloat16,
+  weights from a seeded ``torch.Generator``, serving 20 requests in three
+  prompt-length buckets (32 new tokens each, batch 8; qwen2 8 x 128,
+  8 x 512, 4 x 1536 at ``max_len`` 2048; recurrentgemma 8 x 128, 8 x 512,
+  4 x 3000, past its 2048-slot window; mamba2 8 x 128, 8 x 1000, a ragged
+  chunk, 4 x 2048), every generated token held against the no-cache
+  ``models.backbone.forward`` (equal wherever the forward's top-2 margin
+  exceeds the row's ``margin_tol``, at least half the positions checked),
+  and prefill and decode timed with CUDA events beside their bounds (bytes
+  for a decode step, bf16 tensor operations for a prefill).
 
 Every result is compared with the package's own numpy oracle
 ``core.pbs.reconcile`` (per session, per tree leaf) and with the true set
@@ -90,6 +93,7 @@ import sys
 import tempfile
 import threading
 import time
+from dataclasses import dataclass
 from pathlib import Path
 
 import numpy as np
@@ -2335,22 +2339,68 @@ def examples_phase():
 # the model scaffold's serving path
 # ---------------------------------------------------------------------------
 
-MODEL_ARCH = "qwen2-1.5b"
+@dataclass(frozen=True)
+class ModelRow:
+    """One model of phase ``model_serve``: its smoke-width CPU = card check,
+    its full-width traffic and the margin of its forward check."""
+
+    arch: str
+    # smoke width, float32: depth (None: the smoke config's own), prompt
+    # lengths (max_new 6 each, batch 2) and the scheduler's max_len
+    smoke_layers: int | None
+    smoke_prompts: tuple
+    smoke_max_len: int
+    # full width, bfloat16: (prompt tokens, requests), max_new 32 each
+    buckets: tuple
+    max_len: int
+    # a decoded token must equal the no-cache forward's argmax wherever the
+    # forward's top-2 logit margin exceeds this (tools/model_serve_probe.py
+    # --arch measures the decode-to-forward logit error it is read against)
+    margin_tol: float
+    # the bucket whose full batch times a decode step and is profiled
+    decode_bucket: int
+    # hold the tokens of a float32 run of the same weights (upcast) against
+    # a float32 forward, not the bfloat16 run's against a bfloat16 forward
+    check_float32: bool = False
+
+
+MODEL_ROWS = (
+    # the two paths round bfloat16 activations in other places (blockwise
+    # attention against one-query attention over a bfloat16 cache; other
+    # matmul shapes), so near ties may go either way.  Logits are bfloat16
+    # products; the top ones lie in [2, 4), where a bfloat16 ulp is 1/64:
+    # 4 ulps.  Traffic: two full batches, one of 4 requests padded with
+    # copies whose 1 536 tokens span two ragged query chunks.
+    ModelRow("qwen2-1.5b", None, (8, 8, 12, 12, 12, 5), 64,
+             ((128, 8), (512, 8), (1536, 4)), 2048, 0.0625, 512),
+    # 8 layers: two stacked periods and the unscanned rglru groups; a 70
+    # token prompt rolls the 64-slot ring at the fill and wraps it at
+    # decode, a 62 token one crosses its last slot while decoding.  At full
+    # width 3 000 tokens are past the 2 048-slot window.  The softcap (30)
+    # leaves the top logits near 5.6, where a bfloat16 ulp is 1/32; decode
+    # and forward logits part by up to 0.133 and the top one by up to 0.061
+    # (calibration on an H100): the margin is qwen2's.
+    ModelRow("recurrentgemma-2b", 8, (70, 62, 12, 12, 12, 5), 96,
+             ((128, 8), (512, 8), (3000, 4)), 4096, 0.0625, 512),
+    # 40 tokens: one chunk of 32 and a ragged one.  At full width 1 000 is
+    # a ragged SSD tail (chunk 256), 2 048 eight whole chunks.  In bfloat16
+    # its 48 layers at these random weights carry rounding far: decode and
+    # forward logits part by up to 2.9 and agree on the argmax at 43 % of
+    # positions (calibration on an H100, which also reads how far a
+    # bfloat16 forward lies from the float32 one), so no margin is both
+    # fair and checks half the tokens.  Its check runs in float32 (TF32
+    # off) on the same weights, where decode and forward logits part by at
+    # most 0.0029: the margin is 2.7 times that.
+    ModelRow("mamba2-780m", None, (40, 40, 12, 12, 12, 5), 96,
+             ((128, 8), (1000, 8), (2048, 4)), 4096, 0.0078125, 1000, check_float32=True),
+)
 # smoke width, float32 weights on both devices: the card's last-position
 # logits within this of the CPU's.  Float32 matmuls on the card differ from
-# the CPU's in summation order only (7.45e-7 measured on an H100); a TF32
-# matmul (10 mantissa bits) would miss by ~1e-3 on these logits and fail.
+# the CPU's in summation order only (7.45e-7 measured on an H100 for
+# qwen2-1.5b); a TF32 matmul (10 mantissa bits) would miss by ~1e-3 on these
+# logits and fail.
 SMOKE_LOGIT_ATOL = 1e-5
-# full width, bfloat16: a decoded token must equal the no-cache forward's
-# argmax wherever the forward's top-2 logit margin exceeds this.  The two
-# paths round bfloat16 activations in other places (blockwise attention
-# against one-query attention over a bfloat16 cache; other matmul shapes),
-# so near ties may go either way.  Logits are bfloat16 products; the top
-# ones lie in [2, 4), where a bfloat16 ulp is 1/64: 4 ulps.
-MARGIN_TOL = 0.0625
-# the full-width traffic: (prompt tokens, requests), max_new 32 each
-SERVE_BUCKETS = ((128, 8), (512, 8), (1536, 4))
-SERVE_BATCH, SERVE_MAX_LEN, SERVE_MAX_NEW = 8, 2048, 32
+SERVE_BATCH, SERVE_MAX_NEW = 8, 32
 
 
 def draw_np(spec, rng):
@@ -2368,34 +2418,41 @@ def draw_np(spec, rng):
     return tree_map_p(draw, spec)
 
 
-def smoke_width_check(rng) -> dict:
+def smoke_width_check(rng, row: ModelRow) -> dict:
     """The scheduler at smoke width with one float32 weight set carried to
     the CPU and to the card: equal ``Completion``s and ``ServeStats``
-    counts, and last-position logits within ``SMOKE_LOGIT_ATOL``."""
-    cfg = get_smoke_config(MODEL_ARCH)
+    counts, and last-position logits of every prompt within
+    ``SMOKE_LOGIT_ATOL``."""
+    cfg = get_smoke_config(row.arch)
+    if row.smoke_layers:
+        cfg = cfg.scaled(n_layers=row.smoke_layers)
     meshes = {"cpu": make_local_mesh(device="cpu"), "card": make_local_mesh()}
     arrays = draw_np(model_spec(cfg, mesh_ctx(meshes["card"])), rng)
-    prompts = [[int(x) for x in rng.integers(0, cfg.vocab, n)] for n in (8, 8, 12, 12, 12, 5)]
+    prompts = [[int(x) for x in rng.integers(0, cfg.vocab, n)] for n in row.smoke_prompts]
     outs, stats, last = {}, {}, {}
     for name, mesh in meshes.items():
         params = params_from_numpy(arrays, mesh.device)
         reqs = [Request(i, p, 6) for i, p in enumerate(prompts)]
-        outs[name], stats[name] = BatchScheduler(cfg, mesh, batch=2, max_len=64, eos_id=-1).run(
-            params, reqs)
-        toks = torch.tensor(prompts[2:5], dtype=torch.int32, device=mesh.device)
-        x = forward(params, toks, mesh_ctx(mesh), cfg)
-        last[name] = vocab_logits(params["embed"], x[:, -1], mesh_ctx(mesh), cfg).cpu()
+        outs[name], stats[name] = BatchScheduler(
+            cfg, mesh, batch=2, max_len=row.smoke_max_len, eos_id=-1).run(params, reqs)
+        last[name] = []
+        for n in sorted(set(row.smoke_prompts)):
+            toks = torch.tensor([p for p in prompts if len(p) == n], dtype=torch.int32,
+                                device=mesh.device)
+            x = forward(params, toks, mesh_ctx(mesh), cfg)
+            last[name].append(vocab_logits(params["embed"], x[:, -1], mesh_ctx(mesh), cfg).cpu())
     for rid, c in outs["cpu"].items():
         g = outs["card"][rid]
         assert (g.tokens, g.finished) == (c.tokens, c.finished), (rid, g, c)
     for f in ("requests", "prefill_tokens", "decode_steps", "batches"):
         assert getattr(stats["card"], f) == getattr(stats["cpu"], f), f
-    err = float((last["card"] - last["cpu"]).abs().max())
+    err = max(float((g - c).abs().max()) for g, c in zip(last["card"], last["cpu"]))
     assert err <= SMOKE_LOGIT_ATOL, err
-    return {"config": f"{MODEL_ARCH} smoke (n_layers {cfg.n_layers}, d {cfg.d_model}, "
+    return {"config": f"{row.arch} smoke (n_layers {cfg.n_layers}, d {cfg.d_model}, "
                       f"vocab {cfg.vocab}), float32",
-            "requests": len(prompts), "completions_equal": True,
-            "last_logits_max_abs_err": err, "tolerance": SMOKE_LOGIT_ATOL}
+            "prompt_tokens": list(row.smoke_prompts), "requests": len(prompts),
+            "completions_equal": True, "last_logits_max_abs_err": err,
+            "tolerance": SMOKE_LOGIT_ATOL}
 
 
 def device_profile(fn) -> dict:
@@ -2424,10 +2481,10 @@ def device_profile(fn) -> dict:
             "top_device_ms": dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:6])}
 
 
-def forward_check(params, cfg, ctx, out, requests) -> dict:
+def forward_check(params, cfg, ctx, out, requests, margin_tol: float) -> dict:
     """Every generated token against the no-cache ``forward`` over prompt +
     generated tokens (one batched forward a bucket): equal to its argmax
-    wherever its top-2 margin exceeds ``MARGIN_TOL`` (the checked
+    wherever its top-2 margin exceeds ``margin_tol`` (the checked
     positions).  Also each token's regret, the forward's best logit less
     the decoded token's, whose largest value bounds from below twice the
     logit error between the decode and forward paths."""
@@ -2443,7 +2500,7 @@ def forward_check(params, cfg, ctx, out, requests) -> dict:
         top2 = logits.topk(2, dim=-1)
         margin = (top2.values[..., 0] - top2.values[..., 1]).cpu()
         regret = (top2.values[..., 0] - logits.gather(-1, gen[..., None].long())[..., 0]).cpu()
-        ok, check = (top2.indices[..., 0] == gen).cpu(), margin > MARGIN_TOL
+        ok, check = (top2.indices[..., 0] == gen).cpu(), margin > margin_tol
         checked += int(check.sum())
         skipped += int((~check).sum())
         mismatched += int((check & ~ok).sum())
@@ -2455,21 +2512,46 @@ def forward_check(params, cfg, ctx, out, requests) -> dict:
         del x, logits
     return {"positions_checked": checked, "positions_skipped_for_margin": skipped,
             "checked_mismatches": mismatched, "unequal_positions": unequal,
-            "margin_tol": MARGIN_TOL, "max_regret": max_regret, "by_bucket": by_bucket}
+            "margin_tol": margin_tol, "max_regret": max_regret, "by_bucket": by_bucket}
 
 
-def model_serve_phase(args, smi) -> None:
-    """qwen2-1.5b at full width and depth on the card, weights from a seeded
+def cache_bytes(caches) -> tuple:
+    """(every cache byte, the bytes of its float32 leaves: the recurrent
+    states a decode step rewrites whole)."""
+    leaves = []
+    tree_map(leaves.append, caches)
+    tensors = [t for t in leaves if isinstance(t, torch.Tensor)]
+    total = sum(t.numel() * t.element_size() for t in tensors)
+    states = sum(t.numel() * t.element_size() for t in tensors if t.dtype == torch.float32)
+    return total, states
+
+
+def ssd_prefill_flops(cfg, rows: int, T: int) -> float:
+    """The SSD's operations beyond its projections over ``rows`` sequences of
+    ``T`` tokens at chunk L, counting what the causal mask leaves: within
+    each chunk of l positions the l(l+1)/2 pairs of C·Bᵀ (N terms) and of
+    M·x (P terms) a head, 2 operations a term; a position's chunk-state and
+    inter-chunk products, 4·N·P a head."""
+    if cfg.family != "ssm":
+        return 0.0
+    H, P, N = cfg.d_model * cfg.ssm_expand // cfg.ssm_headdim, cfg.ssm_headdim, cfg.ssm_state
+    L = min(cfg.ssm_chunk, T)
+    pairs = (T // L) * L * (L + 1) // 2 + (T % L) * (T % L + 1) // 2
+    return cfg.n_layers * rows * H * (2 * pairs * (N + P) + 4 * T * N * P)
+
+
+def model_serve_row(args, smi, row: ModelRow) -> None:
+    """One model at full width and depth on the card, weights from a seeded
     ``torch.Generator``: ``BatchScheduler.run`` (prefill / decode through
-    ``serve.engine.make_serve_fns``) over 20 requests in three prompt-length
-    buckets, every generated token held against the no-cache ``forward``,
-    then prefill and decode timed with CUDA events beside their bounds.
-    First the cross-device check at smoke width."""
+    ``serve.engine.make_serve_fns``) over the row's traffic, every generated
+    token held against the no-cache ``forward``, then prefill and decode
+    timed with CUDA events beside their bounds.  First the cross-device
+    check at smoke width."""
     t_phase = time.perf_counter()
     rng = np.random.default_rng(args.seed)
-    smoke = smoke_width_check(rng)
+    smoke = smoke_width_check(rng, row)
 
-    cfg = get_config(MODEL_ARCH)
+    cfg = get_config(row.arch)
     mesh = make_local_mesh()                      # device=None: the card
     ctx = mesh_ctx(mesh)
     torch.cuda.synchronize()
@@ -2483,17 +2565,19 @@ def model_serve_phase(args, smi) -> None:
     tree_map(leaves.append, params)
     param_bytes = sum(t.numel() * t.element_size() for t in leaves)
     n_params = count_params(spec)
-    embed_params = params["embed"]["tok"].numel()
+    non_embed = n_params - params["embed"]["tok"].numel()
 
     requests, rid = [], 0
-    for plen, n in SERVE_BUCKETS:
+    for plen, n in row.buckets:
         for _ in range(n):
             requests.append(Request(rid, [int(x) for x in rng.integers(0, cfg.vocab, plen)],
                                     SERVE_MAX_NEW))
             rid += 1
     platform.reset_launch_counts()
-    sched = BatchScheduler(cfg, mesh, batch=SERVE_BATCH, max_len=SERVE_MAX_LEN, eos_id=-1)
+    sched = BatchScheduler(cfg, mesh, batch=SERVE_BATCH, max_len=row.max_len, eos_id=-1)
+    t0 = time.perf_counter()
     out, stats = sched.run(params, requests)
+    run_s = time.perf_counter() - t0
     pbs_launches = platform.launch_counts()
     assert not pbs_launches, pbs_launches      # the model path launches no PBS kernel
     assert sorted(out) == [r.rid for r in requests]
@@ -2502,30 +2586,45 @@ def model_serve_phase(args, smi) -> None:
         assert len(c.tokens) == SERVE_MAX_NEW and c.finished, (r.rid, c)
         assert all(0 <= t < cfg.vocab for t in c.tokens), (r.rid, c.tokens)
     assert stats.decode_steps == len(requests) * (SERVE_MAX_NEW - 1), stats
-    assert stats.prefill_tokens == sum(p * n for p, n in SERVE_BUCKETS), stats
-    assert stats.batches == 3, stats
-    check = forward_check(params, cfg, ctx, out, requests)
-    emit({"phase": "model_serve", "step": "forward_check", "gpu": smi, **check})
+    assert stats.prefill_tokens == sum(p * n for p, n in row.buckets), stats
+    assert stats.batches == len(row.buckets), stats
+    t0 = time.perf_counter()
+    if row.check_float32:
+        params32 = tree_map(lambda t: t.float(), params)
+        out32, stats32 = sched.run(params32, requests)
+        check = {"dtype": "float32", **forward_check(params32, cfg, ctx, out32, requests,
+                                                     row.margin_tol)}
+        pairs = [(a, b) for r in requests for a, b in zip(out[r.rid].tokens, out32[r.rid].tokens)]
+        check["bfloat16_tokens_equal_float32"] = sum(a == b for a, b in pairs) / len(pairs)
+        check["float32_run_wall_s"] = stats32.wall_s
+        del params32, out32
+    else:
+        check = {"dtype": "bfloat16", **forward_check(params, cfg, ctx, out, requests,
+                                                      row.margin_tol)}
+    check_s = time.perf_counter() - t0
+    emit({"phase": "model_serve", "arch": row.arch, "step": "forward_check", "gpu": smi,
+          **check})
     assert check["checked_mismatches"] == 0, check
     total = check["positions_checked"] + check["positions_skipped_for_margin"]
     assert check["positions_checked"] * 2 >= total, check
 
     # timing: prefill per bucket, decode per step, on the scheduler's engine
-    sv = make_serve_fns(cfg, mesh, batch=SERVE_BATCH, max_len=SERVE_MAX_LEN)
-    non_embed = n_params - embed_params
+    t0 = time.perf_counter()
+    sv = make_serve_fns(cfg, mesh, batch=SERVE_BATCH, max_len=row.max_len)
     prefill = {}
-    for plen, n in SERVE_BUCKETS:
+    for plen, n in row.buckets:
         rows = [r.prompt for r in requests if len(r.prompt) == plen]
         rows += [rows[0]] * (SERVE_BATCH - len(rows))
         toks = torch.tensor(rows, dtype=torch.int32, device=DEV)
         ms = float(np.median(times_ms(lambda: sv.prefill(params, {"tokens": toks}), 3)))
-        bound = 2 * non_embed * SERVE_BATCH * plen / BF16_TENSOR_FLOPS * 1e3
+        flops = 2 * non_embed * SERVE_BATCH * plen + ssd_prefill_flops(cfg, SERVE_BATCH, plen)
+        bound = flops / BF16_TENSOR_FLOPS * 1e3
         prefill[plen] = {"batch_rows": SERVE_BATCH, "real_rows": n, "ms": ms,
                          "tok_per_s": SERVE_BATCH * plen / (ms / 1e3),
                          "real_tok_per_s": n * plen / (ms / 1e3),
-                         "bound_ms": bound, "bound_by": "operations",
+                         "bound_flops": flops, "bound_ms": bound, "bound_by": "operations",
                          "bound_share": bound / ms}
-    toks = torch.tensor([r.prompt for r in requests if len(r.prompt) == 512],
+    toks = torch.tensor([r.prompt for r in requests if len(r.prompt) == row.decode_bucket],
                         dtype=torch.int32, device=DEV)
     caches, tok = sv.prefill(params, {"tokens": toks})
     state = {"caches": caches, "tok": tok}
@@ -2537,37 +2636,51 @@ def model_serve_phase(args, smi) -> None:
     decode_ms = float(np.median(step_ms))
     decode_profile = device_profile(lambda: [step() for _ in range(4)])
     prefill_profile = device_profile(lambda: sv.prefill(params, {"tokens": toks}))
-    kv_bytes = sum(state["caches"][g][n].numel() * state["caches"][g][n].element_size()
-                   for g in state["caches"] for n in ("k", "v"))
-    decode_bound = (param_bytes + kv_bytes) / HBM_BYTES_PER_S * 1e3
+    c_bytes, state_bytes = cache_bytes(state["caches"])
+    # read every weight and cache byte once, rewrite the float32 states (a
+    # ring's one new row a step is left out: under 0.1 % of these bytes)
+    decode_bound = (param_bytes + c_bytes + state_bytes) / HBM_BYTES_PER_S * 1e3
+    timing_s = time.perf_counter() - t0
     del caches, state
     emit({
-        "phase": "model_serve", "gpu": smi,
-        "config": {"arch": MODEL_ARCH, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
-                   "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads, "d_ff": cfg.d_ff,
-                   "vocab": cfg.vocab, "dtype": "bfloat16", "weights": f"torch.Generator seed {args.seed}"},
+        "phase": "model_serve", "arch": row.arch, "gpu": smi,
+        "config": {"arch": row.arch, "family": cfg.family, "n_layers": cfg.n_layers,
+                   "d_model": cfg.d_model, "vocab": cfg.vocab, "dtype": "bfloat16",
+                   "weights": f"torch.Generator seed {args.seed}"},
         "smoke_width_cpu_vs_card": smoke,
         "params": n_params, "n_params_dense": n_params_dense(cfg), "param_bytes": param_bytes,
-        "init_s": init_s,
-        "traffic": {"buckets": [{"prompt_tokens": p, "requests": n} for p, n in SERVE_BUCKETS],
-                    "max_new": SERVE_MAX_NEW, "batch": SERVE_BATCH, "max_len": SERVE_MAX_LEN},
+        "non_embedding_params": non_embed, "init_s": init_s,
+        "traffic": {"buckets": [{"prompt_tokens": p, "requests": n} for p, n in row.buckets],
+                    "max_new": SERVE_MAX_NEW, "batch": SERVE_BATCH, "max_len": row.max_len},
         "run": {"wall_s": stats.wall_s, "prefill_tokens": stats.prefill_tokens,
                 "decode_steps": stats.decode_steps, "batches": stats.batches,
                 "decode_tok_per_s": stats.decode_tok_per_s},
         "forward_check": check,
         "prefill_by_bucket": prefill,
-        "decode": {"batch_rows": SERVE_BATCH, "kv_positions": SERVE_MAX_LEN,
+        "decode": {"batch_rows": SERVE_BATCH, "after_prompt_tokens": row.decode_bucket,
                    "ms_per_step_median": decode_ms, "ms_per_step_mean": float(np.mean(step_ms)),
                    "ms_per_step_min": float(np.min(step_ms)),
                    "tok_per_s": SERVE_BATCH / (decode_ms / 1e3),
-                   "kv_cache_bytes": kv_bytes, "bound_ms": decode_bound, "bound_by": "bytes",
+                   "cache_bytes": c_bytes, "state_bytes_rewritten": state_bytes,
+                   "bound_ms": decode_bound, "bound_by": "bytes",
                    "bound_share": decode_bound / decode_ms},
-        "profile": {"prefill_8x512": prefill_profile, "decode_4_steps": decode_profile},
+        "profile": {f"prefill_8x{row.decode_bucket}": prefill_profile,
+                    "decode_4_steps": decode_profile},
         "peak_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
-        "model_serve_phase_s": time.perf_counter() - t_phase,
+        "seconds": {"scheduler_run": run_s, "forward_check": check_s, "timing": timing_s,
+                    "row": time.perf_counter() - t_phase},
     })
     del params
     torch.cuda.empty_cache()
+
+
+def model_serve_phase(args, smi, rows=MODEL_ROWS) -> None:
+    """Every row of ``MODEL_ROWS`` in turn (``model_serve_row``)."""
+    t_phase = time.perf_counter()
+    for row in rows:
+        model_serve_row(args, smi, row)
+    emit({"phase": "model_serve", "models": [r.arch for r in rows],
+          "model_serve_phase_s": time.perf_counter() - t_phase})
 
 
 def profile_run(sessions, out_path):

@@ -13,8 +13,11 @@ silently overwrites the last slot.  Decode writes the new K/V into the
 cache tensors in place (the reference donates the cache): a caller must not
 reuse the cache it passed in.
 
-Sliding-window, cross and MLA attention come with later slices (ROADMAP
-Queue A).
+Sliding-window attention decodes against a ring of ``window`` slots
+(``local_*``, slot = position % window), written in place the same way; a
+ring never fills, so ``local_decode`` has no capacity to refuse.
+
+Cross and MLA attention come with later slices (ROADMAP Queue A).
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ import functools
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from .config import ModelConfig
 from .layers import (
@@ -30,6 +34,7 @@ from .layers import (
     attention_partial_lse,
     blockwise_attention,
     combine_partials,
+    einsum,
     matmul,
     pad_to,
     rms_head_norm,
@@ -200,4 +205,66 @@ def gqa_decode(p, x, cache, ctx: MeshCtx, cfg: ModelConfig):
     out = _mask_pad_heads(out, cfg, ctx, local=False)
     hq = out.shape[1]
     o = matmul(out.transpose(1, 2).reshape(B, 1, hq * dh), p["wo"])
+    return o, {"k": k_c, "v": v_c, "len": pos + 1}
+
+
+# ---- local (sliding-window) attention decode: a ring cache ----------------
+
+
+def local_init_cache(cfg: ModelConfig, batch: int, device=None):
+    """A zeroed ring of ``window`` KV slots."""
+    dh = cfg.resolved_head_dim
+    shape = (batch, cfg.n_kv_heads, cfg.window, dh)
+    return {
+        "k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
+        "v": torch.zeros(shape, dtype=torch.bfloat16, device=device),
+        "len": 0,
+    }
+
+
+def local_fill_cache(cache, k, v, cfg: ModelConfig):
+    """Keep the last ``window`` positions of a prefill's K/V in ring layout
+    slot = pos % window (the layout ``local_decode`` updates and reads).
+    ``cache`` is unused, as in the reference: the ring is built anew."""
+    w = cfg.window
+    t = k.shape[2]
+    if t < w:  # positions 0..t-1 land at slots 0..t-1; tail slots unused
+        kc = F.pad(k, (0, 0, 0, w - t))
+        vc = F.pad(v, (0, 0, 0, w - t))
+    else:  # last w positions: position p -> slot p % w == roll by (t - w) % w
+        kc = torch.roll(k[:, :, t - w:], (t - w) % w, dims=2)
+        vc = torch.roll(v[:, :, t - w:], (t - w) % w, dims=2)
+    return {"k": kc.to(torch.bfloat16), "v": vc.to(torch.bfloat16), "len": t}
+
+
+def local_decode(p, x, cache, ctx: MeshCtx, cfg: ModelConfig):
+    """Sliding-window decode against the ring.  x: (B, 1, d).
+
+    The new K/V go into slot ``len % window`` of ``cache`` in place; slots
+    are masked by the absolute position they hold.  RoPE positions are
+    absolute."""
+    B = x.shape[0]
+    dh = cfg.resolved_head_dim
+    w = cfg.window
+    pos = cache["len"]
+    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    q, k_new, v_new = _qkv(p, x, cfg, ctx, positions)
+    slot = pos % w
+    k_c, v_c = cache["k"], cache["v"]
+    k_c[:, :, slot:slot + 1] = k_new.to(torch.bfloat16)
+    v_c[:, :, slot:slot + 1] = v_new.to(torch.bfloat16)
+
+    # positions of ring slots: pos - ((slot - i) mod w)
+    k_pos = pos - torch.remainder(slot - torch.arange(w, device=x.device), w)
+    valid = (k_pos >= max(pos - w + 1, 0)) & (k_pos <= pos)
+    kvm = local_kv_map(cfg, ctx, x.device).long()
+    kg = k_c.index_select(1, kvm)
+    vg = v_c.index_select(1, kvm)
+    s = einsum("bhqd,bhkd->bhqk", q, kg).float() / float(np.sqrt(dh))
+    s = torch.where(valid[None, None, None, :], s, -1e30)
+    pattn = torch.softmax(s, dim=-1)
+    out = einsum("bhqk,bhkd->bhqd", pattn.to(vg.dtype), vg)
+    out = _mask_pad_heads(out, cfg, ctx)
+    qpr = out.shape[1]
+    o = matmul(out.transpose(1, 2).reshape(B, 1, qpr * dh), p["wo"])
     return o, {"k": k_c, "v": v_c, "len": pos + 1}

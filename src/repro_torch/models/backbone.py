@@ -5,10 +5,14 @@ keys, and each scanned group's leaves stacked on a leading layer axis.  The
 reference scans that axis with ``lax.scan``; the port loops over it in
 Python, taking each layer's views of the stacked tensors.
 
-Families served so far: ``dense`` and ``vlm`` (one stacked group of ``attn``
-blocks).  ``layer_plan`` raises for the others until their slices
-(ROADMAP Queue A): hybrid (RG-LRU + local attention), ssm, moe (MLA + MoE),
-encdec.
+Unscanned groups are as in the reference: a group of one layer holds
+that layer's tree, a group of several holds ``l0``, ``l1``, ….
+
+Families served so far: ``dense`` and ``vlm`` (one stacked group of
+``attn`` blocks), ``hybrid`` (stacked periods of ``rglru`` and
+``attn_window`` blocks, then one unscanned group a remaining layer) and
+``ssm`` (one stacked group of ``ssm`` blocks).  ``layer_plan`` raises for
+the others until their slices (ROADMAP Queue A): moe (MLA + MoE), encdec.
 """
 from __future__ import annotations
 
@@ -18,7 +22,9 @@ from .attention import gqa_apply, gqa_spec
 from .config import ModelConfig
 from .ffn import mlp_apply, mlp_spec
 from .layers import MeshCtx, apply_norm, matmul, norm_spec, pad_to
+from .rglru import rglru_apply, rglru_spec
 from .spec import P, stack_layers, tree_map
+from .ssm import ssm_apply, ssm_spec
 
 
 def vocab_pad(cfg: ModelConfig) -> int:
@@ -84,22 +90,38 @@ def greedy_token(p, x, ctx: MeshCtx, cfg: ModelConfig):
 
 
 def block_spec(cfg: ModelConfig, ctx: MeshCtx, kind: str) -> dict:
-    if kind == "attn":
+    if kind in ("attn", "attn_window"):
         return {"ln1": norm_spec(cfg), "attn": gqa_spec(cfg, ctx), "ln2": norm_spec(cfg),
+                "mlp": mlp_spec(cfg)}
+    if kind == "ssm":
+        return {"ln1": norm_spec(cfg), "ssm": ssm_spec(cfg, ctx)}
+    if kind == "rglru":
+        return {"ln1": norm_spec(cfg), "rec": rglru_spec(cfg, ctx), "ln2": norm_spec(cfg),
                 "mlp": mlp_spec(cfg)}
     raise NotImplementedError(f"block kind {kind!r}: a later slice (ROADMAP Queue A)")
 
 
 def make_block_fn(cfg: ModelConfig, ctx: MeshCtx, kind: str, *, causal: bool = True):
     """Returns f(params, x) -> x for train / prefill."""
-    if kind != "attn":
-        raise NotImplementedError(f"block kind {kind!r}: a later slice (ROADMAP Queue A)")
 
     def attn_block(p, x):
-        x = x + gqa_apply(p["attn"], apply_norm(p["ln1"], x, cfg), ctx, cfg, causal=causal)
+        w = cfg.window if kind == "attn_window" else None
+        x = x + gqa_apply(p["attn"], apply_norm(p["ln1"], x, cfg), ctx, cfg, causal=causal,
+                          window=w)
         return x + mlp_apply(p["mlp"], apply_norm(p["ln2"], x, cfg), ctx, cfg)
 
-    return attn_block
+    def ssm_block(p, x):
+        return x + ssm_apply(p["ssm"], apply_norm(p["ln1"], x, cfg), ctx, cfg)
+
+    def rglru_block(p, x):
+        x = x + rglru_apply(p["rec"], apply_norm(p["ln1"], x, cfg), ctx, cfg)
+        return x + mlp_apply(p["mlp"], apply_norm(p["ln2"], x, cfg), ctx, cfg)
+
+    table = {"attn": attn_block, "attn_window": attn_block, "ssm": ssm_block,
+             "rglru": rglru_block}
+    if kind not in table:
+        raise NotImplementedError(f"block kind {kind!r}: a later slice (ROADMAP Queue A)")
+    return table[kind]
 
 
 # --------------------------------------------------------------------------
@@ -107,18 +129,40 @@ def make_block_fn(cfg: ModelConfig, ctx: MeshCtx, kind: str, *, causal: bool = T
 # --------------------------------------------------------------------------
 
 
+def hybrid_kind(k: str) -> str:
+    """The block kind of a hybrid pattern entry."""
+    return "rglru" if k == "rglru" else "attn_window"
+
+
 def layer_plan(cfg: ModelConfig):
     """[(kind, count, scanned)] — scanned groups share stacked params."""
     if cfg.family in ("dense", "vlm"):
         return [("attn", cfg.n_layers, True)]
+    if cfg.family == "ssm":
+        return [("ssm", cfg.n_layers, True)]
+    if cfg.family == "hybrid":
+        period = len(cfg.pattern)
+        full = cfg.n_layers // period
+        rem = cfg.n_layers - full * period
+        return [("hybrid_period", full, True)] + [
+            (hybrid_kind(cfg.pattern[i]), 1, False) for i in range(rem)]
     raise NotImplementedError(
         f"family {cfg.family!r} ({cfg.name}): a later slice of ROADMAP Queue A item 15")
 
 
+def hybrid_period_spec(cfg: ModelConfig, ctx: MeshCtx) -> dict:
+    return {f"b{i}": block_spec(cfg, ctx, hybrid_kind(k)) for i, k in enumerate(cfg.pattern)}
+
+
 def model_spec(cfg: ModelConfig, ctx: MeshCtx) -> dict:
     spec = {"embed": embed_spec(cfg), "final_norm": norm_spec(cfg)}
-    for gi, (kind, count, _scanned) in enumerate(layer_plan(cfg)):
-        spec[f"g{gi}"] = stack_layers(block_spec(cfg, ctx, kind), count)
+    for gi, (kind, count, scanned) in enumerate(layer_plan(cfg)):
+        if count == 0:
+            continue
+        base = (hybrid_period_spec(cfg, ctx) if kind == "hybrid_period"
+                else block_spec(cfg, ctx, kind))
+        spec[f"g{gi}"] = stack_layers(base, count) if scanned else (
+            {f"l{i}": base for i in range(count)} if count > 1 else base)
     return spec
 
 
@@ -127,12 +171,35 @@ def layer_params(stacked, i: int):
     return tree_map(lambda t: t[i], stacked)
 
 
+def group_layers(group, count: int, scanned: bool) -> list:
+    """Each layer's parameter tree of a group: views of a scanned group's
+    stacked leaves, or an unscanned group's own trees."""
+    if scanned:
+        return [layer_params(group, i) for i in range(count)]
+    return [group] if count == 1 else [group[f"l{i}"] for i in range(count)]
+
+
+def period_fn(fns):
+    """One hybrid period: the blocks ``fns`` in turn over ``b0``, ``b1``, …"""
+    def run(p, x):
+        for i, f in enumerate(fns):
+            x = f(p[f"b{i}"], x)
+        return x
+
+    return run
+
+
 def forward(params, tokens, ctx: MeshCtx, cfg: ModelConfig):
     """Forward to the final norm: tokens (B, T) -> (B, T, d), no cache.
     Negative ids embed as id 0, as the reference's ``jnp.maximum(tokens, 0)``."""
     x = embed_tokens(params["embed"], tokens.clamp(min=0), ctx, cfg)
-    for gi, (kind, count, _scanned) in enumerate(layer_plan(cfg)):
-        fn = make_block_fn(cfg, ctx, kind)
-        for i in range(count):
-            x = fn(layer_params(params[f"g{gi}"], i), x)
+    for gi, (kind, count, scanned) in enumerate(layer_plan(cfg)):
+        if count == 0:
+            continue
+        if kind == "hybrid_period":
+            fn = period_fn([make_block_fn(cfg, ctx, hybrid_kind(k)) for k in cfg.pattern])
+        else:
+            fn = make_block_fn(cfg, ctx, kind)
+        for p in group_layers(params[f"g{gi}"], count, scanned):
+            x = fn(p, x)
     return apply_norm(params["final_norm"], x, cfg)

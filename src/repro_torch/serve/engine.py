@@ -4,17 +4,31 @@ The reference (``repro.serve.engine``) builds ``shard_map`` + ``jit`` steps
 over a mesh: the decode's residual stream replicated over 'model', the KV
 caches sequence-sharded, partials LSE-combined.  The port's steps are plain
 functions on tensors over the same parameter tree, looping over each
-group's stacked layers in Python where the reference runs ``lax.scan``.
+group's layers in Python where the reference runs ``lax.scan``.
 
 Cache layout is declared as a ``P`` tree (``cache_spec``), as in the
-reference; ``abstract_cache`` gives it on the ``meta`` device.  A live cache
-group is ``{"k", "v"}`` stacked over the group's layers (bfloat16, allocated
-from the spec) and ``"len"``, the number of filled positions, as a host
-``int`` where the spec declares an int32 array (see
-``models.attention``).  ``decode`` writes into the caches it is given: do
-not reuse them after the call.
+reference; ``abstract_cache`` gives it on the ``meta`` device.  A live
+cache has the same tree: one entry a group, its leaves stacked over the
+group's layers where the group is scanned.  Per block kind:
 
-Block kinds other than ``attn`` raise until their slices (ROADMAP Queue A).
+* ``attn``: ``"k"``, ``"v"``, KV caches of ``max_len`` positions (bfloat16);
+* ``attn_window``: ``"k"``, ``"v"``, rings of ``window`` slots (bfloat16);
+* ``rglru``: the state ``"h"`` (float32) and ``"conv"``, the last 3
+  pre-conv inputs (bfloat16);
+* ``ssm``: the state ``"ssd"`` (float32) and ``"conv": {"x", "bc"}``, the
+  last ``ssm_conv - 1`` raw conv inputs;
+* a ``hybrid_period`` group: ``{"b0", "b1", …}``, one of the above a block;
+
+and in each kind's dict ``"len"``, the number of positions seen, as a host
+``int`` where the spec declares an int32 array (see ``models.attention``).
+The live leaves take the dtypes the blocks give them, as the reference's
+do: with bfloat16 parameters those of the spec; with float32 parameters
+the ``ssm`` conv rings stay float32, as the reference's ``ssm_apply``
+leaves them.  ``decode`` writes into the caches it is given: do not reuse
+them after the call.
+
+Block kinds of later slices (MLA, MoE, encoder-decoder) raise (ROADMAP
+Queue A).
 """
 from __future__ import annotations
 
@@ -23,17 +37,27 @@ from typing import Callable
 
 import torch
 
-from repro_torch.models.attention import gqa_apply, gqa_decode, gqa_fill_cache
+from repro_torch.models.attention import (
+    gqa_apply,
+    gqa_decode,
+    gqa_fill_cache,
+    gqa_init_cache,
+    local_decode,
+    local_fill_cache,
+)
 from repro_torch.models.backbone import (
     embed_tokens,
     greedy_token,
-    layer_params,
+    group_layers,
+    hybrid_kind,
     layer_plan,
 )
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.ffn import mlp_apply, mlp_decode
 from repro_torch.models.layers import MeshCtx, apply_norm
+from repro_torch.models.rglru import rglru_apply, rglru_decode
 from repro_torch.models.spec import P, abstract_params, stack_layers
+from repro_torch.models.ssm import ssm_apply, ssm_decode
 from repro_torch.train.step import batch_axes, mesh_ctx
 
 
@@ -44,22 +68,58 @@ from repro_torch.train.step import batch_axes, mesh_ctx
 
 def _kind_cache_spec(cfg: ModelConfig, kind: str, ba, batch: int, max_len: int) -> dict:
     dh = cfg.resolved_head_dim
+    bf16, i32 = torch.bfloat16, torch.int32
     if kind == "attn":
         shape = (batch, cfg.n_kv_heads, max_len, dh)
         return {
-            "k": P(shape, (ba, None, "model", None), "zeros", dtype=torch.bfloat16),
-            "v": P(shape, (ba, None, "model", None), "zeros", dtype=torch.bfloat16),
-            "len": P((), (), "zeros", dtype=torch.int32),
+            "k": P(shape, (ba, None, "model", None), "zeros", dtype=bf16),
+            "v": P(shape, (ba, None, "model", None), "zeros", dtype=bf16),
+            "len": P((), (), "zeros", dtype=i32),
+        }
+    if kind == "attn_window":
+        shape = (batch, cfg.n_kv_heads, cfg.window, dh)
+        return {
+            "k": P(shape, (ba, None, None, None), "zeros", dtype=bf16),
+            "v": P(shape, (ba, None, None, None), "zeros", dtype=bf16),
+            "len": P((), (), "zeros", dtype=i32),
+        }
+    if kind == "ssm":
+        d_inner = cfg.d_model * cfg.ssm_expand
+        H = d_inner // cfg.ssm_headdim
+        G, N, K = cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_conv
+        return {
+            "ssd": P((batch, H, cfg.ssm_headdim, N), (ba, "model", None, None), "zeros",
+                     dtype=torch.float32),
+            "conv": {
+                "x": P((batch, K - 1, d_inner), (ba, None, "model"), "zeros", dtype=bf16),
+                "bc": P((batch, K - 1, 2 * G * N), (ba, None, None), "zeros", dtype=bf16),
+            },
+            "len": P((), (), "zeros", dtype=i32),
+        }
+    if kind == "rglru":
+        w = cfg.lru_width
+        return {
+            "h": P((batch, w), (ba, None), "zeros", dtype=torch.float32),
+            "conv": P((batch, 3, w), (ba, None, None), "zeros", dtype=bf16),
+            "len": P((), (), "zeros", dtype=i32),
         }
     raise NotImplementedError(f"{kind!r} caches: a later slice (ROADMAP Queue A)")
 
 
 def cache_spec(cfg: ModelConfig, mesh, batch: int, max_len: int):
     ba = batch_axes(mesh, batch)
-    return {
-        f"g{gi}": stack_layers(_kind_cache_spec(cfg, kind, ba, batch, max_len), count)
-        for gi, (kind, count, _) in enumerate(layer_plan(cfg))
-    }
+    tree = {}
+    for gi, (kind, count, scanned) in enumerate(layer_plan(cfg)):
+        if count == 0:
+            continue
+        if kind == "hybrid_period":
+            base = {f"b{i}": _kind_cache_spec(cfg, hybrid_kind(k), ba, batch, max_len)
+                    for i, k in enumerate(cfg.pattern)}
+        else:
+            base = _kind_cache_spec(cfg, kind, ba, batch, max_len)
+        tree[f"g{gi}"] = stack_layers(base, count) if scanned else (
+            {f"l{i}": base for i in range(count)} if count > 1 else base)
+    return tree
 
 
 def abstract_cache(cfg: ModelConfig, mesh, batch: int, max_len: int):
@@ -71,31 +131,128 @@ def abstract_cache(cfg: ModelConfig, mesh, batch: int, max_len: int):
 # ---------------------------------------------------------------------------
 
 
-def _prefill_block(cfg, ctx, kind):
-    if kind != "attn":
-        raise NotImplementedError(f"{kind!r} prefill: a later slice (ROADMAP Queue A)")
-
-    def attn(p, x, cache):
+def _prefill_block(cfg, ctx, kind, batch, max_len):
+    """f(params, x) -> (x, the block's filled cache)."""
+    def attn(p, x):
         h, (k, v) = gqa_apply(p["attn"], apply_norm(p["ln1"], x, cfg), ctx, cfg,
                               causal=True, return_kv=True)
         x = x + h
         x = x + mlp_apply(p["mlp"], apply_norm(p["ln2"], x, cfg), ctx, cfg)
-        return x, gqa_fill_cache(cache, k, v, ctx)
+        init = gqa_init_cache(cfg, ctx, batch, max_len, device=x.device)
+        return x, gqa_fill_cache(init, k, v, ctx)
 
-    return attn
+    def attn_window(p, x):
+        h, (k, v) = gqa_apply(p["attn"], apply_norm(p["ln1"], x, cfg), ctx, cfg,
+                              causal=True, window=cfg.window, return_kv=True)
+        x = x + h
+        x = x + mlp_apply(p["mlp"], apply_norm(p["ln2"], x, cfg), ctx, cfg)
+        return x, local_fill_cache(None, k, v, cfg)
+
+    def ssm(p, x):
+        h, state = ssm_apply(p["ssm"], apply_norm(p["ln1"], x, cfg), ctx, cfg,
+                             return_state=True)
+        return x + h, state
+
+    def rglru(p, x):
+        h, state = rglru_apply(p["rec"], apply_norm(p["ln1"], x, cfg), ctx, cfg,
+                               return_state=True)
+        x = x + h
+        x = x + mlp_apply(p["mlp"], apply_norm(p["ln2"], x, cfg), ctx, cfg)
+        return x, state
+
+    if kind == "hybrid_period":
+        fns = [_prefill_block(cfg, ctx, hybrid_kind(k), batch, max_len) for k in cfg.pattern]
+
+        def period(p, x):
+            cc = {}
+            for i, f in enumerate(fns):
+                x, cc[f"b{i}"] = f(p[f"b{i}"], x)
+            return x, cc
+
+        return period
+    table = {"attn": attn, "attn_window": attn_window, "ssm": ssm, "rglru": rglru}
+    if kind not in table:
+        raise NotImplementedError(f"{kind!r} prefill: a later slice (ROADMAP Queue A)")
+    return table[kind]
 
 
 def _decode_block(cfg, ctx, kind):
-    if kind != "attn":
-        raise NotImplementedError(f"{kind!r} decode: a later slice (ROADMAP Queue A)")
-
+    """f(params, x, cache) -> (x, the block's next cache)."""
     def attn(p, x, c):
         h, c2 = gqa_decode(p["attn"], apply_norm(p["ln1"], x, cfg), c, ctx, cfg)
         x = x + h
         x = x + mlp_decode(p["mlp"], apply_norm(p["ln2"], x, cfg), ctx, cfg)
         return x, c2
 
-    return attn
+    def attn_window(p, x, c):
+        h, c2 = local_decode(p["attn"], apply_norm(p["ln1"], x, cfg), c, ctx, cfg)
+        x = x + h
+        x = x + mlp_decode(p["mlp"], apply_norm(p["ln2"], x, cfg), ctx, cfg)
+        return x, c2
+
+    def ssm(p, x, c):
+        h, c2 = ssm_decode(p["ssm"], apply_norm(p["ln1"], x, cfg), c, ctx, cfg)
+        return x + h, c2
+
+    def rglru(p, x, c):
+        h, c2 = rglru_decode(p["rec"], apply_norm(p["ln1"], x, cfg), c, ctx, cfg)
+        x = x + h
+        x = x + mlp_decode(p["mlp"], apply_norm(p["ln2"], x, cfg), ctx, cfg)
+        return x, c2
+
+    if kind == "hybrid_period":
+        fns = [_decode_block(cfg, ctx, hybrid_kind(k)) for k in cfg.pattern]
+
+        def period(p, x, c):
+            cc = {}
+            for i, f in enumerate(fns):
+                x, cc[f"b{i}"] = f(p[f"b{i}"], x, c[f"b{i}"])
+            return x, cc
+
+        return period
+    table = {"attn": attn, "attn_window": attn_window, "ssm": ssm, "rglru": rglru}
+    if kind not in table:
+        raise NotImplementedError(f"{kind!r} decode: a later slice (ROADMAP Queue A)")
+    return table[kind]
+
+
+# ---------------------------------------------------------------------------
+# live caches: stacked storage, layer views, write-back
+# ---------------------------------------------------------------------------
+
+
+def _stacked_like(c: dict, count: int) -> dict:
+    """Uninitialised storage for ``count`` layers' caches shaped like ``c``."""
+    return {k: _stacked_like(v, count) if isinstance(v, dict) else (
+        v if isinstance(v, int) else v.new_empty((count,) + tuple(v.shape)))
+        for k, v in c.items()}
+
+
+def _layer_view(c: dict, i: int | None) -> dict:
+    """Layer ``i``'s cache: views of stacked leaves (``i`` None: ``c``'s own)."""
+    return {k: _layer_view(v, i) if isinstance(v, dict) else (
+        v if isinstance(v, int) or i is None else v[i]) for k, v in c.items()}
+
+
+def _write(dst: dict, new: dict, i: int | None) -> None:
+    """Store a block's returned cache into layer ``i`` of ``dst``; a leaf the
+    block updated in place is not copied."""
+    for k, v in new.items():
+        if isinstance(v, dict):
+            _write(dst[k], v, i)
+        elif isinstance(v, int):
+            dst[k] = v
+        else:
+            d = dst[k] if i is None else dst[k][i]
+            if d.data_ptr() != v.data_ptr():
+                d.copy_(v)
+
+
+def _layer_slots(group: dict, count: int, scanned: bool) -> list:
+    """(tree, index) of each layer's cache within a group."""
+    if scanned:
+        return [(group, i) for i in range(count)]
+    return [(group, None)] if count == 1 else [(group[f"l{i}"], None) for i in range(count)]
 
 
 # ---------------------------------------------------------------------------
@@ -110,10 +267,6 @@ class ServeBundle:
     ctx: MeshCtx
 
 
-def _layer_cache(group, i: int) -> dict:
-    return {"k": group["k"][i], "v": group["v"][i], "len": group["len"]}
-
-
 def make_serve_fns(cfg: ModelConfig, mesh, *, batch: int, max_len: int) -> ServeBundle:
     """``prefill(params, {"tokens": (B, T) int}) -> (caches, token (B,))`` and
     ``decode(params, caches, tokens (B, 1)) -> (token (B,), caches)``, with
@@ -122,38 +275,42 @@ def make_serve_fns(cfg: ModelConfig, mesh, *, batch: int, max_len: int) -> Serve
         raise NotImplementedError(
             f"frontend {cfg.frontend!r}: a later slice (ROADMAP Queue A)")
     ctx = mesh_ctx(mesh)
-    c_spec = cache_spec(cfg, mesh, batch, max_len)
-    plan = layer_plan(cfg)
-    prefill_fns = [_prefill_block(cfg, ctx, kind) for kind, _, _ in plan]
-    decode_fns = [_decode_block(cfg, ctx, kind) for kind, _, _ in plan]
+    groups = [(f"g{gi}", kind, count, scanned)
+              for gi, (kind, count, scanned) in enumerate(layer_plan(cfg)) if count]
+    prefill_fns = {name: _prefill_block(cfg, ctx, kind, batch, max_len)
+                   for name, kind, _, _ in groups}
+    decode_fns = {name: _decode_block(cfg, ctx, kind) for name, kind, _, _ in groups}
 
     def prefill(params, inputs):
         tokens = inputs["tokens"]                       # (B, T)
         x = embed_tokens(params["embed"], tokens.clamp(min=0), ctx, cfg)
         caches = {}
-        for gi, (_kind, count, _) in enumerate(plan):
-            cs = c_spec[f"g{gi}"]
-            group = {n: torch.zeros(cs[n].shape, dtype=cs[n].dtype, device=x.device)
-                     for n in ("k", "v")}
-            group["len"] = 0
-            for i in range(count):
-                x, filled = prefill_fns[gi](layer_params(params[f"g{gi}"], i), x,
-                                            _layer_cache(group, i))
-            group["len"] = filled["len"]
-            caches[f"g{gi}"] = group
+        for name, _kind, count, scanned in groups:
+            filled = []
+            for j, p in enumerate(group_layers(params[name], count, scanned)):
+                x, c = prefill_fns[name](p, x)
+                if scanned:                             # stack as the reference's scan does
+                    if j == 0:
+                        stacked = _stacked_like(c, count)
+                    _write(stacked, c, j)
+                else:
+                    filled.append(c)
+            caches[name] = stacked if scanned else (
+                filled[0] if count == 1 else {f"l{j}": c for j, c in enumerate(filled)})
         x = apply_norm(params["final_norm"], x, cfg)
         return caches, greedy_token(params["embed"], x[:, -1:], ctx, cfg)
 
     def decode(params, caches, tokens):
         x = embed_tokens(params["embed"], tokens, ctx, cfg)     # (B, 1, d)
-        new_caches = {}
-        for gi, (_kind, count, _) in enumerate(plan):
-            group = caches[f"g{gi}"]
-            for i in range(count):
-                x, c2 = decode_fns[gi](layer_params(params[f"g{gi}"], i), x,
-                                       _layer_cache(group, i))
-            new_caches[f"g{gi}"] = {"k": group["k"], "v": group["v"], "len": c2["len"]}
+        for name, _kind, count, scanned in groups:
+            layers = group_layers(params[name], count, scanned)
+            slots = _layer_slots(caches[name], count, scanned)
+            # every view before any write: a stacked group keeps one "len"
+            views = [_layer_view(tree, i) for tree, i in slots]
+            for p, view, (tree, i) in zip(layers, views, slots):
+                x, c2 = decode_fns[name](p, x, view)
+                _write(tree, c2, i)
         x = apply_norm(params["final_norm"], x, cfg)
-        return greedy_token(params["embed"], x, ctx, cfg), new_caches
+        return greedy_token(params["embed"], x, ctx, cfg), caches
 
     return ServeBundle(prefill=prefill, decode=decode, ctx=ctx)

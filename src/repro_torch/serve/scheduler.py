@@ -5,11 +5,15 @@ runs the decode loop with a per-request done mask and collects the tokens.
 Underfull batches are padded with a copy of the first request (left out of
 the results).
 
-One difference from the reference (``repro.serve.scheduler``): ``run``
-refuses a request whose decode would write past the KV cache,
+One difference from the reference (``repro.serve.scheduler``): where the
+model's layer plan holds a KV cache of ``max_len`` positions (``attn``
+blocks), ``run`` refuses a request whose decode would write past it,
 ``len(prompt) + max_new - 1 > max_len``.  The reference checks only
 ``len(prompt) >= max_len``, and its decode then clamps the write index and
-overwrites the cache's last slot, so it returns other tokens.
+overwrites the cache's last slot, so it returns other tokens.  A plan of
+recurrent and sliding-window blocks (``hybrid``, ``ssm``) keeps caches of a
+fixed size that ``max_len`` does not bound: a state, conv rings and KV
+rings of ``window`` slots.  There only the reference's check applies.
 
 Throughput accounting (prefill tokens, decode steps, wall time) is returned
 with the completions.
@@ -23,6 +27,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from repro_torch.models.backbone import layer_plan
 from repro_torch.models.config import ModelConfig
 from repro_torch.serve.engine import make_serve_fns
 
@@ -65,6 +70,8 @@ class BatchScheduler:
         # one bundle for every prompt length: the reference keeps one per
         # length because jit specializes on shape, the port's steps do not
         self._engine = make_serve_fns(cfg, mesh, batch=batch, max_len=max_len)
+        # a KV cache of max_len positions bounds prompt + decoded positions
+        self._bounded = any(kind == "attn" for kind, _, _ in layer_plan(cfg))
 
     def run(self, params, requests: list[Request]) -> tuple[dict, ServeStats]:
         """Serve all requests; returns ({rid: Completion}, stats)."""
@@ -74,7 +81,7 @@ class BatchScheduler:
         for r in requests:
             if len(r.prompt) >= self.max_len:
                 raise ValueError(f"prompt {r.rid} longer than max_len")
-            if len(r.prompt) + r.max_new - 1 > self.max_len:
+            if self._bounded and len(r.prompt) + r.max_new - 1 > self.max_len:
                 raise ValueError(
                     f"request {r.rid}: {len(r.prompt)} prompt + {r.max_new - 1} decoded "
                     f"positions exceed the {self.max_len}-position KV cache")

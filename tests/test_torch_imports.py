@@ -29,6 +29,7 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
         import repro_torch.net.hub, repro_torch.sync, repro_torch.core.baselines
         import repro_torch.models.config, repro_torch.models.spec, repro_torch.models.layers
         import repro_torch.models.attention, repro_torch.models.ffn, repro_torch.models.backbone
+        import repro_torch.models.rglru, repro_torch.models.ssm
         import repro_torch.configs, repro_torch.serve, repro_torch.serve.engine
         import repro_torch.serve.scheduler, repro_torch.launch.mesh, repro_torch.train.step
         for arch in repro_torch.configs.ARCH_IDS:

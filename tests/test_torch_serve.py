@@ -32,7 +32,10 @@ jitted ``shard_map`` steps over a 1x1 mesh.  Tolerances:
   compared, and at least half of all generated positions must be.
 
 The port's one deliberate difference, the ``max_len`` guard, is pinned
-beside the reference's silent clamp.
+beside the reference's silent clamp; it holds only for plans whose caches
+have ``max_len`` positions (``attn``), not for the recurrent families'
+fixed-size caches (``tests/test_torch_recurrent.py`` holds those against
+the reference).
 """
 import jax
 import jax.numpy as jnp
@@ -40,7 +43,7 @@ import numpy as np
 import pytest
 import torch
 from jax.sharding import PartitionSpec as JP
-from _torch_models import draw_tree
+from _torch_models import draw_tree, leaves
 
 import repro.configs as ref_configs
 import repro.models.backbone as ref_bb
@@ -265,8 +268,46 @@ def test_cache_spec_equals_the_reference(jmesh, cpu_mesh):
     assert tuple(got["g0"]["k"].shape) == (28, 8, 2, 2048, 128)
 
 
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "mamba2-780m"])
+def test_recurrent_cache_specs_equal_the_reference(jmesh, cpu_mesh, arch):
+    """At full width, batch 8: every cache leaf (a hybrid period's three
+    blocks and the two unscanned rglru groups; the ssm state and conv
+    rings) has the reference's path, shape and dtype; no ``max_len``
+    positions anywhere."""
+    got = dict(leaves(port_engine.abstract_cache(port_configs.get_config(arch), cpu_mesh, 8, 4096)))
+    ref = dict(leaves(ref_engine.abstract_cache(ref_configs.get_config(arch), jmesh, 8, 4096)))
+    assert got.keys() == ref.keys()
+    for path, a in got.items():
+        assert tuple(a.shape) == ref[path].shape and a.device.type == "meta", path
+        assert str(a.dtype).split(".")[-1] == str(ref[path].dtype), path
+        assert 4096 not in a.shape, path
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "mamba2-780m"])
+def test_recurrent_plan_serves_past_max_len(jmesh, cpu_mesh, arch):
+    """The ``max_len`` guard holds only where a cache has ``max_len``
+    positions (``attn``).  A hybrid or ssm plan has none, so 8 prompt + 5
+    decoded positions run at ``max_len`` 10, and the tokens equal the
+    no-cache forward's argmax wherever its margin exceeds 0.01 (float32;
+    a decode reads bfloat16 rings, which moves these logits by up to
+    0.0061).  A prompt of ``max_len`` tokens is still refused."""
+    cfg, pcfg = ref_configs.get_smoke_config(arch), port_configs.get_smoke_config(arch)
+    arrays = draw_tree(ref_bb.model_spec(cfg, ref_mesh_ctx(jmesh)), np.random.default_rng(64))
+    pp = params_from_numpy(arrays, "cpu")
+    prompt = [int(x) for x in np.random.default_rng(65).integers(0, cfg.vocab, 8)]
+    sched = BatchScheduler(pcfg, cpu_mesh, batch=1, max_len=10, eos_id=-1)
+    toks = sched.run(pp, [Request(0, prompt, 6)])[0][0].tokens
+    assert len(toks) == 6
+    logits = port_logits(pp, pcfg, np.asarray([prompt + toks[:-1]]))[0, 7:]
+    checked = margins(logits) > 0.01
+    assert checked.mean() >= 0.5
+    np.testing.assert_array_equal(np.asarray(toks)[checked], logits.argmax(-1).numpy()[checked])
+    with pytest.raises(ValueError, match="longer than max_len"):
+        sched.run(pp, [Request(1, prompt + [1, 2], 2)])
+
+
 def test_serving_other_families_raises(cpu_mesh):
-    for arch in ("recurrentgemma-2b", "mamba2-780m", "deepseek-v2-236b", "whisper-tiny"):
+    for arch in ("deepseek-v2-236b", "deepseek-v3-671b", "whisper-tiny"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             port_engine.make_serve_fns(port_configs.get_smoke_config(arch), cpu_mesh,
                                        batch=1, max_len=8)

@@ -1,15 +1,19 @@
-"""Phase ``model_serve`` of ``chip_smoke.py`` alone, on one CUDA card, then
-the calibration behind its token check.
+"""Rows of phase ``model_serve`` of ``chip_smoke.py`` alone, on one CUDA
+card, then the calibration behind each row's token check.
 
-    python3 tools/model_serve_probe.py [--runs N] [--seed S] [--out PATH]
+    python3 tools/model_serve_probe.py [--arch NAME ...] [--runs N] [--seed S] [--out PATH]
 
-Runs ``chip_smoke.model_serve_phase`` ``--runs`` times in one process (the
-spread of its decode and prefill times), then serves the 8 x 128 bucket of
-that phase's traffic through ``make_serve_fns`` and holds the logits of
-every decode step against the no-cache ``forward``'s at the same position:
-the largest and mean logit error, how often the argmax agrees, and the
-forward's top-2 margins, which ``chip_smoke.MARGIN_TOL`` is read against.
-Prints one JSON line per run and one ``calibration`` line.
+For each ``--arch`` (a row of ``chip_smoke.MODEL_ROWS``; default
+qwen2-1.5b) runs ``chip_smoke.model_serve_row`` ``--runs`` times in one
+process (the spread of its decode and prefill times), then serves each
+prompt-length bucket of that row's traffic through ``make_serve_fns`` and
+holds the logits of every decode step against the no-cache ``forward``'s
+at the same position: the largest and mean logit error, how often the
+argmax agrees, and the forward's top-2 margins, which the row's
+``margin_tol`` is read against (in bfloat16, and for a row checked in
+float32 also with its weights upcast, beside how far a bfloat16 forward
+lies from the float32 one).  Prints one JSON line per run and one
+``calibration`` line per row.
 """
 import argparse
 import sys
@@ -25,17 +29,11 @@ import chip_smoke as cs  # noqa: E402
 import repro_torch.serve.engine as engine  # noqa: E402
 
 THRESHOLDS = (0.0, 0.015625, 0.03125, 0.0625, 0.125, 0.25)
+ROWS = {row.arch: row for row in cs.MODEL_ROWS}
 
 
-def calibration(seed: int) -> dict:
-    cfg = cs.get_config(cs.MODEL_ARCH)
-    mesh = cs.make_local_mesh()
-    ctx = cs.mesh_ctx(mesh)
-    params = cs.init_params(cs.model_spec(cfg, ctx),
-                            torch.Generator(device=mesh.device).manual_seed(seed), mesh.device)
-    plen, rows = cs.SERVE_BUCKETS[0]
-    rng = np.random.default_rng(seed)
-    prompts = torch.tensor(rng.integers(0, cfg.vocab, (rows, plen)), dtype=torch.int32,
+def calibrate_bucket(params, cfg, mesh, ctx, row, plen: int, n: int, rng) -> dict:
+    prompts = torch.tensor(rng.integers(0, cfg.vocab, (n, plen)), dtype=torch.int32,
                            device=mesh.device)
     recorded, greedy = [], engine.greedy_token
 
@@ -45,7 +43,7 @@ def calibration(seed: int) -> dict:
 
     engine.greedy_token = recording_greedy
     try:
-        sv = cs.make_serve_fns(cfg, mesh, batch=rows, max_len=cs.SERVE_MAX_LEN)
+        sv = cs.make_serve_fns(cfg, mesh, batch=n, max_len=row.max_len)
         caches, tok = sv.prefill(params, {"tokens": prompts})
         gen = [tok]
         for _ in range(cs.SERVE_MAX_NEW - 1):
@@ -54,8 +52,8 @@ def calibration(seed: int) -> dict:
     finally:
         engine.greedy_token = greedy
     del caches
-    gen = torch.stack(gen, 1)                                   # (rows, max_new)
-    served = torch.stack(recorded, 1)                           # (rows, max_new, V)
+    gen = torch.stack(gen, 1)                                   # (n, max_new)
+    served = torch.stack(recorded, 1)                           # (n, max_new, V)
     seq = torch.cat([prompts, gen[:, :-1]], 1)
     ref = cs.vocab_logits(params["embed"], cs.forward(params, seq, ctx, cfg)[:, plen - 1:],
                           ctx, cfg)
@@ -63,23 +61,66 @@ def calibration(seed: int) -> dict:
     top2 = ref.topk(2, dim=-1).values
     margin = (top2[..., 0] - top2[..., 1]).flatten().cpu()
     return {
-        "config": f"{cs.MODEL_ARCH} full width, bfloat16, {rows} x {plen} prompts, "
-                  f"{cs.SERVE_MAX_NEW} tokens each",
+        "prompts": f"{n} x {plen}, {cs.SERVE_MAX_NEW} tokens each",
         "positions": int(margin.numel()),
         "max_abs_logit_err": float(err.max()),
         "mean_abs_logit_err": float(err.mean()),
         "p999_err": float(err.flatten().topk(err.numel() // 1000 + 1).values[-1]),
         "top_logit_err_max": float((served.max(-1).values - top2[..., 0]).abs().max()),
+        "top_logit_max": float(top2[..., 0].max()),
         "argmax_equal": float((served.argmax(-1) == ref.argmax(-1)).float().mean()),
         "margin_quantiles": [float(q) for q in
                              torch.quantile(margin, torch.tensor([0.1, 0.25, 0.5, 0.75]))],
         "frac_margin_gt": {str(t): float((margin > t).float().mean()) for t in THRESHOLDS},
-        "margin_tol": cs.MARGIN_TOL,
     }
+
+
+def bfloat16_drift(params, params32, cfg, ctx, prompts) -> dict:
+    """How far a bfloat16 forward lies from a float32 forward of the same
+    weights: the final-norm states' relative norm and the largest logit
+    difference."""
+    xb = cs.forward(params, prompts, ctx, cfg)
+    xf = cs.forward(params32, prompts, ctx, cfg)
+    lb = cs.vocab_logits(params["embed"], xb, ctx, cfg)
+    lf = cs.vocab_logits(params32["embed"], xf, ctx, cfg)
+    return {"state_rel_norm": float((xb.float() - xf).norm() / xf.norm()),
+            "max_abs_logit_diff": float((lb - lf).abs().max()),
+            "argmax_equal": float((lb.argmax(-1) == lf.argmax(-1)).float().mean())}
+
+
+def calibration(row, seed: int) -> dict:
+    """Decode-to-forward logit error of ``row``'s model at full width, one
+    batch of fresh prompts a bucket (its real request count), in bfloat16
+    and, for a row checked in float32, with the same weights upcast."""
+    cfg = cs.get_config(row.arch)
+    mesh = cs.make_local_mesh()
+    ctx = cs.mesh_ctx(mesh)
+    params = cs.init_params(cs.model_spec(cfg, ctx),
+                            torch.Generator(device=mesh.device).manual_seed(seed), mesh.device)
+    out = {"arch": row.arch, "config": f"{row.arch} full width", "margin_tol": row.margin_tol,
+           "checked_in": "float32" if row.check_float32 else "bfloat16"}
+    for dtype in ("bfloat16", "float32") if row.check_float32 else ("bfloat16",):
+        p = params if dtype == "bfloat16" else cs.tree_map(lambda t: t.float(), params)
+        rng = np.random.default_rng(seed)
+        out[dtype] = {plen: calibrate_bucket(p, cfg, mesh, ctx, row, plen, n, rng)
+                      for plen, n in row.buckets}
+        if dtype == "float32":
+            rng = np.random.default_rng(seed + 1)
+            out["bfloat16_forward_vs_float32"] = {
+                plen: bfloat16_drift(params, p, cfg, ctx, torch.tensor(
+                    rng.integers(0, cfg.vocab, (n, plen)), dtype=torch.int32,
+                    device=mesh.device))
+                for plen, n in row.buckets}
+        del p
+    del params
+    torch.cuda.empty_cache()
+    return out
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", nargs="+", default=["qwen2-1.5b"], choices=sorted(ROWS),
+                    help="rows of chip_smoke.MODEL_ROWS to run, in turn")
     ap.add_argument("--runs", type=int, default=2)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", metavar="PATH", default=None,
@@ -91,12 +132,15 @@ def main() -> None:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         cs._OUT.append(open(args.out, "w"))
     smi = cs.sh(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
-    for run in range(args.runs):
-        t0 = time.perf_counter()
-        cs.emit({"probe_run": run})
-        cs.model_serve_phase(args, smi)
-        cs.emit({"probe_run": run, "seconds": time.perf_counter() - t0})
-    cs.emit({"phase": "model_serve", "step": "calibration", "gpu": smi, **calibration(args.seed)})
+    for arch in args.arch:
+        row = ROWS[arch]
+        for run in range(args.runs):
+            t0 = time.perf_counter()
+            cs.emit({"probe_run": run, "arch": arch})
+            cs.model_serve_row(args, smi, row)
+            cs.emit({"probe_run": run, "arch": arch, "seconds": time.perf_counter() - t0})
+        cs.emit({"phase": "model_serve", "step": "calibration", "gpu": smi,
+                 **calibration(row, args.seed)})
 
 
 if __name__ == "__main__":
