@@ -41,19 +41,26 @@ just before it and read just after:
 * ``model_serve`` — the model scaffold's serving path, which runs no PBS
   kernel (the launch counts must read 0), for each row of ``MODEL_ROWS``:
   qwen2-1.5b (dense GQA), recurrentgemma-2b (RG-LRU with sliding-window
-  attention) and mamba2-780m (SSD).  First the model at smoke width served
-  through ``serve.scheduler.BatchScheduler`` on the CPU and on the card
-  from one float32 weight set (equal completions, last-position logits
-  within ``SMOKE_LOGIT_ATOL``); then at full width and depth in bfloat16,
+  attention), mamba2-780m (SSD) and deepseek-v2-236b (MLA with absorbed
+  decode over a latent cache, routed experts gathered per expert; 7 of
+  its 60 layers, the most one card holds beside the traffic).  First the
+  model at smoke width served through ``serve.scheduler.BatchScheduler``
+  on the CPU and on the card from one float32 weight set (equal
+  completions, last-position logits within ``SMOKE_LOGIT_ATOL``); then at
+  full width and depth (deepseek-v2's cut) in bfloat16,
   weights from a seeded ``torch.Generator``, serving 20 requests in three
   prompt-length buckets (32 new tokens each, batch 8; qwen2 8 x 128,
   8 x 512, 4 x 1536 at ``max_len`` 2048; recurrentgemma 8 x 128, 8 x 512,
   4 x 3000, past its 2048-slot window; mamba2 8 x 128, 8 x 1000, a ragged
-  chunk, 4 x 2048), every generated token held against the no-cache
-  ``models.backbone.forward`` (equal wherever the forward's top-2 margin
-  exceeds the row's ``margin_tol``, at least half the positions checked),
+  chunk, 4 x 2048; deepseek-v2 as qwen2), every generated token held
+  against the no-cache ``models.backbone.forward`` (equal wherever the forward's top-2 margin
+  exceeds the row's ``margin_tol``, at least half the positions checked;
+  deepseek-v2's on a float32 model of 3 layers at full width, and only
+  where every MoE layer routed the token as the forward did),
   and prefill and decode timed with CUDA events beside their bounds (bytes
-  for a decode step, bf16 tensor operations for a prefill).
+  for a decode step, bf16 tensor operations for a prefill; for the MoE row
+  the active parameters only, and the routed experts a decode step read,
+  counted from the router's top-k on the card).
 
 Every result is compared with the package's own numpy oracle
 ``core.pbs.reconcile`` (per session, per tree leaf) and with the true set
@@ -167,6 +174,7 @@ from repro_torch.tree import TreeConfig, leaf_slices, partition_pair, tree_recon
 from repro_torch.tree import partition as tree_partition  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.launch.mesh import make_local_mesh  # noqa: E402
+from repro_torch.models import ffn  # noqa: E402
 from repro_torch.models.backbone import forward, model_spec, vocab_logits  # noqa: E402
 from repro_torch.models.config import n_params_dense  # noqa: E402
 from repro_torch.models.spec import (  # noqa: E402
@@ -2359,9 +2367,13 @@ class ModelRow:
     margin_tol: float
     # the bucket whose full batch times a decode step and is profiled
     decode_bucket: int
-    # hold the tokens of a float32 run of the same weights (upcast) against
-    # a float32 forward, not the bfloat16 run's against a bfloat16 forward
-    check_float32: bool = False
+    # the full-width config's depth, cut to this many layers (None: its own)
+    layers: int | None = None
+    # hold the tokens of a float32 model of this many layers at full width
+    # (weights drawn anew from the row's seed and upcast, the bfloat16 ones
+    # freed first; at the row's own depth they are the row's weights)
+    # against its float32 forward, not the bfloat16 run's
+    check_float32_layers: int | None = None
 
 
 MODEL_ROWS = (
@@ -2389,11 +2401,40 @@ MODEL_ROWS = (
     # positions (calibration on an H100, which also reads how far a
     # bfloat16 forward lies from the float32 one), so no margin is both
     # fair and checks half the tokens.  Its check runs in float32 (TF32
-    # off) on the same weights, where decode and forward logits part by at
-    # most 0.0029: the margin is 2.7 times that.
+    # off) on the same weights, all 48 layers, where decode and forward
+    # logits part by at most 0.0029: the margin is 2.7 times that.
     ModelRow("mamba2-780m", None, (40, 40, 12, 12, 12, 5), 96,
-             ((128, 8), (1000, 8), (2048, 4)), 4096, 0.0078125, 1000, check_float32=True),
+             ((128, 8), (1000, 8), (2048, 4)), 4096, 0.0078125, 1000,
+             check_float32_layers=48),
+    # 7 of 60 layers at full width (1 mla_dense + 6 mla_moe, 50.45 GB in
+    # bfloat16: the most one card holds beside the 8 x 1 536 prefill), with
+    # qwen2's traffic.  The latent cache is bfloat16 whatever the weights,
+    # so a decode step's router sees other roundings than the forward's and
+    # flips a near tie of the 6th and 7th expert: in bfloat16 on 5-35 % of
+    # steps a layer, rising with depth (calibration on an H100), which
+    # moves logits by up to 2.25; half the positions keep every layer's
+    # route, and among them decode and forward logits part by up to 0.195,
+    # so no fair margin checks half the tokens.  The check runs on a float32
+    # model of 3 layers at full width (1 dense + 2 MoE, the bfloat16 one
+    # freed first): 4-9 % route flips a layer; where no layer's route
+    # flipped, decode and forward logits part by at most 0.054, so tokens
+    # there can part only below a margin of 0.108: the margin is 0.125.
+    # Route flips: see ROUTE_GAP_TOL below.
+    ModelRow("deepseek-v2-236b", None, (8, 8, 12, 12, 12, 5), 64,
+             ((128, 8), (512, 8), (1536, 4)), 2048, 0.125, 512, layers=7,
+             check_float32_layers=3),
 )
+# MoE rows: a position is left out of the token check where a layer's
+# decode routed it to another top-k expert set than the forward did and, in
+# the first such layer, the forward's k-th and (k+1)-th router
+# probabilities lie within ROUTE_GAP_TOL (a near tie).  A flip at a wider
+# gap fails the row, as does a layer that flips at more than
+# ROUTE_FLIP_CEILING of the positions.  deepseek-v2's float32 3-layer
+# model (calibration on an H100): every flip came at a near tie, the first
+# flipped layer's gap at most 2.89e-4 (56 flips over 640 positions; the
+# median gap over all positions and layers is 1.1e-3), and a layer flipped
+# at most 9.4 % of positions.  The tolerance is twice that gap.
+ROUTE_GAP_TOL, ROUTE_FLIP_CEILING = 6e-4, 0.15
 # smoke width, float32 weights on both devices: the card's last-position
 # logits within this of the CPU's.  Float32 matmuls on the card differ from
 # the CPU's in summation order only (7.45e-7 measured on an H100 for
@@ -2416,6 +2457,51 @@ def draw_np(spec, rng):
         return (scale * rng.standard_normal(p.shape)).astype(np.float32)
 
     return tree_map_p(draw, spec)
+
+
+def row_config(row: ModelRow, layers: int | None = None):
+    """The row's full-width config at its depth (or at ``layers``)."""
+    cfg = get_config(row.arch)
+    n = layers or row.layers
+    return cfg.scaled(n_layers=n) if n else cfg
+
+
+@contextlib.contextmanager
+def recorded_routes():
+    """Wrap the MoE router (``models.ffn._route``): each call's router
+    probabilities (N, E) and top-k expert indices (N, k), on the card, in
+    call order."""
+    routes, route = [], ffn._route
+
+    def recording(p, x, cfg):
+        out = route(p, x, cfg)
+        routes.append((out[0], out[2]))
+        return out
+
+    ffn._route = recording
+    try:
+        yield routes
+    finally:
+        ffn._route = route
+
+
+def moe_bytes(cfg, param_bytes: int) -> tuple:
+    """(bytes of the weights that are not routed experts, bytes of one
+    routed expert's three matrices); (param_bytes, 0) without experts."""
+    if not cfg.n_experts:
+        return param_bytes, 0
+    expert = 3 * cfg.d_model * cfg.moe_d_ff * 2
+    n_moe = cfg.n_layers - cfg.n_dense_layers
+    return param_bytes - n_moe * cfg.n_experts * expert, expert
+
+
+def active_non_embedding(cfg, non_embed: int) -> int:
+    """Non-embedding parameters a token runs through: all of them, less the
+    routed experts its top-k leaves out in every MoE layer."""
+    if not cfg.n_experts:
+        return non_embed
+    n_moe = cfg.n_layers - cfg.n_dense_layers
+    return non_embed - n_moe * (cfg.n_experts - cfg.moe_top_k) * 3 * cfg.d_model * cfg.moe_d_ff
 
 
 def smoke_width_check(rng, row: ModelRow) -> dict:
@@ -2481,38 +2567,126 @@ def device_profile(fn) -> dict:
             "top_device_ms": dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:6])}
 
 
-def forward_check(params, cfg, ctx, out, requests, margin_tol: float) -> dict:
+def chunk_routes(calls, n_moe: int, steps: int) -> torch.Tensor:
+    """The sorted top-k expert set of each MoE layer for every token of one
+    prefill and ``steps`` decode steps: (B, 1 + steps, n_moe, k).  ``calls``
+    are ``recorded_routes``' in order: the prefill's, (B · T, k) a layer,
+    whose last position routes token 0, then each decode step's, (B, k) a
+    layer."""
+    B, k = calls[n_moe][1].shape
+    first = torch.stack([c.reshape(B, -1, k)[:, -1] for _, c in calls[:n_moe]], 1)
+    rest = [torch.stack([c for _, c in calls[n_moe * (1 + s):n_moe * (2 + s)]], 1)
+            for s in range(steps)]
+    return torch.stack([first] + rest, 1).sort(-1).values
+
+
+def forward_routes(calls, n: int, start: int, count: int) -> tuple:
+    """Positions ``start .. start + count`` of a forward over ``n`` rows,
+    one ``recorded_routes`` call a MoE layer: their sorted top-k sets (n,
+    count, n_moe, k) and the forward's k-th less (k+1)-th router
+    probability there (n, count, n_moe)."""
+    k = calls[0][1].shape[-1]
+    sets = torch.stack([c.reshape(n, -1, k)[:, start:start + count] for _, c in calls],
+                       2).sort(-1).values
+    top = torch.stack([p.reshape(n, -1, p.shape[-1])[:, start:start + count].topk(k + 1).values
+                       for p, _ in calls], 2)
+    return sets, top[..., k - 1] - top[..., k]
+
+
+def route_flips(fwd_sets, fwd_gaps, served_sets) -> tuple:
+    """Where a decode routed a position to another top-k set than the
+    forward: (differs (…, n_moe) by layer, the forward's k-th less (k+1)-th
+    probability gap in the first layer that differs (…), +inf where none
+    does)."""
+    differs = (fwd_sets != served_sets).any(-1)
+    first = differs.int().argmax(-1, keepdim=True)
+    gap = fwd_gaps.gather(-1, first)[..., 0]
+    return differs, torch.where(differs.any(-1), gap, torch.full_like(gap, float("inf")))
+
+
+def served_routes(calls, requests, n_moe: int) -> dict:
+    """{rid: (max_new, n_moe, k)}: each generated token's expert sets in
+    a ``BatchScheduler.run`` whose router calls are ``calls`` (buckets by
+    prompt length, chunks of ``SERVE_BATCH``, ``SERVE_MAX_NEW - 1`` decode
+    steps a chunk)."""
+    per_chunk = n_moe * SERVE_MAX_NEW
+    out, i = {}, 0
+    for plen in sorted({len(r.prompt) for r in requests}):
+        reqs = [r for r in requests if len(r.prompt) == plen]
+        for lo in range(0, len(reqs), SERVE_BATCH):
+            routes = chunk_routes(calls[i:i + per_chunk], n_moe, SERVE_MAX_NEW - 1)
+            i += per_chunk
+            out.update({r.rid: routes[b] for b, r in enumerate(reqs[lo:lo + SERVE_BATCH])})
+    assert i == len(calls), (i, len(calls))
+    return out
+
+
+def forward_check(params, cfg, ctx, out, requests, margin_tol: float, routes=None) -> dict:
     """Every generated token against the no-cache ``forward`` over prompt +
     generated tokens (one batched forward a bucket): equal to its argmax
     wherever its top-2 margin exceeds ``margin_tol`` (the checked
     positions).  Also each token's regret, the forward's best logit less
     the decoded token's, whose largest value bounds from below twice the
-    logit error between the decode and forward paths."""
-    checked = skipped = mismatched = unequal = 0
-    max_regret, by_bucket = 0.0, {}
+    logit error between the decode and forward paths.
+
+    With ``routes`` (``served_routes`` of the run, an MoE model) a position
+    is left out where a MoE layer's decode routed it to another top-k
+    expert set than the forward did and, in the first such layer, the
+    forward's k-th and (k+1)-th router probabilities lie within
+    ``ROUTE_GAP_TOL``: a near tie flipped by rounding swaps an
+    expert's output, which moves the logits by far more than rounding.
+    Flips at a wider gap are counted (``route_flips_at_clear_gap``)."""
+    checked = skipped = near_ties = clear_flips = mismatched = unequal = positions = 0
+    max_regret, max_flip_gap, by_bucket, flips_by_layer = 0.0, 0.0, {}, 0
     for plen in sorted({len(r.prompt) for r in requests}):
         reqs = [r for r in requests if len(r.prompt) == plen]
         seq = torch.tensor([r.prompt + out[r.rid].tokens[:-1] for r in reqs],
                            dtype=torch.int32, device=DEV)
-        x = forward(params, seq, ctx, cfg)[:, plen - 1:]            # (n, max_new, d)
+        with recorded_routes() as calls:
+            x = forward(params, seq, ctx, cfg)[:, plen - 1:]        # (n, max_new, d)
         logits = vocab_logits(params["embed"], x, ctx, cfg)
         gen = torch.tensor([out[r.rid].tokens for r in reqs], device=DEV)
         top2 = logits.topk(2, dim=-1)
         margin = (top2.values[..., 0] - top2.values[..., 1]).cpu()
         regret = (top2.values[..., 0] - logits.gather(-1, gen[..., None].long())[..., 0]).cpu()
         ok, check = (top2.indices[..., 0] == gen).cpu(), margin > margin_tol
+        tie, bucket = torch.zeros_like(check), {}
+        if routes is not None:
+            differs, gap = route_flips(*forward_routes(calls, len(reqs), plen - 1, gen.shape[1]),
+                                       torch.stack([routes[r.rid] for r in reqs]))
+            differs, gap = differs.cpu(), gap.cpu()
+            flips_by_layer = flips_by_layer + differs.sum((0, 1))
+            tie = gap <= ROUTE_GAP_TOL
+            clear_flips += int((differs.any(-1) & ~tie).sum())
+            if differs.any():
+                max_flip_gap = max(max_flip_gap, float(gap[differs.any(-1)].max()))
+            bucket["route_near_tie"] = int(tie.sum())
+        del calls
+        near_ties += int((check & tie).sum())
+        check &= ~tie
+        positions += int(check.numel())
         checked += int(check.sum())
-        skipped += int((~check).sum())
+        skipped += int((margin <= margin_tol).sum())
         mismatched += int((check & ~ok).sum())
         unequal += int((~ok).sum())
         max_regret = max(max_regret, float(regret.max()))
         by_bucket[plen] = {"positions": int(check.numel()), "equal": int(ok.sum()),
-                           "checked": int(check.sum()),
+                           "checked": int(check.sum()), **bucket,
                            "median_margin": float(margin.median())}
         del x, logits
-    return {"positions_checked": checked, "positions_skipped_for_margin": skipped,
-            "checked_mismatches": mismatched, "unequal_positions": unequal,
-            "margin_tol": margin_tol, "max_regret": max_regret, "by_bucket": by_bucket}
+    res = {"positions": positions, "positions_checked": checked,
+           "positions_skipped_for_margin": skipped, "checked_mismatches": mismatched,
+           "unequal_positions": unequal, "margin_tol": margin_tol, "max_regret": max_regret,
+           "by_bucket": by_bucket}
+    if routes is not None:
+        res.update({"route_gap_tol": ROUTE_GAP_TOL,
+                    "positions_skipped_for_route_near_tie": near_ties,
+                    "route_flip_max_gap": max_flip_gap,
+                    "route_flips_at_clear_gap": clear_flips,
+                    "route_flip_share_by_moe_layer": [
+                        int(v) / positions for v in flips_by_layer],
+                    "route_flip_ceiling": ROUTE_FLIP_CEILING})
+    return res
 
 
 def cache_bytes(caches) -> tuple:
@@ -2540,18 +2714,75 @@ def ssd_prefill_flops(cfg, rows: int, T: int) -> float:
     return cfg.n_layers * rows * H * (2 * pairs * (N + P) + 4 * T * N * P)
 
 
+def serve_requests(rng, cfg, row: ModelRow) -> list:
+    """The row's traffic: one request of ``SERVE_MAX_NEW`` tokens a prompt."""
+    requests, rid = [], 0
+    for plen, n in row.buckets:
+        for _ in range(n):
+            requests.append(Request(rid, [int(x) for x in rng.integers(0, cfg.vocab, plen)],
+                                    SERVE_MAX_NEW))
+            rid += 1
+    return requests
+
+
+def check_run(out, stats, requests, row: ModelRow, cfg) -> None:
+    """Every request finished with ``SERVE_MAX_NEW`` in-vocab tokens, and
+    the run's counts are the traffic's."""
+    assert sorted(out) == [r.rid for r in requests]
+    for r in requests:
+        c = out[r.rid]
+        assert len(c.tokens) == SERVE_MAX_NEW and c.finished, (r.rid, c)
+        assert all(0 <= t < cfg.vocab for t in c.tokens), (r.rid, c.tokens)
+    assert stats.decode_steps == len(requests) * (SERVE_MAX_NEW - 1), stats
+    assert stats.prefill_tokens == sum(p * n for p, n in row.buckets), stats
+    assert stats.batches == len(row.buckets), stats
+
+
+def float32_layers_check(args, row: ModelRow, mesh, ctx, requests, out16) -> dict:
+    """The token check on a float32 model of ``row.check_float32_layers``
+    layers at full width: weights drawn in bfloat16 from the row's seed and
+    upcast, the row's traffic through ``BatchScheduler`` (routes recorded
+    for an MoE model), every token against its float32 forward.  At the
+    row's own depth these are the row's weights, and the share of the
+    bfloat16 run's tokens ``out16`` equal to the float32 run's is read."""
+    cfg = row_config(row, row.check_float32_layers)
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(model_spec(cfg, ctx),
+                         torch.Generator(device=DEV).manual_seed(args.seed), mesh.device)
+    params = tree_map(lambda t: t.float(), params)
+    sched = BatchScheduler(cfg, mesh, batch=SERVE_BATCH, max_len=row.max_len, eos_id=-1)
+    with recorded_routes() as calls:
+        out, stats = sched.run(params, requests)
+    check_run(out, stats, requests, row, cfg)
+    routes = (served_routes(calls, requests, cfg.n_layers - cfg.n_dense_layers)
+              if cfg.n_experts else None)
+    del calls
+    check = {"dtype": "float32", "n_layers": cfg.n_layers,
+             "params": count_params(model_spec(cfg, ctx)),
+             **forward_check(params, cfg, ctx, out, requests, row.margin_tol, routes),
+             "float32_run_wall_s": stats.wall_s,
+             "peak_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+    if cfg.n_layers == row_config(row).n_layers:
+        pairs = [(a, b) for r in requests for a, b in zip(out16[r.rid].tokens, out[r.rid].tokens)]
+        check["bfloat16_tokens_equal_float32"] = sum(a == b for a, b in pairs) / len(pairs)
+    del params
+    torch.cuda.empty_cache()
+    return check
+
+
 def model_serve_row(args, smi, row: ModelRow) -> None:
-    """One model at full width and depth on the card, weights from a seeded
-    ``torch.Generator``: ``BatchScheduler.run`` (prefill / decode through
-    ``serve.engine.make_serve_fns``) over the row's traffic, every generated
-    token held against the no-cache ``forward``, then prefill and decode
-    timed with CUDA events beside their bounds.  First the cross-device
-    check at smoke width."""
+    """One model at full width on the card (at the row's depth), weights
+    from a seeded ``torch.Generator``: ``BatchScheduler.run`` (prefill /
+    decode through ``serve.engine.make_serve_fns``) over the row's traffic,
+    every generated token held against the no-cache ``forward`` (or, for a
+    row with ``check_float32_layers``, a float32 model's run after the
+    timing), then prefill and decode timed with CUDA events beside their
+    bounds.  First the cross-device check at smoke width."""
     t_phase = time.perf_counter()
     rng = np.random.default_rng(args.seed)
     smoke = smoke_width_check(rng, row)
 
-    cfg = get_config(row.arch)
+    cfg = row_config(row)
     mesh = make_local_mesh()                      # device=None: the card
     ctx = mesh_ctx(mesh)
     torch.cuda.synchronize()
@@ -2564,15 +2795,20 @@ def model_serve_row(args, smi, row: ModelRow) -> None:
     leaves = []
     tree_map(leaves.append, params)
     param_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    del leaves                                    # no reference may outlive params
     n_params = count_params(spec)
-    non_embed = n_params - params["embed"]["tok"].numel()
+    # an untied unembedding runs at a prefill's last position only (a logit
+    # row a sequence), and a decode step reads SERVE_BATCH rows of the
+    # untied input table (a tied one is read whole as the unembedding)
+    non_embed = n_params - sum(t.numel() for t in params["embed"].values())
+    logit_flops = unread_embed_bytes = 0
+    if not cfg.tie_embeddings:
+        v, d = params["embed"]["tok"].shape
+        logit_flops = 2 * d * cfg.vocab * SERVE_BATCH
+        unread_embed_bytes = (v - SERVE_BATCH) * d * params["embed"]["tok"].element_size()
+    active = active_non_embedding(cfg, non_embed)
 
-    requests, rid = [], 0
-    for plen, n in row.buckets:
-        for _ in range(n):
-            requests.append(Request(rid, [int(x) for x in rng.integers(0, cfg.vocab, plen)],
-                                    SERVE_MAX_NEW))
-            rid += 1
+    requests = serve_requests(rng, cfg, row)
     platform.reset_launch_counts()
     sched = BatchScheduler(cfg, mesh, batch=SERVE_BATCH, max_len=row.max_len, eos_id=-1)
     t0 = time.perf_counter()
@@ -2580,33 +2816,13 @@ def model_serve_row(args, smi, row: ModelRow) -> None:
     run_s = time.perf_counter() - t0
     pbs_launches = platform.launch_counts()
     assert not pbs_launches, pbs_launches      # the model path launches no PBS kernel
-    assert sorted(out) == [r.rid for r in requests]
-    for r in requests:
-        c = out[r.rid]
-        assert len(c.tokens) == SERVE_MAX_NEW and c.finished, (r.rid, c)
-        assert all(0 <= t < cfg.vocab for t in c.tokens), (r.rid, c.tokens)
-    assert stats.decode_steps == len(requests) * (SERVE_MAX_NEW - 1), stats
-    assert stats.prefill_tokens == sum(p * n for p, n in row.buckets), stats
-    assert stats.batches == len(row.buckets), stats
+    check_run(out, stats, requests, row, cfg)
     t0 = time.perf_counter()
-    if row.check_float32:
-        params32 = tree_map(lambda t: t.float(), params)
-        out32, stats32 = sched.run(params32, requests)
-        check = {"dtype": "float32", **forward_check(params32, cfg, ctx, out32, requests,
-                                                     row.margin_tol)}
-        pairs = [(a, b) for r in requests for a, b in zip(out[r.rid].tokens, out32[r.rid].tokens)]
-        check["bfloat16_tokens_equal_float32"] = sum(a == b for a, b in pairs) / len(pairs)
-        check["float32_run_wall_s"] = stats32.wall_s
-        del params32, out32
-    else:
+    check = None
+    if not row.check_float32_layers:
         check = {"dtype": "bfloat16", **forward_check(params, cfg, ctx, out, requests,
                                                       row.margin_tol)}
     check_s = time.perf_counter() - t0
-    emit({"phase": "model_serve", "arch": row.arch, "step": "forward_check", "gpu": smi,
-          **check})
-    assert check["checked_mismatches"] == 0, check
-    total = check["positions_checked"] + check["positions_skipped_for_margin"]
-    assert check["positions_checked"] * 2 >= total, check
 
     # timing: prefill per bucket, decode per step, on the scheduler's engine
     t0 = time.perf_counter()
@@ -2617,7 +2833,8 @@ def model_serve_row(args, smi, row: ModelRow) -> None:
         rows += [rows[0]] * (SERVE_BATCH - len(rows))
         toks = torch.tensor(rows, dtype=torch.int32, device=DEV)
         ms = float(np.median(times_ms(lambda: sv.prefill(params, {"tokens": toks}), 3)))
-        flops = 2 * non_embed * SERVE_BATCH * plen + ssd_prefill_flops(cfg, SERVE_BATCH, plen)
+        flops = (2 * active * SERVE_BATCH * plen + logit_flops
+                 + ssd_prefill_flops(cfg, SERVE_BATCH, plen))
         bound = flops / BF16_TENSOR_FLOPS * 1e3
         prefill[plen] = {"batch_rows": SERVE_BATCH, "real_rows": n, "ms": ms,
                          "tok_per_s": SERVE_BATCH * plen / (ms / 1e3),
@@ -2632,24 +2849,63 @@ def model_serve_row(args, smi, row: ModelRow) -> None:
     def step():
         state["tok"], state["caches"] = sv.decode(params, state["caches"], state["tok"][:, None])
 
-    step_ms = times_ms(step, SERVE_MAX_NEW - 5)       # + 1 warm-up + 4 profiled steps
+    with recorded_routes() as step_routes:           # + 1 warm-up + 4 profiled steps
+        step_ms = times_ms(step, SERVE_MAX_NEW - 5)
     decode_ms = float(np.median(step_ms))
     decode_profile = device_profile(lambda: [step() for _ in range(4)])
     prefill_profile = device_profile(lambda: sv.prefill(params, {"tokens": toks}))
     c_bytes, state_bytes = cache_bytes(state["caches"])
     # read every weight and cache byte once, rewrite the float32 states (a
-    # ring's one new row a step is left out: under 0.1 % of these bytes)
-    decode_bound = (param_bytes + c_bytes + state_bytes) / HBM_BYTES_PER_S * 1e3
+    # ring's one new row a step is left out: under 0.1 % of these bytes);
+    # of the routed experts only those the step's router chose
+    fixed_bytes, expert_bytes = moe_bytes(cfg, param_bytes)
+    fixed_bytes -= unread_embed_bytes
+    experts = [int(torch.unique(topi).numel()) for _, topi in step_routes]
+    steps = len(step_ms) + 1
+    experts_per_step = sum(experts) / steps
+    decode_bound = (fixed_bytes + experts_per_step * expert_bytes + c_bytes
+                    + state_bytes) / HBM_BYTES_PER_S * 1e3
     timing_s = time.perf_counter() - t0
-    del caches, state
+    peak = torch.cuda.max_memory_allocated()
+    del caches, state, step_routes
+    if row.check_float32_layers:
+        del params, sv, sched
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        check = float32_layers_check(args, row, mesh, ctx, requests, out)
+        check_s = time.perf_counter() - t0
+    emit({"phase": "model_serve", "arch": row.arch, "step": "forward_check", "gpu": smi,
+          **check})
+    assert check["checked_mismatches"] == 0, check
+    assert check["positions_checked"] * 2 >= check["positions"], check
+    if "route_flips_at_clear_gap" in check:
+        assert check["route_flips_at_clear_gap"] == 0, check
+        assert max(check["route_flip_share_by_moe_layer"]) <= ROUTE_FLIP_CEILING, check
+    full_layers = get_config(row.arch).n_layers
+    decode = {"batch_rows": SERVE_BATCH, "after_prompt_tokens": row.decode_bucket,
+              "ms_per_step_median": decode_ms, "ms_per_step_mean": float(np.mean(step_ms)),
+              "ms_per_step_min": float(np.min(step_ms)),
+              "tok_per_s": SERVE_BATCH / (decode_ms / 1e3),
+              "cache_bytes": c_bytes, "state_bytes_rewritten": state_bytes,
+              "bound_ms": decode_bound, "bound_by": "bytes",
+              "bound_share": decode_bound / decode_ms}
+    if cfg.n_experts:
+        n_moe = cfg.n_layers - cfg.n_dense_layers
+        decode["routed_experts_read"] = {
+            "per_step_mean": experts_per_step, "per_layer_mean": experts_per_step / n_moe,
+            "per_layer_max": max(experts), "steps": steps, "expert_bytes": expert_bytes,
+            "other_weight_bytes": fixed_bytes}
     emit({
         "phase": "model_serve", "arch": row.arch, "gpu": smi,
         "config": {"arch": row.arch, "family": cfg.family, "n_layers": cfg.n_layers,
                    "d_model": cfg.d_model, "vocab": cfg.vocab, "dtype": "bfloat16",
-                   "weights": f"torch.Generator seed {args.seed}"},
+                   "weights": f"torch.Generator seed {args.seed}",
+                   "reduced": (f"n_layers {full_layers} -> {cfg.n_layers}, memory of one card"
+                               if cfg.n_layers != full_layers else None)},
         "smoke_width_cpu_vs_card": smoke,
         "params": n_params, "n_params_dense": n_params_dense(cfg), "param_bytes": param_bytes,
-        "non_embedding_params": non_embed, "init_s": init_s,
+        "non_embedding_params": non_embed, "active_non_embedding_params": active,
+        "init_s": init_s,
         "traffic": {"buckets": [{"prompt_tokens": p, "requests": n} for p, n in row.buckets],
                     "max_new": SERVE_MAX_NEW, "batch": SERVE_BATCH, "max_len": row.max_len},
         "run": {"wall_s": stats.wall_s, "prefill_tokens": stats.prefill_tokens,
@@ -2657,20 +2913,15 @@ def model_serve_row(args, smi, row: ModelRow) -> None:
                 "decode_tok_per_s": stats.decode_tok_per_s},
         "forward_check": check,
         "prefill_by_bucket": prefill,
-        "decode": {"batch_rows": SERVE_BATCH, "after_prompt_tokens": row.decode_bucket,
-                   "ms_per_step_median": decode_ms, "ms_per_step_mean": float(np.mean(step_ms)),
-                   "ms_per_step_min": float(np.min(step_ms)),
-                   "tok_per_s": SERVE_BATCH / (decode_ms / 1e3),
-                   "cache_bytes": c_bytes, "state_bytes_rewritten": state_bytes,
-                   "bound_ms": decode_bound, "bound_by": "bytes",
-                   "bound_share": decode_bound / decode_ms},
+        "decode": decode,
         "profile": {f"prefill_8x{row.decode_bucket}": prefill_profile,
                     "decode_4_steps": decode_profile},
-        "peak_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "peak_memory_allocated_bytes": peak,
+        "pbs_kernel_launches": pbs_launches,
         "seconds": {"scheduler_run": run_s, "forward_check": check_s, "timing": timing_s,
                     "row": time.perf_counter() - t_phase},
     })
-    del params
+    params = None
     torch.cuda.empty_cache()
 
 

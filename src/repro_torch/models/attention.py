@@ -8,8 +8,8 @@ shard: ``kv_map`` / ``local_kv_map`` coincide, the combine is a division.
 The KV cache is bfloat16, as in the reference.  Its position ``len`` is a
 host ``int``: the host always knows it, so decode reads nothing back from
 the device to place the new K/V, and it refuses a write past the cache's
-capacity where the reference's ``dynamic_update_slice`` clamps the index and
-silently overwrites the last slot.  Decode writes the new K/V into the
+capacity where the reference writes at ``len`` modulo the capacity and
+silently overwrites its oldest positions.  Decode writes the new K/V into the
 cache tensors in place (the reference donates the cache): a caller must not
 reuse the cache it passed in.
 
@@ -17,7 +17,12 @@ Sliding-window attention decodes against a ring of ``window`` slots
 (``local_*``, slot = position % window), written in place the same way; a
 ring never fills, so ``local_decode`` has no capacity to refuse.
 
-Cross and MLA attention come with later slices (ROADMAP Queue A).
+MLA (deepseek's multi-head latent attention, ``mla_*``) caches only the
+latent ``c_kv`` and the shared rotary key ``k_rope`` and decodes in absorbed
+form, in the latent space; its cache takes the same ``len``, in-place
+writes and full-cache refusal as the GQA cache.
+
+Cross attention comes with a later slice (ROADMAP Queue A).
 """
 from __future__ import annotations
 
@@ -268,3 +273,151 @@ def local_decode(p, x, cache, ctx: MeshCtx, cfg: ModelConfig):
     qpr = out.shape[1]
     o = matmul(out.transpose(1, 2).reshape(B, 1, qpr * dh), p["wo"])
     return o, {"k": k_c, "v": v_c, "len": pos + 1}
+
+
+# --------------------------------------------------------------------------
+# MLA (deepseek multi-head latent attention)
+# --------------------------------------------------------------------------
+
+
+def mla_spec(cfg: ModelConfig, ctx: MeshCtx) -> dict:
+    d = cfg.d_model
+    h = pad_to(cfg.n_heads, ctx.model_size)
+    hn = cfg.n_heads
+    nope, rpe, vd = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
+    spec = {
+        "wkv_a": P((d, cfg.kv_lora + rpe), (None, None)),
+        "kv_a_norm": P((cfg.kv_lora,), (None,), "ones"),
+        "wkv_b": P((cfg.kv_lora, h * (nope + vd)), (None, "model"),
+                   logical=(cfg.kv_lora, hn * (nope + vd))),
+        "wo": P((h * vd, d), ("model", None), logical=(hn * vd, d)),
+    }
+    if cfg.q_lora:
+        spec["wq_a"] = P((d, cfg.q_lora), (None, None))
+        spec["q_a_norm"] = P((cfg.q_lora,), (None,), "ones")
+        spec["wq_b"] = P((cfg.q_lora, h * (nope + rpe)), (None, "model"),
+                         logical=(cfg.q_lora, hn * (nope + rpe)))
+    else:
+        spec["wq"] = P((d, h * (nope + rpe)), (None, "model"),
+                       logical=(d, hn * (nope + rpe)))
+    return spec
+
+
+def _mla_q(p, xg, cfg: ModelConfig, positions):
+    """xg (B, T, d) -> q_nope (B, H, T, nope), q_rope (B, H, T, rope)."""
+    B, T, _ = xg.shape
+    nope, rpe = cfg.nope_head_dim, cfg.rope_head_dim
+    if cfg.q_lora:
+        qa = rms_head_norm(p["q_a_norm"], matmul(xg, p["wq_a"]))
+        q = matmul(qa, p["wq_b"])
+    else:
+        q = matmul(xg, p["wq"])
+    q = q.reshape(B, T, -1, nope + rpe).transpose(1, 2)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    return q_nope, rope(q_rope, positions[:, None, :], cfg.rope_theta)
+
+
+def _mla_latent(p, xg, cfg: ModelConfig, positions):
+    """xg (B, T, d) -> c_kv (B, T, kv_lora), k_rope (B, T, rope)."""
+    kv_a = matmul(xg, p["wkv_a"])                   # (B, T, lora + rpe)
+    c_kv = rms_head_norm(p["kv_a_norm"], kv_a[..., :cfg.kv_lora])
+    k_rope = rope(kv_a[..., cfg.kv_lora:][:, None], positions[:, None, :],
+                  cfg.rope_theta)[:, 0]
+    return c_kv, k_rope
+
+
+# query rows per blockwise chunk in MLA's prefill: 128 heads of f32 scores
+# at the default 1 024 made deepseek-v2's 8 x 1 536 prefill peak at 74.7 GB
+# on one card.  Each query row still meets the same 1 024-key chunks in the
+# same order, so the numbers do not change
+MLA_Q_CHUNK = 512
+
+
+def mla_apply(p, x_sp, ctx: MeshCtx, cfg: ModelConfig, *, return_latent=False):
+    """Prefill / train: expand the latent to per-head K/V (key width
+    nope + rope, value width v) and attend blockwise."""
+    xg = ag_seq(x_sp, ctx)
+    B, T, _ = xg.shape
+    nope, rpe, vd = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
+    positions = torch.arange(T, device=xg.device).expand(B, T)
+    q_nope, q_rope = _mla_q(p, xg, cfg, positions)
+    c_kv, k_rope = _mla_latent(p, xg, cfg, positions)
+    kvb = p["wkv_b"].reshape(cfg.kv_lora, -1, nope + vd)     # (lora, H, nope + vd)
+    kv = einsum("btl,lhe->bhte", c_kv, kvb)
+    k_nope, v = kv[..., :nope], kv[..., nope:]
+    Hl = k_nope.shape[1]
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, None].expand(B, Hl, T, rpe)], dim=-1)
+    ident = torch.arange(Hl, dtype=torch.int32, device=xg.device)
+    out = blockwise_attention(q, k, v, ident, causal=True, q_chunk=MLA_Q_CHUNK)
+    o = rs_seq(matmul(out.transpose(1, 2).reshape(B, T, -1), p["wo"]), ctx)
+    if return_latent:
+        return o, (c_kv, k_rope)
+    return o
+
+
+def mla_init_cache(cfg: ModelConfig, ctx: MeshCtx, batch: int, max_len: int, device=None):
+    """A zeroed latent cache of ``max_len`` positions."""
+    tc = max_len // ctx.model_size
+    return {
+        "c_kv": torch.zeros((batch, tc, cfg.kv_lora), dtype=torch.bfloat16, device=device),
+        "k_rope": torch.zeros((batch, tc, cfg.rope_head_dim), dtype=torch.bfloat16,
+                              device=device),
+        "len": 0,
+    }
+
+
+def mla_fill_cache(cache, c_kv, k_rope, ctx: MeshCtx):
+    """Write a prefill's latents into a zeroed cache, in place; positions
+    past the prompt stay zero (decode masks them)."""
+    tc = cache["c_kv"].shape[1]
+    t = c_kv.shape[1]
+    if t > tc:
+        raise ValueError(f"prefill of {t} positions into a cache of {tc}")
+    cache["c_kv"][:, :t] = c_kv.to(torch.bfloat16)
+    cache["k_rope"][:, :t] = k_rope.to(torch.bfloat16)
+    return {"c_kv": cache["c_kv"], "k_rope": cache["k_rope"], "len": t}
+
+
+def mla_decode(p, x, cache, ctx: MeshCtx, cfg: ModelConfig):
+    """Absorbed one-token decode against the latent cache.  x: (B, 1, d).
+
+    ``q_nope`` is absorbed into the latent through ``wkv_b[..., :nope]``;
+    scores are taken against ``c_kv`` and ``k_rope``, and the attended
+    latent is expanded through ``wkv_b[..., nope:]`` before ``wo``.  The
+    new latents go into slot ``len`` of ``cache`` in place.  Raises
+    ``ValueError`` when the cache is full, where the reference writes at
+    ``len`` modulo the cache's length, over its oldest position."""
+    B = x.shape[0]
+    nope, rpe, vd, lora = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim, cfg.kv_lora
+    pos = cache["len"]
+    tc = cache["c_kv"].shape[1]
+    if pos >= tc:
+        raise ValueError(f"latent cache full: position {pos} of a {tc}-position cache")
+    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    q_nope, q_rope = _mla_q(p, x, cfg, positions)             # (B, H, 1, ·)
+    c_new, kr_new = _mla_latent(p, x, cfg, positions)
+
+    kvb = p["wkv_b"].reshape(lora, -1, nope + vd)
+    wb_k, wb_v = kvb[..., :nope], kvb[..., nope:]              # (lora, H, ·)
+    q_lat = einsum("bhqe,lhe->bhql", q_nope, wb_k)             # (B, H, 1, lora)
+
+    c_c, r_c = cache["c_kv"], cache["k_rope"]
+    c_c[:, pos:pos + 1] = c_new.to(torch.bfloat16)
+    r_c[:, pos:pos + 1] = kr_new.to(torch.bfloat16)
+
+    scale = 1.0 / np.sqrt(nope + rpe)
+    s = (einsum("bhql,btl->bhqt", q_lat, c_c)
+         + einsum("bhqr,btr->bhqt", q_rope, r_c)).float() * scale
+    mask = torch.arange(tc, device=x.device) <= pos
+    s = torch.where(mask[None, None, None], s, -1e30)
+    m = s.amax(-1)
+    pw = torch.exp(s - m[..., None])
+    l = pw.sum(-1)
+    num = einsum("bhqt,btl->bhql", pw.to(c_c.dtype), c_c).float()
+    out_lat = combine_partials(num, m, l, ctx)                 # (B, H, 1, lora)
+
+    H = out_lat.shape[1]
+    v_out = einsum("bhql,lhe->bhqe", out_lat, wb_v)            # (B, H, 1, vd)
+    o = matmul(v_out.transpose(1, 2).reshape(B, 1, H * vd), p["wo"])
+    return o, {"c_kv": c_c, "k_rope": r_c, "len": pos + 1}

@@ -10,17 +10,20 @@ that layer's tree, a group of several holds ``l0``, ``l1``, ….
 
 Families served so far: ``dense`` and ``vlm`` (one stacked group of
 ``attn`` blocks), ``hybrid`` (stacked periods of ``rglru`` and
-``attn_window`` blocks, then one unscanned group a remaining layer) and
-``ssm`` (one stacked group of ``ssm`` blocks).  ``layer_plan`` raises for
-the others until their slices (ROADMAP Queue A): moe (MLA + MoE), encdec.
+``attn_window`` blocks, then one unscanned group a remaining layer),
+``ssm`` (one stacked group of ``ssm`` blocks) and ``moe`` (an unscanned
+group of ``n_dense_layers`` ``mla_dense`` blocks, then a stacked group of
+``mla_moe`` blocks).  ``layer_plan`` raises for encdec until its slice
+(ROADMAP Queue A).  ``forward`` returns the hidden states only; the MoE
+blocks' aux loss stays reachable through ``ffn.moe_apply``.
 """
 from __future__ import annotations
 
 import torch
 
-from .attention import gqa_apply, gqa_spec
+from .attention import gqa_apply, gqa_spec, mla_apply, mla_spec
 from .config import ModelConfig
-from .ffn import mlp_apply, mlp_spec
+from .ffn import mlp_apply, mlp_spec, moe_apply, moe_spec
 from .layers import MeshCtx, apply_norm, matmul, norm_spec, pad_to
 from .rglru import rglru_apply, rglru_spec
 from .spec import P, stack_layers, tree_map
@@ -93,6 +96,12 @@ def block_spec(cfg: ModelConfig, ctx: MeshCtx, kind: str) -> dict:
     if kind in ("attn", "attn_window"):
         return {"ln1": norm_spec(cfg), "attn": gqa_spec(cfg, ctx), "ln2": norm_spec(cfg),
                 "mlp": mlp_spec(cfg)}
+    if kind == "mla_dense":
+        return {"ln1": norm_spec(cfg), "attn": mla_spec(cfg, ctx), "ln2": norm_spec(cfg),
+                "mlp": mlp_spec(cfg)}
+    if kind == "mla_moe":
+        return {"ln1": norm_spec(cfg), "attn": mla_spec(cfg, ctx), "ln2": norm_spec(cfg),
+                "moe": moe_spec(cfg, ctx)}
     if kind == "ssm":
         return {"ln1": norm_spec(cfg), "ssm": ssm_spec(cfg, ctx)}
     if kind == "rglru":
@@ -110,6 +119,15 @@ def make_block_fn(cfg: ModelConfig, ctx: MeshCtx, kind: str, *, causal: bool = T
                           window=w)
         return x + mlp_apply(p["mlp"], apply_norm(p["ln2"], x, cfg), ctx, cfg)
 
+    def mla_dense_block(p, x):
+        x = x + mla_apply(p["attn"], apply_norm(p["ln1"], x, cfg), ctx, cfg)
+        return x + mlp_apply(p["mlp"], apply_norm(p["ln2"], x, cfg), ctx, cfg)
+
+    def mla_moe_block(p, x):
+        x = x + mla_apply(p["attn"], apply_norm(p["ln1"], x, cfg), ctx, cfg)
+        y, _aux = moe_apply(p["moe"], apply_norm(p["ln2"], x, cfg), ctx, cfg, 1)
+        return x + y
+
     def ssm_block(p, x):
         return x + ssm_apply(p["ssm"], apply_norm(p["ln1"], x, cfg), ctx, cfg)
 
@@ -117,8 +135,8 @@ def make_block_fn(cfg: ModelConfig, ctx: MeshCtx, kind: str, *, causal: bool = T
         x = x + rglru_apply(p["rec"], apply_norm(p["ln1"], x, cfg), ctx, cfg)
         return x + mlp_apply(p["mlp"], apply_norm(p["ln2"], x, cfg), ctx, cfg)
 
-    table = {"attn": attn_block, "attn_window": attn_block, "ssm": ssm_block,
-             "rglru": rglru_block}
+    table = {"attn": attn_block, "attn_window": attn_block, "mla_dense": mla_dense_block,
+             "mla_moe": mla_moe_block, "ssm": ssm_block, "rglru": rglru_block}
     if kind not in table:
         raise NotImplementedError(f"block kind {kind!r}: a later slice (ROADMAP Queue A)")
     return table[kind]
@@ -138,6 +156,9 @@ def layer_plan(cfg: ModelConfig):
     """[(kind, count, scanned)] — scanned groups share stacked params."""
     if cfg.family in ("dense", "vlm"):
         return [("attn", cfg.n_layers, True)]
+    if cfg.family == "moe":
+        return [("mla_dense", cfg.n_dense_layers, False),
+                ("mla_moe", cfg.n_layers - cfg.n_dense_layers, True)]
     if cfg.family == "ssm":
         return [("ssm", cfg.n_layers, True)]
     if cfg.family == "hybrid":

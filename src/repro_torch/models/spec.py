@@ -55,6 +55,14 @@ def abstract_params(tree):
     return tree_map_p(lambda p: torch.empty(p.shape, dtype=p.dtype, device="meta"), tree)
 
 
+# a normal leaf of more elements than this is drawn in slices of at most
+# SLICE_ELEMS float32 values, each scaled in place and cast into the leaf:
+# drawn whole, deepseek-v2's stacked expert leaf (7.55e9 elements at 6 MoE
+# layers) would need two float32 copies, 60 GB
+SLICE_ABOVE = 1 << 30
+SLICE_ELEMS = 1 << 28
+
+
 def init_params(tree, generator: torch.Generator, device=None):
     """Materialize parameters on ``device`` (``None``: the CUDA card, and
     raises without one; ``"cpu"`` when asked), drawn from ``generator``,
@@ -63,7 +71,8 @@ def init_params(tree, generator: torch.Generator, device=None):
     Each normal leaf is drawn in float32 at its `logical` shape, scaled by
     `scale` or 1/sqrt(fan_in), cast to its dtype and zero-padded to `shape`
     (the law of the reference's ``init_params``; the random stream is
-    torch's, not JAX's)."""
+    torch's, not JAX's).  A leaf above ``SLICE_ABOVE`` elements is drawn
+    slice by slice in the same law."""
     device = resolve_device(device)
     if generator.device.type != device.type:
         raise ValueError(f"a generator on {generator.device} cannot draw parameters on "
@@ -77,8 +86,16 @@ def init_params(tree, generator: torch.Generator, device=None):
         draw = p.logical or p.shape
         fan_in = draw[-2] if len(draw) >= 2 else draw[-1]
         scale = p.scale if p.scale is not None else 1.0 / np.sqrt(max(1, fan_in))
-        x = torch.randn(draw, generator=generator, dtype=torch.float32, device=device)
-        x = (x * scale).to(p.dtype)
+        if np.prod(draw) > SLICE_ABOVE:
+            x = torch.empty(draw, dtype=p.dtype, device=device)
+            flat = x.view(-1)
+            for lo in range(0, flat.numel(), SLICE_ELEMS):
+                part = torch.randn(min(SLICE_ELEMS, flat.numel() - lo), generator=generator,
+                                   dtype=torch.float32, device=device)
+                flat[lo:lo + part.numel()] = part.mul_(scale)
+        else:
+            x = torch.randn(draw, generator=generator, dtype=torch.float32, device=device)
+            x = (x * scale).to(p.dtype)
         if p.logical is not None and p.logical != p.shape:
             pad = []
             for a, b in reversed(list(zip(p.shape, p.logical))):

@@ -13,6 +13,10 @@ group's layers where the group is scanned.  Per block kind:
 
 * ``attn``: ``"k"``, ``"v"``, KV caches of ``max_len`` positions (bfloat16);
 * ``attn_window``: ``"k"``, ``"v"``, rings of ``window`` slots (bfloat16);
+* ``mla_dense``, ``mla_moe``: ``"c_kv"`` (B, max_len, kv_lora) and
+  ``"k_rope"`` (B, max_len, rope_head_dim), MLA's latent caches
+  (bfloat16): per position 576 values at deepseek-v2's widths, where
+  expanded per-head K/V would hold 128 · (192 + 128);
 * ``rglru``: the state ``"h"`` (float32) and ``"conv"``, the last 3
   pre-conv inputs (bfloat16);
 * ``ssm``: the state ``"ssd"`` (float32) and ``"conv": {"x", "bc"}``, the
@@ -27,8 +31,8 @@ the ``ssm`` conv rings stay float32, as the reference's ``ssm_apply``
 leaves them.  ``decode`` writes into the caches it is given: do not reuse
 them after the call.
 
-Block kinds of later slices (MLA, MoE, encoder-decoder) raise (ROADMAP
-Queue A).
+The MoE blocks' aux loss is discarded, as the reference's serving does.
+The encoder-decoder block kind raises until its slice (ROADMAP Queue A).
 """
 from __future__ import annotations
 
@@ -44,6 +48,10 @@ from repro_torch.models.attention import (
     gqa_init_cache,
     local_decode,
     local_fill_cache,
+    mla_apply,
+    mla_decode,
+    mla_fill_cache,
+    mla_init_cache,
 )
 from repro_torch.models.backbone import (
     embed_tokens,
@@ -53,7 +61,7 @@ from repro_torch.models.backbone import (
     layer_plan,
 )
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.ffn import mlp_apply, mlp_decode
+from repro_torch.models.ffn import mlp_apply, mlp_decode, moe_apply, moe_decode
 from repro_torch.models.layers import MeshCtx, apply_norm
 from repro_torch.models.rglru import rglru_apply, rglru_decode
 from repro_torch.models.spec import P, abstract_params, stack_layers
@@ -81,6 +89,13 @@ def _kind_cache_spec(cfg: ModelConfig, kind: str, ba, batch: int, max_len: int) 
         return {
             "k": P(shape, (ba, None, None, None), "zeros", dtype=bf16),
             "v": P(shape, (ba, None, None, None), "zeros", dtype=bf16),
+            "len": P((), (), "zeros", dtype=i32),
+        }
+    if kind in ("mla_dense", "mla_moe"):
+        return {
+            "c_kv": P((batch, max_len, cfg.kv_lora), (ba, "model", None), "zeros", dtype=bf16),
+            "k_rope": P((batch, max_len, cfg.rope_head_dim), (ba, "model", None), "zeros",
+                        dtype=bf16),
             "len": P((), (), "zeros", dtype=i32),
         }
     if kind == "ssm":
@@ -148,6 +163,22 @@ def _prefill_block(cfg, ctx, kind, batch, max_len):
         x = x + mlp_apply(p["mlp"], apply_norm(p["ln2"], x, cfg), ctx, cfg)
         return x, local_fill_cache(None, k, v, cfg)
 
+    def mla_dense(p, x):
+        h, (c_kv, k_rope) = mla_apply(p["attn"], apply_norm(p["ln1"], x, cfg), ctx, cfg,
+                                      return_latent=True)
+        x = x + h
+        x = x + mlp_apply(p["mlp"], apply_norm(p["ln2"], x, cfg), ctx, cfg)
+        init = mla_init_cache(cfg, ctx, batch, max_len, device=x.device)
+        return x, mla_fill_cache(init, c_kv, k_rope, ctx)
+
+    def mla_moe(p, x):
+        h, (c_kv, k_rope) = mla_apply(p["attn"], apply_norm(p["ln1"], x, cfg), ctx, cfg,
+                                      return_latent=True)
+        x = x + h
+        y, _ = moe_apply(p["moe"], apply_norm(p["ln2"], x, cfg), ctx, cfg, 1)
+        init = mla_init_cache(cfg, ctx, batch, max_len, device=x.device)
+        return x + y, mla_fill_cache(init, c_kv, k_rope, ctx)
+
     def ssm(p, x):
         h, state = ssm_apply(p["ssm"], apply_norm(p["ln1"], x, cfg), ctx, cfg,
                              return_state=True)
@@ -170,7 +201,8 @@ def _prefill_block(cfg, ctx, kind, batch, max_len):
             return x, cc
 
         return period
-    table = {"attn": attn, "attn_window": attn_window, "ssm": ssm, "rglru": rglru}
+    table = {"attn": attn, "attn_window": attn_window, "mla_dense": mla_dense,
+             "mla_moe": mla_moe, "ssm": ssm, "rglru": rglru}
     if kind not in table:
         raise NotImplementedError(f"{kind!r} prefill: a later slice (ROADMAP Queue A)")
     return table[kind]
@@ -189,6 +221,18 @@ def _decode_block(cfg, ctx, kind):
         x = x + h
         x = x + mlp_decode(p["mlp"], apply_norm(p["ln2"], x, cfg), ctx, cfg)
         return x, c2
+
+    def mla_dense(p, x, c):
+        h, c2 = mla_decode(p["attn"], apply_norm(p["ln1"], x, cfg), c, ctx, cfg)
+        x = x + h
+        x = x + mlp_decode(p["mlp"], apply_norm(p["ln2"], x, cfg), ctx, cfg)
+        return x, c2
+
+    def mla_moe(p, x, c):
+        h, c2 = mla_decode(p["attn"], apply_norm(p["ln1"], x, cfg), c, ctx, cfg)
+        x = x + h
+        y, _ = moe_decode(p["moe"], apply_norm(p["ln2"], x, cfg), ctx, cfg, 1)
+        return x + y, c2
 
     def ssm(p, x, c):
         h, c2 = ssm_decode(p["ssm"], apply_norm(p["ln1"], x, cfg), c, ctx, cfg)
@@ -210,7 +254,8 @@ def _decode_block(cfg, ctx, kind):
             return x, cc
 
         return period
-    table = {"attn": attn, "attn_window": attn_window, "ssm": ssm, "rglru": rglru}
+    table = {"attn": attn, "attn_window": attn_window, "mla_dense": mla_dense,
+             "mla_moe": mla_moe, "ssm": ssm, "rglru": rglru}
     if kind not in table:
         raise NotImplementedError(f"{kind!r} decode: a later slice (ROADMAP Queue A)")
     return table[kind]

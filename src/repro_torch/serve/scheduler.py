@@ -6,11 +6,13 @@ Underfull batches are padded with a copy of the first request (left out of
 the results).
 
 One difference from the reference (``repro.serve.scheduler``): where the
-model's layer plan holds a KV cache of ``max_len`` positions (``attn``
-blocks), ``run`` refuses a request whose decode would write past it,
+model's layer plan holds a cache of ``max_len`` positions (``attn`` blocks'
+KV caches, ``mla_dense`` and ``mla_moe`` blocks' latent caches), ``run``
+refuses a request whose decode would write past it,
 ``len(prompt) + max_new - 1 > max_len``.  The reference checks only
-``len(prompt) >= max_len``, and its decode then clamps the write index and
-overwrites the cache's last slot, so it returns other tokens.  A plan of
+``len(prompt) >= max_len``, and its decode then writes each position past
+the end at that position modulo ``max_len``, over the oldest ones, so it
+returns other tokens.  A plan of
 recurrent and sliding-window blocks (``hybrid``, ``ssm``) keeps caches of a
 fixed size that ``max_len`` does not bound: a state, conv rings and KV
 rings of ``window`` slots.  There only the reference's check applies.
@@ -70,8 +72,9 @@ class BatchScheduler:
         # one bundle for every prompt length: the reference keeps one per
         # length because jit specializes on shape, the port's steps do not
         self._engine = make_serve_fns(cfg, mesh, batch=batch, max_len=max_len)
-        # a KV cache of max_len positions bounds prompt + decoded positions
-        self._bounded = any(kind == "attn" for kind, _, _ in layer_plan(cfg))
+        # a cache of max_len positions bounds prompt + decoded positions
+        self._bounded = any(kind in ("attn", "mla_dense", "mla_moe")
+                            for kind, _, _ in layer_plan(cfg))
 
     def run(self, params, requests: list[Request]) -> tuple[dict, ServeStats]:
         """Serve all requests; returns ({rid: Completion}, stats)."""

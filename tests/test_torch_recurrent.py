@@ -627,3 +627,40 @@ def test_short_prompts_where_the_reference_fails(jmesh, cpu_mesh):
             got.append(tok.numpy())
         want = logits[:, n - 1:]
         check_tokens(np.stack(got, 1), want.argmax(-1), want, "float32")
+
+
+def test_ssd_short_prompts_where_the_reference_fails(jmesh, cpu_mesh):
+    """mamba2 over 1 and 2 tokens.  The reference's decode cache takes the
+    last ``ssm_conv - 1`` = 3 raw conv inputs with ``dynamic_slice_in_dim``
+    (``src/repro/models/ssm.py:165-168``), which cannot take 3 rows of a
+    shorter prompt: its ``make_serve_fns(...).prefill`` raises
+    ``TypeError``.  The port zero-pads the rows the causal conv's own
+    padding holds (``ssm._tail``): its ``ssm_apply`` equals the first T
+    positions of a 5-token run, and a prefill of 1 or 2 tokens then decode
+    equals the port's no-cache forward on every checked token."""
+    cfg, pcfg, (jp, pp) = _ssm_params(jmesh, "float32", seed=52)
+    x5 = normal(70, 2, 5, cfg.d_model)
+    rctx = ref_bb.MeshCtx(model_size=1)
+    full = ref_ssm.ssm_apply(jp, j(x5), rctx, cfg)
+    for n in (1, 2):
+        close(port_ssm.ssm_apply(pp, t(x5[:, :n]), PCTX, pcfg), full[:, :n], **F32_TOL)
+
+    arrays = draw_tree(ref_bb.model_spec(cfg, jmesh[1]), np.random.default_rng(71))
+    jmodel, model_p = both(arrays, "float32")
+    seq = np.random.default_rng(72).integers(0, cfg.vocab, size=(2, 6)).astype(np.int32)
+    ref = ref_engine.make_serve_fns(cfg, jmesh[0], batch=2, max_len=16)
+    for n in (1, 2):
+        with pytest.raises(TypeError, match="slice_sizes must be less than or equal"):
+            ref.prefill(jmodel, {"tokens": jnp.asarray(seq[:, :n])})
+    logits = port_forward_logits(model_p, pcfg, seq)
+    for n in (1, 2):
+        sv = port_engine.make_serve_fns(pcfg, cpu_mesh, batch=2, max_len=16)
+        caches, tok = sv.prefill(model_p, {"tokens": torch.from_numpy(seq[:, :n])})
+        assert all(tuple(c.shape[-2:-1]) == (cfg.ssm_conv - 1,)
+                   for path, c in leaves(caches) if "conv" in path)
+        got = [tok.numpy()]
+        for s in range(n, 6):
+            tok, caches = sv.decode(model_p, caches, torch.from_numpy(seq[:, s:s + 1]))
+            got.append(tok.numpy())
+        want = logits[:, n - 1:]
+        check_tokens(np.stack(got, 1), want.argmax(-1), want, "float32")

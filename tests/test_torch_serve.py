@@ -307,7 +307,7 @@ def test_recurrent_plan_serves_past_max_len(jmesh, cpu_mesh, arch):
 
 
 def test_serving_other_families_raises(cpu_mesh):
-    for arch in ("deepseek-v2-236b", "deepseek-v3-671b", "whisper-tiny"):
+    for arch in ("whisper-tiny",):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             port_engine.make_serve_fns(port_configs.get_smoke_config(arch), cpu_mesh,
                                        batch=1, max_len=8)

@@ -4,16 +4,24 @@ card, then the calibration behind each row's token check.
     python3 tools/model_serve_probe.py [--arch NAME ...] [--runs N] [--seed S] [--out PATH]
 
 For each ``--arch`` (a row of ``chip_smoke.MODEL_ROWS``; default
-qwen2-1.5b) runs ``chip_smoke.model_serve_row`` ``--runs`` times in one
-process (the spread of its decode and prefill times), then serves each
-prompt-length bucket of that row's traffic through ``make_serve_fns`` and
-holds the logits of every decode step against the no-cache ``forward``'s
-at the same position: the largest and mean logit error, how often the
-argmax agrees, and the forward's top-2 margins, which the row's
-``margin_tol`` is read against (in bfloat16, and for a row checked in
-float32 also with its weights upcast, beside how far a bfloat16 forward
-lies from the float32 one).  Prints one JSON line per run and one
-``calibration`` line per row.
+qwen2-1.5b) first serves each prompt-length bucket of that row's traffic
+through ``make_serve_fns`` at full width (at the row's depth) and holds
+the logits of every decode step against the no-cache ``forward``'s at the
+same position: the largest and mean logit error, how often the argmax
+agrees, and the forward's top-2 margins, which the row's ``margin_tol`` is
+read against (in bfloat16, and for a row checked on a float32 model of
+``check_float32_layers`` layers also that model, drawn after the bfloat16
+one is freed; at the row's own depth, how far a bfloat16 forward lies from
+the float32 one of the same weights).  For an MoE model it also reads, per
+MoE layer, how often a decode step's top-k expert set differs from the
+forward's at the same position (the router wrapped as the greedy token
+is): the decode-to-forward error where no layer's set differs, the
+forward's gap between its k-th and (k+1)-th router probability in the
+first layer whose set differs (which ``chip_smoke.ROUTE_GAP_TOL`` is
+read against), and the share of positions checked at each gap tolerance.
+Then it runs ``chip_smoke.model_serve_row`` ``--runs`` times in one
+process (the spread of its decode and prefill times).  Prints one
+``calibration`` line per row, then one JSON line per run.
 """
 import argparse
 import sys
@@ -29,6 +37,7 @@ import chip_smoke as cs  # noqa: E402
 import repro_torch.serve.engine as engine  # noqa: E402
 
 THRESHOLDS = (0.0, 0.015625, 0.03125, 0.0625, 0.125, 0.25)
+GAP_THRESHOLDS = (1e-6, 3e-6, 1e-5, 3e-5, 1e-4, 3e-4, 1e-3)
 ROWS = {row.arch: row for row in cs.MODEL_ROWS}
 
 
@@ -43,23 +52,60 @@ def calibrate_bucket(params, cfg, mesh, ctx, row, plen: int, n: int, rng) -> dic
 
     engine.greedy_token = recording_greedy
     try:
-        sv = cs.make_serve_fns(cfg, mesh, batch=n, max_len=row.max_len)
-        caches, tok = sv.prefill(params, {"tokens": prompts})
-        gen = [tok]
-        for _ in range(cs.SERVE_MAX_NEW - 1):
-            tok, caches = sv.decode(params, caches, tok[:, None])
-            gen.append(tok)
+        with cs.recorded_routes() as served_routes:
+            sv = cs.make_serve_fns(cfg, mesh, batch=n, max_len=row.max_len)
+            caches, tok = sv.prefill(params, {"tokens": prompts})
+            gen = [tok]
+            for _ in range(cs.SERVE_MAX_NEW - 1):
+                tok, caches = sv.decode(params, caches, tok[:, None])
+                gen.append(tok)
     finally:
         engine.greedy_token = greedy
     del caches
     gen = torch.stack(gen, 1)                                   # (n, max_new)
     served = torch.stack(recorded, 1)                           # (n, max_new, V)
     seq = torch.cat([prompts, gen[:, :-1]], 1)
-    ref = cs.vocab_logits(params["embed"], cs.forward(params, seq, ctx, cfg)[:, plen - 1:],
-                          ctx, cfg)
+    with cs.recorded_routes() as forward_routes:
+        x = cs.forward(params, seq, ctx, cfg)
+    ref = cs.vocab_logits(params["embed"], x[:, plen - 1:], ctx, cfg)
     err = (served - ref).abs()
     top2 = ref.topk(2, dim=-1).values
-    margin = (top2[..., 0] - top2[..., 1]).flatten().cpu()
+    gap = top2[..., 0] - top2[..., 1]                           # (n, max_new)
+    margin = gap.flatten().cpu()
+    same = served.argmax(-1) == ref.argmax(-1)
+    routes = {}
+    if forward_routes:
+        n_moe = len(forward_routes)
+        steps = cs.SERVE_MAX_NEW - 1
+        sets, gaps = cs.forward_routes(forward_routes, n, plen - 1, steps + 1)
+        differs, first_gap = cs.route_flips(sets, gaps,
+                                            cs.chunk_routes(served_routes, n_moe, steps))
+        kept = ~differs.any(-1)                                 # (n, max_new): no layer flipped
+        flip_gap = first_gap[~kept].cpu()
+        gap_q = torch.tensor([0.01, 0.05, 0.1, 0.5])
+        routes = {"route_set_differs_by_moe_layer": [
+                      float(v) for v in differs.float().mean((0, 1))],
+                  "first_flip_gap": {
+                      "flips": int(flip_gap.numel()),
+                      "max": float(flip_gap.max()) if flip_gap.numel() else None,
+                      "sorted_top": [float(v) for v in flip_gap.sort(descending=True).values[:8]]},
+                  "forward_gap_quantiles": [float(v) for v in
+                                            torch.quantile(gaps.flatten().cpu(), gap_q)],
+                  "at_gap_tol": {str(t): {
+                      "checked_share": float(((gap > row.margin_tol)
+                                              & ~(first_gap <= t)).float().mean()),
+                      "checked_argmax_differs": int(((gap > row.margin_tol)
+                                                     & ~(first_gap <= t) & ~same).sum()),
+                      "flips_past_tol": int((~kept & (first_gap > t)).sum())}
+                      for t in GAP_THRESHOLDS},
+                  "no_route_flip": {
+                      "share": float(kept.float().mean()),
+                      "max_abs_logit_err": float(err.amax(-1)[kept].max()),
+                      "argmax_equal": float(same[kept].float().mean()),
+                      "frac_margin_gt": {str(t): float(((gap > t) & kept).float().mean())
+                                         for t in THRESHOLDS},
+                      "argmax_differs_at_margin_gt": {
+                          str(t): int(((gap > t) & kept & ~same).sum()) for t in THRESHOLDS}}}
     return {
         "prompts": f"{n} x {plen}, {cs.SERVE_MAX_NEW} tokens each",
         "positions": int(margin.numel()),
@@ -68,10 +114,11 @@ def calibrate_bucket(params, cfg, mesh, ctx, row, plen: int, n: int, rng) -> dic
         "p999_err": float(err.flatten().topk(err.numel() // 1000 + 1).values[-1]),
         "top_logit_err_max": float((served.max(-1).values - top2[..., 0]).abs().max()),
         "top_logit_max": float(top2[..., 0].max()),
-        "argmax_equal": float((served.argmax(-1) == ref.argmax(-1)).float().mean()),
+        "argmax_equal": float(same.float().mean()),
         "margin_quantiles": [float(q) for q in
                              torch.quantile(margin, torch.tensor([0.1, 0.25, 0.5, 0.75]))],
         "frac_margin_gt": {str(t): float((margin > t).float().mean()) for t in THRESHOLDS},
+        **routes,
     }
 
 
@@ -91,29 +138,41 @@ def bfloat16_drift(params, params32, cfg, ctx, prompts) -> dict:
 def calibration(row, seed: int) -> dict:
     """Decode-to-forward logit error of ``row``'s model at full width, one
     batch of fresh prompts a bucket (its real request count), in bfloat16
-    and, for a row checked in float32, with the same weights upcast."""
-    cfg = cs.get_config(row.arch)
+    and, for a row checked in float32, in the float32 model of
+    ``row.check_float32_layers`` layers."""
+    cfg = cs.row_config(row)
     mesh = cs.make_local_mesh()
     ctx = cs.mesh_ctx(mesh)
     params = cs.init_params(cs.model_spec(cfg, ctx),
                             torch.Generator(device=mesh.device).manual_seed(seed), mesh.device)
-    out = {"arch": row.arch, "config": f"{row.arch} full width", "margin_tol": row.margin_tol,
-           "checked_in": "float32" if row.check_float32 else "bfloat16"}
-    for dtype in ("bfloat16", "float32") if row.check_float32 else ("bfloat16",):
-        p = params if dtype == "bfloat16" else cs.tree_map(lambda t: t.float(), params)
-        rng = np.random.default_rng(seed)
-        out[dtype] = {plen: calibrate_bucket(p, cfg, mesh, ctx, row, plen, n, rng)
-                      for plen, n in row.buckets}
-        if dtype == "float32":
-            rng = np.random.default_rng(seed + 1)
-            out["bfloat16_forward_vs_float32"] = {
-                plen: bfloat16_drift(params, p, cfg, ctx, torch.tensor(
-                    rng.integers(0, cfg.vocab, (n, plen)), dtype=torch.int32,
-                    device=mesh.device))
-                for plen, n in row.buckets}
-        del p
+    out = {"arch": row.arch, "config": f"{row.arch} full width, {cfg.n_layers} layers",
+           "margin_tol": row.margin_tol, "route_gap_tol": cs.ROUTE_GAP_TOL,
+           "checked_in": "float32" if row.check_float32_layers else "bfloat16"}
+    rng = np.random.default_rng(seed)
+    out["bfloat16"] = {plen: calibrate_bucket(params, cfg, mesh, ctx, row, plen, n, rng)
+                       for plen, n in row.buckets}
+    if row.check_float32_layers == cfg.n_layers:        # the same weights in float32
+        params32 = cs.tree_map(lambda t: t.float(), params)
+        rng = np.random.default_rng(seed + 1)
+        out["bfloat16_forward_vs_float32"] = {
+            plen: bfloat16_drift(params, params32, cfg, ctx, torch.tensor(
+                rng.integers(0, cfg.vocab, (n, plen)), dtype=torch.int32, device=mesh.device))
+            for plen, n in row.buckets}
+        del params32
     del params
     torch.cuda.empty_cache()
+    if row.check_float32_layers:
+        cfg = cs.row_config(row, row.check_float32_layers)
+        params = cs.init_params(cs.model_spec(cfg, ctx),
+                                torch.Generator(device=mesh.device).manual_seed(seed),
+                                mesh.device)
+        params = cs.tree_map(lambda t: t.float(), params)
+        rng = np.random.default_rng(seed)
+        out[f"float32_{cfg.n_layers}_layers"] = {
+            plen: calibrate_bucket(params, cfg, mesh, ctx, row, plen, n, rng)
+            for plen, n in row.buckets}
+        del params
+        torch.cuda.empty_cache()
     return out
 
 
@@ -134,13 +193,15 @@ def main() -> None:
     smi = cs.sh(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
     for arch in args.arch:
         row = ROWS[arch]
+        t0 = time.perf_counter()
+        cs.emit({"phase": "model_serve", "step": "calibration", "gpu": smi,
+                 **calibration(row, args.seed),
+                 "seconds": time.perf_counter() - t0})
         for run in range(args.runs):
             t0 = time.perf_counter()
             cs.emit({"probe_run": run, "arch": arch})
             cs.model_serve_row(args, smi, row)
             cs.emit({"probe_run": run, "arch": arch, "seconds": time.perf_counter() - t0})
-        cs.emit({"phase": "model_serve", "step": "calibration", "gpu": smi,
-                 **calibration(row, args.seed)})
 
 
 if __name__ == "__main__":
