@@ -41,26 +41,35 @@ just before it and read just after:
 * ``model_serve`` — the model scaffold's serving path, which runs no PBS
   kernel (the launch counts must read 0), for each row of ``MODEL_ROWS``:
   qwen2-1.5b (dense GQA), recurrentgemma-2b (RG-LRU with sliding-window
-  attention), mamba2-780m (SSD) and deepseek-v2-236b (MLA with absorbed
+  attention), mamba2-780m (SSD), deepseek-v2-236b (MLA with absorbed
   decode over a latent cache, routed experts gathered per expert; 7 of
-  its 60 layers, the most one card holds beside the traffic).  First the
+  its 60 layers, the most one card holds beside the traffic),
+  whisper-tiny (encoder-decoder: 1 500 stub frames encoded once a
+  prefill, cross attention over their cached K/V) and pixtral-12b (40
+  layers; a 1 024-position stub image patch frontend).  First the
   model at smoke width served through ``serve.scheduler.BatchScheduler``
   on the CPU and on the card from one float32 weight set (equal
   completions, last-position logits within ``SMOKE_LOGIT_ATOL``); then at
   full width and depth (deepseek-v2's cut) in bfloat16,
   weights from a seeded ``torch.Generator``, serving 20 requests in three
-  prompt-length buckets (32 new tokens each, batch 8; qwen2 8 x 128,
+  prompt-length buckets, one ``run`` a bucket with that bucket's frames or
+  patches (``run(extras=)``; 32 new tokens each, batch 8; qwen2 8 x 128,
   8 x 512, 4 x 1536 at ``max_len`` 2048; recurrentgemma 8 x 128, 8 x 512,
   4 x 3000, past its 2048-slot window; mamba2 8 x 128, 8 x 1000, a ragged
-  chunk, 4 x 2048; deepseek-v2 as qwen2), every generated token held
-  against the no-cache ``models.backbone.forward`` (equal wherever the forward's top-2 margin
+  chunk, 4 x 2048; deepseek-v2 as qwen2; whisper 8 x 4, 8 x 132, 4 x 224
+  at ``max_len`` 448; pixtral 8 x 128 text, 8 x 1056 and 4 x 2048 after
+  an image, at ``max_len`` 3072), every generated token held
+  against the no-cache ``models.backbone.forward`` given the same frames
+  or patches (equal wherever the forward's top-2 margin
   exceeds the row's ``margin_tol``, at least half the positions checked;
   deepseek-v2's on a float32 model of 3 layers at full width, and only
   where every MoE layer routed the token as the forward did),
   and prefill and decode timed with CUDA events beside their bounds (bytes
   for a decode step, bf16 tensor operations for a prefill; for the MoE row
   the active parameters only, and the routed experts a decode step read,
-  counted from the router's top-k on the card).
+  counted from the router's top-k on the card; for whisper the encoder's
+  operations over its frames, and a decode step's cross cache without
+  the encoder's weights).
 
 Every result is compared with the package's own numpy oracle
 ``core.pbs.reconcile`` (per session, per tree leaf) and with the true set
@@ -2374,6 +2383,9 @@ class ModelRow:
     # freed first; at the row's own depth they are the row's weights)
     # against its float32 forward, not the bfloat16 run's
     check_float32_layers: int | None = None
+    # an encoder-decoder's frames a request (the scheduler's enc_len; other
+    # families read none)
+    enc_len: int = 32
 
 
 MODEL_ROWS = (
@@ -2423,6 +2435,33 @@ MODEL_ROWS = (
     ModelRow("deepseek-v2-236b", None, (8, 8, 12, 12, 12, 5), 64,
              ((128, 8), (512, 8), (1536, 4)), 2048, 0.125, 512, layers=7,
              check_float32_layers=3),
+    # whisper-tiny, all of it (4 encoder and 4 decoder layers, d 384): a 30 s
+    # window's 1 500 frames (standard normal at the encoder's input) and
+    # whisper's 448-token decoder context; the start-of-transcript prompt,
+    # 128 tokens of previous text, whisper's longest prompt.  Its tied
+    # logits are small (the top one near 2, a bfloat16 ulp 1/64): in
+    # bfloat16 decode and forward logits part by up to 0.0283, so a fair
+    # margin is 0.0625, which checks 47-49 % of positions (calibration on
+    # an H100).  Its check runs in float32 at its own 4 layers, on the same
+    # weights: the self and cross caches stay bfloat16, so decode and
+    # forward logits still part by up to 0.0140 and tokens only below
+    # 0.028: the margin is 1/32, which checks 71-80 %.
+    ModelRow("whisper-tiny", None, (8, 8, 12, 12, 12, 5), 64,
+             ((4, 8), (132, 8), (224, 4)), 448, 0.03125, 132, enc_len=1500,
+             check_float32_layers=4),
+    # pixtral-12b, all 40 layers: text-only turns, then one 512 x 512 image
+    # (1 024 patch positions, -1 at the prompt's start, their embeddings
+    # drawn at the token table's scale, 0.02) with a 32- or 1 024-token
+    # question; at smoke width 8 patch positions lead the 12- and
+    # 20-token prompts.  In bfloat16 decode and forward logits part by up
+    # to 0.164 over 40 layers (calibration on an H100), so a fair margin
+    # (0.375) checks under half the positions.  Its check runs in float32
+    # at all 40 layers on the same weights (49 GB, the bfloat16 ones freed
+    # first), where they part by at most 0.0446 and tokens only below
+    # 0.089: the margin is 0.125, which checks 68-85 %.
+    ModelRow("pixtral-12b", None, (12, 12, 20, 20, 20, 5), 64,
+             ((128, 8), (1056, 8), (2048, 4)), 3072, 0.125, 1056,
+             check_float32_layers=40),
 )
 # MoE rows: a position is left out of the token check where a layer's
 # decode routed it to another top-k expert set than the forward did and, in
@@ -2442,6 +2481,7 @@ ROUTE_GAP_TOL, ROUTE_FLIP_CEILING = 6e-4, 0.15
 # logits and fail.
 SMOKE_LOGIT_ATOL = 1e-5
 SERVE_BATCH, SERVE_MAX_NEW = 8, 32
+SMOKE_ENC_LEN = 40          # encoder frames at smoke width: one ragged key chunk
 
 
 def draw_np(spec, rng):
@@ -2457,6 +2497,54 @@ def draw_np(spec, rng):
         return (scale * rng.standard_normal(p.shape)).astype(np.float32)
 
     return tree_map_p(draw, spec)
+
+
+def prompt_tokens(rng, cfg, plen: int) -> list:
+    """One prompt of ``plen`` tokens.  A ``patch_stub`` model's prompt
+    longer than its image starts with the image: ``n_frontend_tokens``
+    patch positions, -1, as the config places them; shorter ones are text."""
+    toks = [int(x) for x in rng.integers(0, cfg.vocab, plen)]
+    if cfg.frontend == "patch_stub" and plen > cfg.n_frontend_tokens:
+        toks[:cfg.n_frontend_tokens] = [-1] * cfg.n_frontend_tokens
+    return toks
+
+
+def bucket_extras(cfg, plen: int, rows: int, enc_len: int, normal):
+    """The inputs besides the tokens of one bucket's run, drawn by
+    ``normal(shape)`` (standard normal): an encoder-decoder's frames
+    (rows, enc_len, d) as they are, which the encoder casts to its dtype; a
+    ``patch_stub`` model's patch embeddings (rows, plen, d) at the token
+    table's scale, 0.02, where the bucket's prompts hold an image (its rows
+    at text positions are never read); else None."""
+    if cfg.family == "encdec":
+        return {"enc": normal((rows, enc_len, cfg.d_model))}
+    if cfg.frontend == "patch_stub" and plen > cfg.n_frontend_tokens:
+        return {"frontend": 0.02 * normal((rows, plen, cfg.d_model))}
+    return None
+
+
+def forward_inputs(extras, n: int, T: int, batch: int, device) -> dict:
+    """``forward``'s keywords for the first ``n`` requests of a run whose
+    batches took ``extras`` (request i rode in row i % ``batch``), over
+    ``T`` positions: a frontend is padded with zero rows past its prompt."""
+    if not extras:
+        return {}
+    idx = torch.arange(n, device=device) % batch
+    if "enc" in extras:
+        return {"enc_embeds": torch.as_tensor(extras["enc"], device=device)[idx]}
+    fe = torch.as_tensor(extras["frontend"], device=device)[idx]
+    return {"frontend": torch.nn.functional.pad(fe, (0, 0, 0, T - fe.shape[1]))}
+
+
+def upcast_(tree) -> None:
+    """Every leaf of a parameter tree to float32, in place, leaf by leaf:
+    each bfloat16 leaf is freed as its copy is made, so the peak is the
+    float32 tree and one leaf (pixtral-12b: 49 GB, not 73.5)."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            upcast_(v)
+        else:
+            tree[k] = v.float()
 
 
 def row_config(row: ModelRow, layers: int | None = None):
@@ -2506,37 +2594,46 @@ def active_non_embedding(cfg, non_embed: int) -> int:
 
 def smoke_width_check(rng, row: ModelRow) -> dict:
     """The scheduler at smoke width with one float32 weight set carried to
-    the CPU and to the card: equal ``Completion``s and ``ServeStats``
-    counts, and last-position logits of every prompt within
+    the CPU and to the card, one run a prompt length with that length's
+    extras (numpy, the same on both): equal ``Completion``s and
+    ``ServeStats`` counts, and last-position logits of every prompt within
     ``SMOKE_LOGIT_ATOL``."""
     cfg = get_smoke_config(row.arch)
     if row.smoke_layers:
         cfg = cfg.scaled(n_layers=row.smoke_layers)
     meshes = {"cpu": make_local_mesh(device="cpu"), "card": make_local_mesh()}
     arrays = draw_np(model_spec(cfg, mesh_ctx(meshes["card"])), rng)
-    prompts = [[int(x) for x in rng.integers(0, cfg.vocab, n)] for n in row.smoke_prompts]
+    prompts = [prompt_tokens(rng, cfg, n) for n in row.smoke_prompts]
+    lengths = sorted(set(row.smoke_prompts))
+    extras = {n: bucket_extras(cfg, n, 2, SMOKE_ENC_LEN, lambda shape: rng.standard_normal(
+        shape).astype(np.float32)) for n in lengths}
     outs, stats, last = {}, {}, {}
     for name, mesh in meshes.items():
         params = params_from_numpy(arrays, mesh.device)
-        reqs = [Request(i, p, 6) for i, p in enumerate(prompts)]
-        outs[name], stats[name] = BatchScheduler(
-            cfg, mesh, batch=2, max_len=row.smoke_max_len, eos_id=-1).run(params, reqs)
-        last[name] = []
-        for n in sorted(set(row.smoke_prompts)):
-            toks = torch.tensor([p for p in prompts if len(p) == n], dtype=torch.int32,
-                                device=mesh.device)
-            x = forward(params, toks, mesh_ctx(mesh), cfg)
+        sched = BatchScheduler(cfg, mesh, batch=2, max_len=row.smoke_max_len, eos_id=-1,
+                               enc_len=SMOKE_ENC_LEN)
+        outs[name], stats[name], last[name] = {}, [], []
+        for n in lengths:
+            reqs = [Request(i, p, 6) for i, p in enumerate(prompts) if len(p) == n]
+            out, st = sched.run(params, reqs, extras=extras[n])
+            outs[name].update(out)
+            stats[name].append(st)
+            toks = torch.tensor([r.prompt for r in reqs], dtype=torch.int32, device=mesh.device)
+            x = forward(params, toks, mesh_ctx(mesh), cfg,
+                        **forward_inputs(extras[n], len(reqs), n, 2, mesh.device))
             last[name].append(vocab_logits(params["embed"], x[:, -1], mesh_ctx(mesh), cfg).cpu())
     for rid, c in outs["cpu"].items():
         g = outs["card"][rid]
         assert (g.tokens, g.finished) == (c.tokens, c.finished), (rid, g, c)
     for f in ("requests", "prefill_tokens", "decode_steps", "batches"):
-        assert getattr(stats["card"], f) == getattr(stats["cpu"], f), f
+        for sg, sc in zip(stats["card"], stats["cpu"]):
+            assert getattr(sg, f) == getattr(sc, f), f
     err = max(float((g - c).abs().max()) for g, c in zip(last["card"], last["cpu"]))
     assert err <= SMOKE_LOGIT_ATOL, err
     return {"config": f"{row.arch} smoke (n_layers {cfg.n_layers}, d {cfg.d_model}, "
                       f"vocab {cfg.vocab}), float32",
             "prompt_tokens": list(row.smoke_prompts), "requests": len(prompts),
+            "runs": len(lengths), "extras": sorted({k for e in extras.values() if e for k in e}),
             "completions_equal": True, "last_logits_max_abs_err": err,
             "tolerance": SMOKE_LOGIT_ATOL}
 
@@ -2621,7 +2718,8 @@ def served_routes(calls, requests, n_moe: int) -> dict:
     return out
 
 
-def forward_check(params, cfg, ctx, out, requests, margin_tol: float, routes=None) -> dict:
+def forward_check(params, cfg, ctx, out, requests, margin_tol: float, routes=None,
+                  extras=None) -> dict:
     """Every generated token against the no-cache ``forward`` over prompt +
     generated tokens (one batched forward a bucket): equal to its argmax
     wherever its top-2 margin exceeds ``margin_tol`` (the checked
@@ -2635,15 +2733,18 @@ def forward_check(params, cfg, ctx, out, requests, margin_tol: float, routes=Non
     forward's k-th and (k+1)-th router probabilities lie within
     ``ROUTE_GAP_TOL``: a near tie flipped by rounding swaps an
     expert's output, which moves the logits by far more than rounding.
-    Flips at a wider gap are counted (``route_flips_at_clear_gap``)."""
+    Flips at a wider gap are counted (``route_flips_at_clear_gap``).
+    ``extras`` ({prompt length: the bucket's run's extras}) feed the
+    forward the same frames or patches as the run."""
     checked = skipped = near_ties = clear_flips = mismatched = unequal = positions = 0
     max_regret, max_flip_gap, by_bucket, flips_by_layer = 0.0, 0.0, {}, 0
     for plen in sorted({len(r.prompt) for r in requests}):
         reqs = [r for r in requests if len(r.prompt) == plen]
         seq = torch.tensor([r.prompt + out[r.rid].tokens[:-1] for r in reqs],
                            dtype=torch.int32, device=DEV)
+        kw = forward_inputs((extras or {}).get(plen), len(reqs), seq.shape[1], SERVE_BATCH, DEV)
         with recorded_routes() as calls:
-            x = forward(params, seq, ctx, cfg)[:, plen - 1:]        # (n, max_new, d)
+            x = forward(params, seq, ctx, cfg, **kw)[:, plen - 1:]   # (n, max_new, d)
         logits = vocab_logits(params["embed"], x, ctx, cfg)
         gen = torch.tensor([out[r.rid].tokens for r in reqs], device=DEV)
         top2 = logits.topk(2, dim=-1)
@@ -2673,7 +2774,7 @@ def forward_check(params, cfg, ctx, out, requests, margin_tol: float, routes=Non
         by_bucket[plen] = {"positions": int(check.numel()), "equal": int(ok.sum()),
                            "checked": int(check.sum()), **bucket,
                            "median_margin": float(margin.median())}
-        del x, logits
+        del x, logits, kw
     res = {"positions": positions, "positions_checked": checked,
            "positions_skipped_for_margin": skipped, "checked_mismatches": mismatched,
            "unequal_positions": unequal, "margin_tol": margin_tol, "max_regret": max_regret,
@@ -2719,26 +2820,60 @@ def serve_requests(rng, cfg, row: ModelRow) -> list:
     requests, rid = [], 0
     for plen, n in row.buckets:
         for _ in range(n):
-            requests.append(Request(rid, [int(x) for x in rng.integers(0, cfg.vocab, plen)],
-                                    SERVE_MAX_NEW))
+            requests.append(Request(rid, prompt_tokens(rng, cfg, plen), SERVE_MAX_NEW))
             rid += 1
     return requests
 
 
-def check_run(out, stats, requests, row: ModelRow, cfg) -> None:
-    """Every request finished with ``SERVE_MAX_NEW`` in-vocab tokens, and
-    the run's counts are the traffic's."""
-    assert sorted(out) == [r.rid for r in requests]
-    for r in requests:
-        c = out[r.rid]
-        assert len(c.tokens) == SERVE_MAX_NEW and c.finished, (r.rid, c)
-        assert all(0 <= t < cfg.vocab for t in c.tokens), (r.rid, c.tokens)
-    assert stats.decode_steps == len(requests) * (SERVE_MAX_NEW - 1), stats
-    assert stats.prefill_tokens == sum(p * n for p, n in row.buckets), stats
-    assert stats.batches == len(row.buckets), stats
+def serve_extras(cfg, row: ModelRow, seed: int) -> dict:
+    """{prompt length: its bucket's extras} at full width, drawn on the card
+    from ``seed`` + 1 (the weights' generator takes ``seed``)."""
+    g = torch.Generator(device=DEV).manual_seed(seed + 1)
+    return {plen: bucket_extras(cfg, plen, SERVE_BATCH, row.enc_len, lambda shape: torch.randn(
+        shape, generator=g, device=DEV)) for plen, _ in row.buckets}
 
 
-def float32_layers_check(args, row: ModelRow, mesh, ctx, requests, out16) -> dict:
+def serve_run(sched, params, requests, row: ModelRow, cfg, extras) -> tuple:
+    """The row's traffic through ``sched``, one ``run`` a bucket with that
+    bucket's extras (the reference's contract: one ``extras`` a run), each
+    run checked: every request finished with ``SERVE_MAX_NEW`` in-vocab
+    tokens, and the run's counts are its bucket's.  Returns (completions,
+    the runs' summed counts)."""
+    out, total = {}, {"wall_s": 0.0, "prefill_tokens": 0, "decode_steps": 0, "batches": 0}
+    for plen, n in sorted(row.buckets):      # the order served_routes reads
+        reqs = [r for r in requests if len(r.prompt) == plen]
+        got, stats = sched.run(params, reqs, extras=extras[plen])
+        assert sorted(got) == [r.rid for r in reqs] and len(reqs) == n
+        for r in reqs:
+            c = got[r.rid]
+            assert len(c.tokens) == SERVE_MAX_NEW and c.finished, (r.rid, c)
+            assert all(0 <= t < cfg.vocab for t in c.tokens), (r.rid, c.tokens)
+        assert stats.decode_steps == n * (SERVE_MAX_NEW - 1), stats
+        assert stats.prefill_tokens == plen * n, stats
+        assert stats.batches == -(-n // SERVE_BATCH), stats
+        out.update(got)
+        for k in total:
+            total[k] += getattr(stats, k)
+    total["decode_tok_per_s"] = total["decode_steps"] / total["wall_s"]
+    return out, total
+
+
+def encoder_side(params) -> tuple:
+    """(parameters, bytes) that run over an encoder's frames only: the
+    encoder, and each ``dec`` block's cross-attention K/V projections (run
+    over the memory at prefill; decode reads their cache instead); (0, 0)
+    without an encoder."""
+    if "enc" not in params:
+        return 0, 0
+    leaves = []
+    tree_map(leaves.append, params["enc"])
+    for g in params.values():
+        if isinstance(g, dict) and "cross" in g:
+            leaves += [t for k, t in g["cross"].items() if k in ("wk", "wv", "bk", "bv")]
+    return sum(t.numel() for t in leaves), sum(t.numel() * t.element_size() for t in leaves)
+
+
+def float32_layers_check(args, row: ModelRow, mesh, ctx, requests, extras, out16) -> dict:
     """The token check on a float32 model of ``row.check_float32_layers``
     layers at full width: weights drawn in bfloat16 from the row's seed and
     upcast, the row's traffic through ``BatchScheduler`` (routes recorded
@@ -2749,18 +2884,18 @@ def float32_layers_check(args, row: ModelRow, mesh, ctx, requests, out16) -> dic
     torch.cuda.reset_peak_memory_stats()
     params = init_params(model_spec(cfg, ctx),
                          torch.Generator(device=DEV).manual_seed(args.seed), mesh.device)
-    params = tree_map(lambda t: t.float(), params)
-    sched = BatchScheduler(cfg, mesh, batch=SERVE_BATCH, max_len=row.max_len, eos_id=-1)
+    upcast_(params)
+    sched = BatchScheduler(cfg, mesh, batch=SERVE_BATCH, max_len=row.max_len, eos_id=-1,
+                           enc_len=row.enc_len)
     with recorded_routes() as calls:
-        out, stats = sched.run(params, requests)
-    check_run(out, stats, requests, row, cfg)
+        out, stats = serve_run(sched, params, requests, row, cfg, extras)
     routes = (served_routes(calls, requests, cfg.n_layers - cfg.n_dense_layers)
               if cfg.n_experts else None)
     del calls
     check = {"dtype": "float32", "n_layers": cfg.n_layers,
              "params": count_params(model_spec(cfg, ctx)),
-             **forward_check(params, cfg, ctx, out, requests, row.margin_tol, routes),
-             "float32_run_wall_s": stats.wall_s,
+             **forward_check(params, cfg, ctx, out, requests, row.margin_tol, routes, extras),
+             "float32_run_wall_s": stats["wall_s"],
              "peak_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
     if cfg.n_layers == row_config(row).n_layers:
         pairs = [(a, b) for r in requests for a, b in zip(out16[r.rid].tokens, out[r.rid].tokens)]
@@ -2807,33 +2942,40 @@ def model_serve_row(args, smi, row: ModelRow) -> None:
         logit_flops = 2 * d * cfg.vocab * SERVE_BATCH
         unread_embed_bytes = (v - SERVE_BATCH) * d * params["embed"]["tok"].element_size()
     active = active_non_embedding(cfg, non_embed)
+    # an encoder runs over its frames, not the prompt's tokens, and its
+    # weights are not read by decode, which reads the cross cache instead
+    enc_params, enc_bytes = encoder_side(params)
 
     requests = serve_requests(rng, cfg, row)
+    extras = serve_extras(cfg, row, args.seed)
     platform.reset_launch_counts()
-    sched = BatchScheduler(cfg, mesh, batch=SERVE_BATCH, max_len=row.max_len, eos_id=-1)
+    sched = BatchScheduler(cfg, mesh, batch=SERVE_BATCH, max_len=row.max_len, eos_id=-1,
+                           enc_len=row.enc_len)
     t0 = time.perf_counter()
-    out, stats = sched.run(params, requests)
+    out, stats = serve_run(sched, params, requests, row, cfg, extras)
     run_s = time.perf_counter() - t0
     pbs_launches = platform.launch_counts()
     assert not pbs_launches, pbs_launches      # the model path launches no PBS kernel
-    check_run(out, stats, requests, row, cfg)
     t0 = time.perf_counter()
     check = None
     if not row.check_float32_layers:
         check = {"dtype": "bfloat16", **forward_check(params, cfg, ctx, out, requests,
-                                                      row.margin_tol)}
+                                                      row.margin_tol, extras=extras)}
     check_s = time.perf_counter() - t0
 
     # timing: prefill per bucket, decode per step, on the scheduler's engine
     t0 = time.perf_counter()
-    sv = make_serve_fns(cfg, mesh, batch=SERVE_BATCH, max_len=row.max_len)
-    prefill = {}
+    sv = make_serve_fns(cfg, mesh, batch=SERVE_BATCH, max_len=row.max_len, enc_len=row.enc_len)
+    prefill, inputs = {}, {}
     for plen, n in row.buckets:
         rows = [r.prompt for r in requests if len(r.prompt) == plen]
         rows += [rows[0]] * (SERVE_BATCH - len(rows))
-        toks = torch.tensor(rows, dtype=torch.int32, device=DEV)
-        ms = float(np.median(times_ms(lambda: sv.prefill(params, {"tokens": toks}), 3)))
-        flops = (2 * active * SERVE_BATCH * plen + logit_flops
+        inputs[plen] = {"tokens": torch.tensor(rows, dtype=torch.int32, device=DEV),
+                        **(extras[plen] or {})}
+        ms = float(np.median(times_ms(lambda: sv.prefill(params, inputs[plen]), 3)))
+        frames = row.enc_len if enc_params else 0
+        flops = (2 * (active - enc_params) * SERVE_BATCH * plen + logit_flops
+                 + 2 * enc_params * SERVE_BATCH * frames
                  + ssd_prefill_flops(cfg, SERVE_BATCH, plen))
         bound = flops / BF16_TENSOR_FLOPS * 1e3
         prefill[plen] = {"batch_rows": SERVE_BATCH, "real_rows": n, "ms": ms,
@@ -2841,9 +2983,7 @@ def model_serve_row(args, smi, row: ModelRow) -> None:
                          "real_tok_per_s": n * plen / (ms / 1e3),
                          "bound_flops": flops, "bound_ms": bound, "bound_by": "operations",
                          "bound_share": bound / ms}
-    toks = torch.tensor([r.prompt for r in requests if len(r.prompt) == row.decode_bucket],
-                        dtype=torch.int32, device=DEV)
-    caches, tok = sv.prefill(params, {"tokens": toks})
+    caches, tok = sv.prefill(params, inputs[row.decode_bucket])
     state = {"caches": caches, "tok": tok}
 
     def step():
@@ -2853,13 +2993,13 @@ def model_serve_row(args, smi, row: ModelRow) -> None:
         step_ms = times_ms(step, SERVE_MAX_NEW - 5)
     decode_ms = float(np.median(step_ms))
     decode_profile = device_profile(lambda: [step() for _ in range(4)])
-    prefill_profile = device_profile(lambda: sv.prefill(params, {"tokens": toks}))
+    prefill_profile = device_profile(lambda: sv.prefill(params, inputs[row.decode_bucket]))
     c_bytes, state_bytes = cache_bytes(state["caches"])
     # read every weight and cache byte once, rewrite the float32 states (a
     # ring's one new row a step is left out: under 0.1 % of these bytes);
     # of the routed experts only those the step's router chose
     fixed_bytes, expert_bytes = moe_bytes(cfg, param_bytes)
-    fixed_bytes -= unread_embed_bytes
+    fixed_bytes -= unread_embed_bytes + enc_bytes
     experts = [int(torch.unique(topi).numel()) for _, topi in step_routes]
     steps = len(step_ms) + 1
     experts_per_step = sum(experts) / steps
@@ -2867,12 +3007,12 @@ def model_serve_row(args, smi, row: ModelRow) -> None:
                     + state_bytes) / HBM_BYTES_PER_S * 1e3
     timing_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
-    del caches, state, step_routes
+    del caches, state, step_routes, inputs
     if row.check_float32_layers:
         del params, sv, sched
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        check = float32_layers_check(args, row, mesh, ctx, requests, out)
+        check = float32_layers_check(args, row, mesh, ctx, requests, extras, out)
         check_s = time.perf_counter() - t0
     emit({"phase": "model_serve", "arch": row.arch, "step": "forward_check", "gpu": smi,
           **check})
@@ -2905,12 +3045,14 @@ def model_serve_row(args, smi, row: ModelRow) -> None:
         "smoke_width_cpu_vs_card": smoke,
         "params": n_params, "n_params_dense": n_params_dense(cfg), "param_bytes": param_bytes,
         "non_embedding_params": non_embed, "active_non_embedding_params": active,
+        "encoder_side_params": enc_params,
         "init_s": init_s,
-        "traffic": {"buckets": [{"prompt_tokens": p, "requests": n} for p, n in row.buckets],
-                    "max_new": SERVE_MAX_NEW, "batch": SERVE_BATCH, "max_len": row.max_len},
-        "run": {"wall_s": stats.wall_s, "prefill_tokens": stats.prefill_tokens,
-                "decode_steps": stats.decode_steps, "batches": stats.batches,
-                "decode_tok_per_s": stats.decode_tok_per_s},
+        "traffic": {"buckets": [{"prompt_tokens": p, "requests": n,
+                                 "extras": {k: list(v.shape) for k, v in (extras[p] or {}).items()}}
+                                for p, n in row.buckets],
+                    "max_new": SERVE_MAX_NEW, "batch": SERVE_BATCH, "max_len": row.max_len,
+                    **({"enc_len": row.enc_len} if enc_params else {})},
+        "run": {"runs": len(row.buckets), **stats},
         "forward_check": check,
         "prefill_by_bucket": prefill,
         "decode": decode,

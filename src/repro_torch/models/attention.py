@@ -22,7 +22,11 @@ latent ``c_kv`` and the shared rotary key ``k_rope`` and decodes in absorbed
 form, in the latent space; its cache takes the same ``len``, in-place
 writes and full-cache refusal as the GQA cache.
 
-Cross attention comes with a later slice (ROADMAP Queue A).
+Cross attention (the encoder-decoder's ``cross`` blocks) reads an encoder
+memory without rope: ``gqa_apply(memory=)`` for prefill, and at decode
+``cross_decode`` against the memory's K/V, computed once by
+``cross_fill_cache``.  That cache's ``len`` is the memory's length, a host
+``int``; decode reads it and never writes it.
 """
 from __future__ import annotations
 
@@ -108,24 +112,36 @@ def gqa_spec(cfg: ModelConfig, ctx: MeshCtx) -> dict:
     return spec
 
 
-def _qkv(p, xg, cfg: ModelConfig, ctx: MeshCtx, positions, *, apply_rope=True):
-    """xg (B, T, d) -> q (B, Hl, T, Dh), k/v (B, Hkv, T, Dh)."""
+def _q(p, xg, cfg: ModelConfig):
+    """xg (B, T, d) -> q (B, Hl, T, Dh), before rope."""
+    B, T, _ = xg.shape
+    q = matmul(xg, p["wq"])
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+    q = q.reshape(B, T, -1, cfg.resolved_head_dim).transpose(1, 2)
+    return rms_head_norm(p["q_norm"], q) if cfg.qk_norm else q
+
+
+def _kv(p, xg, cfg: ModelConfig):
+    """xg (B, T, d) -> k/v (B, Hkv, T, Dh), before rope."""
     B, T, _ = xg.shape
     dh = cfg.resolved_head_dim
-    q = matmul(xg, p["wq"])
     k = matmul(xg, p["wk"])
     v = matmul(xg, p["wv"])
     if cfg.qkv_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(B, T, -1, dh).transpose(1, 2)
+        k, v = k + p["bk"], v + p["bv"]
     k = k.reshape(B, T, cfg.n_kv_heads, dh).transpose(1, 2)
     v = v.reshape(B, T, cfg.n_kv_heads, dh).transpose(1, 2)
-    if cfg.qk_norm:
-        q = rms_head_norm(p["q_norm"], q)
-        k = rms_head_norm(p["k_norm"], k)
-    if apply_rope:
-        q = rope(q, positions[:, None, :], cfg.rope_theta)
-        k = rope(k, positions[:, None, :], cfg.rope_theta)
+    return (rms_head_norm(p["k_norm"], k) if cfg.qk_norm else k), v
+
+
+def _qkv(p, xg, cfg: ModelConfig, ctx: MeshCtx, positions):
+    """xg (B, T, d) -> q (B, Hl, T, Dh), k/v (B, Hkv, T, Dh), rope at
+    ``positions`` (B, T) on q and k."""
+    q = _q(p, xg, cfg)
+    k, v = _kv(p, xg, cfg)
+    q = rope(q, positions[:, None, :], cfg.rope_theta)
+    k = rope(k, positions[:, None, :], cfg.rope_theta)
     return q, k, v
 
 
@@ -137,13 +153,19 @@ def gqa_apply(
     *,
     causal: bool = True,
     window: int | None = None,
+    memory=None,          # (B, Tm, d) encoder memory for cross attention
     return_kv: bool = False,
 ):
-    """Self-attention over the whole sequence (train / prefill)."""
+    """Self-attention over the whole sequence (train / prefill), or with
+    ``memory`` cross attention over it: q, k and v then take no rope."""
     xg = ag_seq(x_sp, ctx)
     B, T, _ = xg.shape
-    positions = torch.arange(T, device=xg.device).expand(B, T)
-    q, k, v = _qkv(p, xg, cfg, ctx, positions)
+    if memory is None:
+        positions = torch.arange(T, device=xg.device).expand(B, T)
+        q, k, v = _qkv(p, xg, cfg, ctx, positions)
+    else:
+        q = _q(p, xg, cfg)
+        k, v = _kv(p, memory, cfg)
     out = blockwise_attention(
         q, k, v, local_kv_map(cfg, ctx, xg.device), causal=causal, window=window
     )
@@ -273,6 +295,36 @@ def local_decode(p, x, cache, ctx: MeshCtx, cfg: ModelConfig):
     qpr = out.shape[1]
     o = matmul(out.transpose(1, 2).reshape(B, 1, qpr * dh), p["wo"])
     return o, {"k": k_c, "v": v_c, "len": pos + 1}
+
+
+# ---- cross attention decode: the encoder memory's K/V, computed once ------
+
+
+def cross_fill_cache(p, memory, cfg: ModelConfig, ctx: MeshCtx):
+    """The cross-attention K/V of encoder memory (B, Tm, d), bfloat16, with
+    ``len`` the host ``int`` Tm."""
+    k, v = _kv(p, memory, cfg)
+    return {"k": k.to(torch.bfloat16), "v": v.to(torch.bfloat16), "len": memory.shape[1]}
+
+
+# past every memory position: cross attention is not causal
+_ALL_MEMORY = 1 << 30
+
+
+def cross_decode(p, x, cache, ctx: MeshCtx, cfg: ModelConfig):
+    """One token's cross attention over the whole memory cache.  x: (B, 1, d).
+    Only q is projected: the cache holds the memory's K/V."""
+    B = x.shape[0]
+    dh = cfg.resolved_head_dim
+    q = _q(p, x, cfg)
+    num, m, l = attention_partial_lse(
+        q, cache["k"], cache["v"], kv_map(cfg, ctx, x.device), k_offset=0,
+        kv_valid_len=cache["len"], q_pos=torch.full((1,), _ALL_MEMORY, device=x.device),
+    )
+    out = combine_partials(num, m, l, ctx)  # (B, Hq_pad, 1, dh)
+    out = _mask_pad_heads(out, cfg, ctx, local=False)
+    hq = out.shape[1]
+    return matmul(out.transpose(1, 2).reshape(B, 1, hq * dh), p["wo"])
 
 
 # --------------------------------------------------------------------------

@@ -11,10 +11,16 @@ that layer's tree, a group of several holds ``l0``, ``l1``, ….
 Families served so far: ``dense`` and ``vlm`` (one stacked group of
 ``attn`` blocks), ``hybrid`` (stacked periods of ``rglru`` and
 ``attn_window`` blocks, then one unscanned group a remaining layer),
-``ssm`` (one stacked group of ``ssm`` blocks) and ``moe`` (an unscanned
+``ssm`` (one stacked group of ``ssm`` blocks), ``moe`` (an unscanned
 group of ``n_dense_layers`` ``mla_dense`` blocks, then a stacked group of
-``mla_moe`` blocks).  ``layer_plan`` raises for encdec until its slice
-(ROADMAP Queue A).  ``forward`` returns the hidden states only; the MoE
+``mla_moe`` blocks) and ``encdec`` (one stacked group of ``dec`` blocks:
+self attention, cross attention over the encoder's memory, MLP; the
+encoder is the stacked non-causal ``attn`` blocks under ``"enc"``).  Every
+config of ``repro_torch.configs`` has a plan.  The two stub frontends are
+inputs beside the tokens, as in the reference: ``audio_stub`` feeds the
+encoder precomputed frame embeddings (``enc_embeds``), ``patch_stub``
+replaces the embedding at every position whose token is below 0
+(``frontend``).  ``forward`` returns the hidden states only; the MoE
 blocks' aux loss stays reachable through ``ffn.moe_apply``.
 """
 from __future__ import annotations
@@ -57,6 +63,20 @@ def embed_tokens(p, tokens, ctx: MeshCtx, cfg: ModelConfig):
     emb = p["tok"][loc.clamp(0, vl - 1)]
     emb = torch.where(ok[..., None], emb, 0.0)
     return emb.to(p["tok"].dtype)  # activation dtype follows the params
+
+
+def embed_inputs(p, tokens, ctx: MeshCtx, cfg: ModelConfig, frontend=None):
+    """The embeddings of tokens (B, T): negative ids embed as id 0, as the
+    reference's ``jnp.maximum(tokens, 0)``, and with ``frontend`` (B, T, d)
+    its rows replace them where the token is below 0.  Raises
+    ``ValueError`` where ``frontend``'s leading shape is not the tokens'."""
+    x = embed_tokens(p, tokens.clamp(min=0), ctx, cfg)
+    if frontend is None:
+        return x
+    if tuple(frontend.shape[:2]) != tuple(tokens.shape):
+        raise ValueError(f"frontend of shape {tuple(frontend.shape)} for tokens of "
+                         f"shape {tuple(tokens.shape)}")
+    return torch.where((tokens < 0)[..., None], frontend.to(x.dtype), x)
 
 
 def _unembed_weight(p, cfg: ModelConfig):
@@ -107,16 +127,27 @@ def block_spec(cfg: ModelConfig, ctx: MeshCtx, kind: str) -> dict:
     if kind == "rglru":
         return {"ln1": norm_spec(cfg), "rec": rglru_spec(cfg, ctx), "ln2": norm_spec(cfg),
                 "mlp": mlp_spec(cfg)}
-    raise NotImplementedError(f"block kind {kind!r}: a later slice (ROADMAP Queue A)")
+    if kind == "dec":  # enc-dec decoder block: self attention, cross attention, MLP
+        return {"ln1": norm_spec(cfg), "attn": gqa_spec(cfg, ctx), "lnx": norm_spec(cfg),
+                "cross": gqa_spec(cfg, ctx), "ln2": norm_spec(cfg), "mlp": mlp_spec(cfg)}
+    raise ValueError(kind)
 
 
-def make_block_fn(cfg: ModelConfig, ctx: MeshCtx, kind: str, *, causal: bool = True):
-    """Returns f(params, x) -> x for train / prefill."""
+def make_block_fn(cfg: ModelConfig, ctx: MeshCtx, kind: str, *, memory=None,
+                  causal: bool = True):
+    """Returns f(params, x) -> x for train / prefill; a ``dec`` block attends
+    to ``memory`` (B, Tm, d), the encoder's output."""
 
     def attn_block(p, x):
         w = cfg.window if kind == "attn_window" else None
         x = x + gqa_apply(p["attn"], apply_norm(p["ln1"], x, cfg), ctx, cfg, causal=causal,
                           window=w)
+        return x + mlp_apply(p["mlp"], apply_norm(p["ln2"], x, cfg), ctx, cfg)
+
+    def dec_block(p, x):
+        x = x + gqa_apply(p["attn"], apply_norm(p["ln1"], x, cfg), ctx, cfg)
+        x = x + gqa_apply(p["cross"], apply_norm(p["lnx"], x, cfg), ctx, cfg, causal=False,
+                          memory=memory)
         return x + mlp_apply(p["mlp"], apply_norm(p["ln2"], x, cfg), ctx, cfg)
 
     def mla_dense_block(p, x):
@@ -135,11 +166,9 @@ def make_block_fn(cfg: ModelConfig, ctx: MeshCtx, kind: str, *, causal: bool = T
         x = x + rglru_apply(p["rec"], apply_norm(p["ln1"], x, cfg), ctx, cfg)
         return x + mlp_apply(p["mlp"], apply_norm(p["ln2"], x, cfg), ctx, cfg)
 
-    table = {"attn": attn_block, "attn_window": attn_block, "mla_dense": mla_dense_block,
-             "mla_moe": mla_moe_block, "ssm": ssm_block, "rglru": rglru_block}
-    if kind not in table:
-        raise NotImplementedError(f"block kind {kind!r}: a later slice (ROADMAP Queue A)")
-    return table[kind]
+    return {"attn": attn_block, "attn_window": attn_block, "mla_dense": mla_dense_block,
+            "mla_moe": mla_moe_block, "ssm": ssm_block, "rglru": rglru_block,
+            "dec": dec_block}[kind]
 
 
 # --------------------------------------------------------------------------
@@ -167,8 +196,9 @@ def layer_plan(cfg: ModelConfig):
         rem = cfg.n_layers - full * period
         return [("hybrid_period", full, True)] + [
             (hybrid_kind(cfg.pattern[i]), 1, False) for i in range(rem)]
-    raise NotImplementedError(
-        f"family {cfg.family!r} ({cfg.name}): a later slice of ROADMAP Queue A item 15")
+    if cfg.family == "encdec":
+        return [("dec", cfg.n_layers, True)]
+    raise ValueError(cfg.family)
 
 
 def hybrid_period_spec(cfg: ModelConfig, ctx: MeshCtx) -> dict:
@@ -184,6 +214,9 @@ def model_spec(cfg: ModelConfig, ctx: MeshCtx) -> dict:
                 else block_spec(cfg, ctx, kind))
         spec[f"g{gi}"] = stack_layers(base, count) if scanned else (
             {f"l{i}": base for i in range(count)} if count > 1 else base)
+    if cfg.family == "encdec":
+        spec["enc"] = {"layers": stack_layers(block_spec(cfg, ctx, "attn"), cfg.n_enc_layers),
+                       "norm": norm_spec(cfg)}
     return spec
 
 
@@ -210,17 +243,32 @@ def period_fn(fns):
     return run
 
 
-def forward(params, tokens, ctx: MeshCtx, cfg: ModelConfig):
+def encode(params, enc_embeds, ctx: MeshCtx, cfg: ModelConfig):
+    """The encoder over stub frame embeddings (B, Te, d) -> memory (B, Te, d):
+    the frames cast to the parameters' dtype, non-causal ``attn`` blocks
+    (rope over the frame positions), then the encoder's own norm."""
+    fn = make_block_fn(cfg, ctx, "attn", causal=False)
+    x = enc_embeds.to(params["enc"]["norm"]["scale"].dtype)
+    for p in group_layers(params["enc"]["layers"], cfg.n_enc_layers, True):
+        x = fn(p, x)
+    return apply_norm(params["enc"]["norm"], x, cfg)
+
+
+def forward(params, tokens, ctx: MeshCtx, cfg: ModelConfig, *, frontend=None,
+            enc_embeds=None):
     """Forward to the final norm: tokens (B, T) -> (B, T, d), no cache.
-    Negative ids embed as id 0, as the reference's ``jnp.maximum(tokens, 0)``."""
-    x = embed_tokens(params["embed"], tokens.clamp(min=0), ctx, cfg)
+    ``frontend`` (B, T, d) and ``enc_embeds`` (B, Te, d) are the stub
+    frontends' inputs (``embed_inputs``, ``encode``); an encoder-decoder
+    needs ``enc_embeds``."""
+    x = embed_inputs(params["embed"], tokens, ctx, cfg, frontend)
+    memory = encode(params, enc_embeds, ctx, cfg) if cfg.family == "encdec" else None
     for gi, (kind, count, scanned) in enumerate(layer_plan(cfg)):
         if count == 0:
             continue
         if kind == "hybrid_period":
             fn = period_fn([make_block_fn(cfg, ctx, hybrid_kind(k)) for k in cfg.pattern])
         else:
-            fn = make_block_fn(cfg, ctx, kind)
+            fn = make_block_fn(cfg, ctx, kind, memory=memory)
         for p in group_layers(params[f"g{gi}"], count, scanned):
             x = fn(p, x)
     return apply_norm(params["final_norm"], x, cfg)

@@ -19,6 +19,9 @@ group's layers where the group is scanned.  Per block kind:
   expanded per-head K/V would hold 128 · (192 + 128);
 * ``rglru``: the state ``"h"`` (float32) and ``"conv"``, the last 3
   pre-conv inputs (bfloat16);
+* ``dec``: ``"self"``, an ``attn`` cache of ``max_len`` positions, and
+  ``"cross"``, the encoder memory's K/V of ``enc_len`` positions
+  (bfloat16), filled at prefill and only read by decode;
 * ``ssm``: the state ``"ssd"`` (float32) and ``"conv": {"x", "bc"}``, the
   last ``ssm_conv - 1`` raw conv inputs;
 * a ``hybrid_period`` group: ``{"b0", "b1", …}``, one of the above a block;
@@ -32,7 +35,11 @@ leaves them.  ``decode`` writes into the caches it is given: do not reuse
 them after the call.
 
 The MoE blocks' aux loss is discarded, as the reference's serving does.
-The encoder-decoder block kind raises until its slice (ROADMAP Queue A).
+Every family is served, the encoder-decoder and both stub frontends
+included: ``prefill``'s ``inputs`` carry ``"enc"`` (B, enc_len, d), the
+frames an encoder-decoder encodes once a prefill, and ``"frontend"`` (B,
+T, d), the embeddings of a ``patch_stub`` model's positions whose token is
+below 0.
 """
 from __future__ import annotations
 
@@ -42,6 +49,8 @@ from typing import Callable
 import torch
 
 from repro_torch.models.attention import (
+    cross_decode,
+    cross_fill_cache,
     gqa_apply,
     gqa_decode,
     gqa_fill_cache,
@@ -54,7 +63,9 @@ from repro_torch.models.attention import (
     mla_init_cache,
 )
 from repro_torch.models.backbone import (
+    embed_inputs,
     embed_tokens,
+    encode,
     greedy_token,
     group_layers,
     hybrid_kind,
@@ -74,7 +85,8 @@ from repro_torch.train.step import batch_axes, mesh_ctx
 # ---------------------------------------------------------------------------
 
 
-def _kind_cache_spec(cfg: ModelConfig, kind: str, ba, batch: int, max_len: int) -> dict:
+def _kind_cache_spec(cfg: ModelConfig, kind: str, ba, batch: int, max_len: int,
+                     enc_len: int) -> dict:
     dh = cfg.resolved_head_dim
     bf16, i32 = torch.bfloat16, torch.int32
     if kind == "attn":
@@ -118,27 +130,37 @@ def _kind_cache_spec(cfg: ModelConfig, kind: str, ba, batch: int, max_len: int) 
             "conv": P((batch, 3, w), (ba, None, None), "zeros", dtype=bf16),
             "len": P((), (), "zeros", dtype=i32),
         }
-    raise NotImplementedError(f"{kind!r} caches: a later slice (ROADMAP Queue A)")
+    if kind == "dec":
+        shape = (batch, cfg.n_kv_heads, enc_len, dh)
+        return {
+            "self": _kind_cache_spec(cfg, "attn", ba, batch, max_len, enc_len),
+            "cross": {
+                "k": P(shape, (ba, None, "model", None), "zeros", dtype=bf16),
+                "v": P(shape, (ba, None, "model", None), "zeros", dtype=bf16),
+                "len": P((), (), "zeros", dtype=i32),
+            },
+        }
+    raise ValueError(kind)
 
 
-def cache_spec(cfg: ModelConfig, mesh, batch: int, max_len: int):
+def cache_spec(cfg: ModelConfig, mesh, batch: int, max_len: int, enc_len: int = 1536):
     ba = batch_axes(mesh, batch)
     tree = {}
     for gi, (kind, count, scanned) in enumerate(layer_plan(cfg)):
         if count == 0:
             continue
         if kind == "hybrid_period":
-            base = {f"b{i}": _kind_cache_spec(cfg, hybrid_kind(k), ba, batch, max_len)
+            base = {f"b{i}": _kind_cache_spec(cfg, hybrid_kind(k), ba, batch, max_len, enc_len)
                     for i, k in enumerate(cfg.pattern)}
         else:
-            base = _kind_cache_spec(cfg, kind, ba, batch, max_len)
+            base = _kind_cache_spec(cfg, kind, ba, batch, max_len, enc_len)
         tree[f"g{gi}"] = stack_layers(base, count) if scanned else (
             {f"l{i}": base for i in range(count)} if count > 1 else base)
     return tree
 
 
-def abstract_cache(cfg: ModelConfig, mesh, batch: int, max_len: int):
-    return abstract_params(cache_spec(cfg, mesh, batch, max_len))
+def abstract_cache(cfg: ModelConfig, mesh, batch: int, max_len: int, enc_len: int = 1536):
+    return abstract_params(cache_spec(cfg, mesh, batch, max_len, enc_len))
 
 
 # ---------------------------------------------------------------------------
@@ -146,8 +168,9 @@ def abstract_cache(cfg: ModelConfig, mesh, batch: int, max_len: int):
 # ---------------------------------------------------------------------------
 
 
-def _prefill_block(cfg, ctx, kind, batch, max_len):
-    """f(params, x) -> (x, the block's filled cache)."""
+def _prefill_block(cfg, ctx, kind, batch, max_len, *, memory=None):
+    """f(params, x) -> (x, the block's filled cache); a ``dec`` block attends
+    to ``memory``, the encoder's output."""
     def attn(p, x):
         h, (k, v) = gqa_apply(p["attn"], apply_norm(p["ln1"], x, cfg), ctx, cfg,
                               causal=True, return_kv=True)
@@ -191,6 +214,17 @@ def _prefill_block(cfg, ctx, kind, batch, max_len):
         x = x + mlp_apply(p["mlp"], apply_norm(p["ln2"], x, cfg), ctx, cfg)
         return x, state
 
+    def dec(p, x):
+        h, (k, v) = gqa_apply(p["attn"], apply_norm(p["ln1"], x, cfg), ctx, cfg,
+                              causal=True, return_kv=True)
+        x = x + h
+        x = x + gqa_apply(p["cross"], apply_norm(p["lnx"], x, cfg), ctx, cfg,
+                          causal=False, memory=memory)
+        x = x + mlp_apply(p["mlp"], apply_norm(p["ln2"], x, cfg), ctx, cfg)
+        init = gqa_init_cache(cfg, ctx, batch, max_len, device=x.device)
+        return x, {"self": gqa_fill_cache(init, k, v, ctx),
+                   "cross": cross_fill_cache(p["cross"], memory, cfg, ctx)}
+
     if kind == "hybrid_period":
         fns = [_prefill_block(cfg, ctx, hybrid_kind(k), batch, max_len) for k in cfg.pattern]
 
@@ -201,11 +235,8 @@ def _prefill_block(cfg, ctx, kind, batch, max_len):
             return x, cc
 
         return period
-    table = {"attn": attn, "attn_window": attn_window, "mla_dense": mla_dense,
-             "mla_moe": mla_moe, "ssm": ssm, "rglru": rglru}
-    if kind not in table:
-        raise NotImplementedError(f"{kind!r} prefill: a later slice (ROADMAP Queue A)")
-    return table[kind]
+    return {"attn": attn, "attn_window": attn_window, "mla_dense": mla_dense,
+            "mla_moe": mla_moe, "ssm": ssm, "rglru": rglru, "dec": dec}[kind]
 
 
 def _decode_block(cfg, ctx, kind):
@@ -244,6 +275,13 @@ def _decode_block(cfg, ctx, kind):
         x = x + mlp_decode(p["mlp"], apply_norm(p["ln2"], x, cfg), ctx, cfg)
         return x, c2
 
+    def dec(p, x, c):
+        h, c2self = gqa_decode(p["attn"], apply_norm(p["ln1"], x, cfg), c["self"], ctx, cfg)
+        x = x + h
+        x = x + cross_decode(p["cross"], apply_norm(p["lnx"], x, cfg), c["cross"], ctx, cfg)
+        x = x + mlp_decode(p["mlp"], apply_norm(p["ln2"], x, cfg), ctx, cfg)
+        return x, {"self": c2self, "cross": c["cross"]}     # the cross cache as it was
+
     if kind == "hybrid_period":
         fns = [_decode_block(cfg, ctx, hybrid_kind(k)) for k in cfg.pattern]
 
@@ -254,11 +292,8 @@ def _decode_block(cfg, ctx, kind):
             return x, cc
 
         return period
-    table = {"attn": attn, "attn_window": attn_window, "mla_dense": mla_dense,
-             "mla_moe": mla_moe, "ssm": ssm, "rglru": rglru}
-    if kind not in table:
-        raise NotImplementedError(f"{kind!r} decode: a later slice (ROADMAP Queue A)")
-    return table[kind]
+    return {"attn": attn, "attn_window": attn_window, "mla_dense": mla_dense,
+            "mla_moe": mla_moe, "ssm": ssm, "rglru": rglru, "dec": dec}[kind]
 
 
 # ---------------------------------------------------------------------------
@@ -312,28 +347,36 @@ class ServeBundle:
     ctx: MeshCtx
 
 
-def make_serve_fns(cfg: ModelConfig, mesh, *, batch: int, max_len: int) -> ServeBundle:
-    """``prefill(params, {"tokens": (B, T) int}) -> (caches, token (B,))`` and
+def make_serve_fns(cfg: ModelConfig, mesh, *, batch: int, max_len: int,
+                   enc_len: int = 1536) -> ServeBundle:
+    """``prefill(params, inputs) -> (caches, token (B,))`` and
     ``decode(params, caches, tokens (B, 1)) -> (token (B,), caches)``, with
-    the reference's semantics, on the tensors' device (the mesh's)."""
-    if cfg.frontend != "none":
-        raise NotImplementedError(
-            f"frontend {cfg.frontend!r}: a later slice (ROADMAP Queue A)")
+    the reference's semantics, on the tensors' device (the mesh's).
+    ``inputs`` holds ``"tokens"`` (B, T) int, and ``"enc"`` (B, enc_len, d)
+    for an encoder-decoder, and may hold ``"frontend"`` (B, T, d)
+    (``backbone.embed_inputs``).  Prefill raises ``ValueError`` where
+    ``"enc"`` or ``"frontend"`` has another leading shape."""
     ctx = mesh_ctx(mesh)
     groups = [(f"g{gi}", kind, count, scanned)
               for gi, (kind, count, scanned) in enumerate(layer_plan(cfg)) if count]
-    prefill_fns = {name: _prefill_block(cfg, ctx, kind, batch, max_len)
-                   for name, kind, _, _ in groups}
     decode_fns = {name: _decode_block(cfg, ctx, kind) for name, kind, _, _ in groups}
 
     def prefill(params, inputs):
         tokens = inputs["tokens"]                       # (B, T)
-        x = embed_tokens(params["embed"], tokens.clamp(min=0), ctx, cfg)
+        x = embed_inputs(params["embed"], tokens, ctx, cfg, inputs.get("frontend"))
+        memory = None
+        if cfg.family == "encdec":
+            enc = inputs["enc"]
+            if tuple(enc.shape[:2]) != (tokens.shape[0], enc_len):
+                raise ValueError(f"enc of shape {tuple(enc.shape)}: expected "
+                                 f"({tokens.shape[0]}, {enc_len}, d), enc_len {enc_len}")
+            memory = encode(params, enc, ctx, cfg)      # once, for every dec block
         caches = {}
-        for name, _kind, count, scanned in groups:
+        for name, kind, count, scanned in groups:
+            fn = _prefill_block(cfg, ctx, kind, batch, max_len, memory=memory)
             filled = []
             for j, p in enumerate(group_layers(params[name], count, scanned)):
-                x, c = prefill_fns[name](p, x)
+                x, c = fn(p, x)
                 if scanned:                             # stack as the reference's scan does
                     if j == 0:
                         stacked = _stacked_like(c, count)

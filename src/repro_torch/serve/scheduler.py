@@ -3,11 +3,16 @@
 Buckets requests by prompt length, packs them into the fixed decode batch,
 runs the decode loop with a per-request done mask and collects the tokens.
 Underfull batches are padded with a copy of the first request (left out of
-the results).
+the results).  ``run(extras=)`` adds the same inputs to every batch's
+prefill, as the reference's does: ``"enc"`` (batch, enc_len, d), an
+encoder-decoder's frames, or ``"frontend"``, a ``patch_stub`` model's
+embeddings, whose shape (batch, T, d) fits one prompt length.  They are
+moved to the mesh's device once a run.
 
 One difference from the reference (``repro.serve.scheduler``): where the
 model's layer plan holds a cache of ``max_len`` positions (``attn`` blocks'
-KV caches, ``mla_dense`` and ``mla_moe`` blocks' latent caches), ``run``
+KV caches, a ``dec`` block's self-attention cache, ``mla_dense`` and
+``mla_moe`` blocks' latent caches), ``run``
 refuses a request whose decode would write past it,
 ``len(prompt) + max_new - 1 > max_len``.  The reference checks only
 ``len(prompt) >= max_len``, and its decode then writes each position past
@@ -63,23 +68,28 @@ class ServeStats:
 
 class BatchScheduler:
     def __init__(self, cfg: ModelConfig, mesh, *, batch: int, max_len: int,
-                 eos_id: int = 0):
+                 eos_id: int = 0, enc_len: int = 32):
         self.cfg = cfg
         self.mesh = mesh
         self.batch = batch
         self.max_len = max_len
         self.eos_id = eos_id
+        self.enc_len = enc_len
         # one bundle for every prompt length: the reference keeps one per
         # length because jit specializes on shape, the port's steps do not
-        self._engine = make_serve_fns(cfg, mesh, batch=batch, max_len=max_len)
+        self._engine = make_serve_fns(cfg, mesh, batch=batch, max_len=max_len,
+                                      enc_len=enc_len)
         # a cache of max_len positions bounds prompt + decoded positions
-        self._bounded = any(kind in ("attn", "mla_dense", "mla_moe")
+        self._bounded = any(kind in ("attn", "dec", "mla_dense", "mla_moe")
                             for kind, _, _ in layer_plan(cfg))
 
-    def run(self, params, requests: list[Request]) -> tuple[dict, ServeStats]:
-        """Serve all requests; returns ({rid: Completion}, stats)."""
+    def run(self, params, requests: list[Request], *, extras=None) -> tuple[dict, ServeStats]:
+        """Serve all requests; returns ({rid: Completion}, stats).  ``extras``
+        (numpy arrays or tensors) join every batch's prefill inputs."""
         stats = ServeStats(requests=len(requests))
         t0 = time.perf_counter()
+        extras = {k: torch.as_tensor(v, device=self.mesh.device)
+                  for k, v in (extras or {}).items()}
         buckets: dict[int, list[Request]] = defaultdict(list)
         for r in requests:
             if len(r.prompt) >= self.max_len:
@@ -94,7 +104,7 @@ class BatchScheduler:
         for plen, reqs in sorted(buckets.items()):
             for i in range(0, len(reqs), self.batch):
                 chunk = reqs[i : i + self.batch]
-                out.update(self._run_batch(params, chunk, plen, stats))
+                out.update(self._run_batch(params, chunk, plen, stats, extras))
                 stats.batches += 1
         if self.mesh.device.type == "cuda":
             torch.cuda.synchronize(self.mesh.device)
@@ -102,12 +112,12 @@ class BatchScheduler:
         return out, stats
 
     def _run_batch(self, params, chunk: list[Request], plen: int,
-                   stats: ServeStats) -> dict:
+                   stats: ServeStats, extras: dict) -> dict:
         sv = self._engine
         B = self.batch
         rows = chunk + [chunk[0]] * (B - len(chunk))     # pad with a copy
         toks = np.stack([np.asarray(r.prompt, np.int32) for r in rows])
-        inputs = {"tokens": torch.from_numpy(toks).to(self.mesh.device)}
+        inputs = {"tokens": torch.from_numpy(toks).to(self.mesh.device), **extras}
         caches, tok = sv.prefill(params, inputs)
         stats.prefill_tokens += plen * len(chunk)
 

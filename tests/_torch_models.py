@@ -1,6 +1,7 @@
 """Shared helpers of the model scaffold's differential tests
 (``test_torch_models.py``, ``test_torch_serve.py``,
-``test_torch_recurrent.py``)."""
+``test_torch_recurrent.py``, ``test_torch_moe.py``,
+``test_torch_frontends.py``)."""
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -306,16 +306,6 @@ def test_recurrent_plan_serves_past_max_len(jmesh, cpu_mesh, arch):
         sched.run(pp, [Request(1, prompt + [1, 2], 2)])
 
 
-def test_serving_other_families_raises(cpu_mesh):
-    for arch in ("whisper-tiny",):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            port_engine.make_serve_fns(port_configs.get_smoke_config(arch), cpu_mesh,
-                                       batch=1, max_len=8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_engine.make_serve_fns(port_configs.get_smoke_config("pixtral-12b"), cpu_mesh,
-                                   batch=1, max_len=8)
-
-
 def test_meshes_run_on_the_card_unless_asked():
     """``make_local_mesh()`` means the CUDA card and raises without one;
     wider meshes wait for the multi-card slice."""

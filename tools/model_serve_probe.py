@@ -5,7 +5,8 @@ card, then the calibration behind each row's token check.
 
 For each ``--arch`` (a row of ``chip_smoke.MODEL_ROWS``; default
 qwen2-1.5b) first serves each prompt-length bucket of that row's traffic
-through ``make_serve_fns`` at full width (at the row's depth) and holds
+through ``make_serve_fns`` at full width (at the row's depth; with the
+bucket's frames or patches, ``chip_smoke.bucket_extras``) and holds
 the logits of every decode step against the no-cache ``forward``'s at the
 same position: the largest and mean logit error, how often the argmax
 agrees, and the forward's top-2 margins, which the row's ``margin_tol`` is
@@ -41,9 +42,11 @@ GAP_THRESHOLDS = (1e-6, 3e-6, 1e-5, 3e-5, 1e-4, 3e-4, 1e-3)
 ROWS = {row.arch: row for row in cs.MODEL_ROWS}
 
 
-def calibrate_bucket(params, cfg, mesh, ctx, row, plen: int, n: int, rng) -> dict:
-    prompts = torch.tensor(rng.integers(0, cfg.vocab, (n, plen)), dtype=torch.int32,
-                           device=mesh.device)
+def calibrate_bucket(params, cfg, mesh, ctx, row, plen: int, n: int, rng, gen) -> dict:
+    prompts = torch.tensor([cs.prompt_tokens(rng, cfg, plen) for _ in range(n)],
+                           dtype=torch.int32, device=mesh.device)
+    extras = cs.bucket_extras(cfg, plen, n, row.enc_len, lambda shape: torch.randn(
+        shape, generator=gen, device=mesh.device)) or {}
     recorded, greedy = [], engine.greedy_token
 
     def recording_greedy(p, x, ctx_, cfg_):     # the step's logits, then its token
@@ -53,8 +56,8 @@ def calibrate_bucket(params, cfg, mesh, ctx, row, plen: int, n: int, rng) -> dic
     engine.greedy_token = recording_greedy
     try:
         with cs.recorded_routes() as served_routes:
-            sv = cs.make_serve_fns(cfg, mesh, batch=n, max_len=row.max_len)
-            caches, tok = sv.prefill(params, {"tokens": prompts})
+            sv = cs.make_serve_fns(cfg, mesh, batch=n, max_len=row.max_len, enc_len=row.enc_len)
+            caches, tok = sv.prefill(params, {"tokens": prompts, **extras})
             gen = [tok]
             for _ in range(cs.SERVE_MAX_NEW - 1):
                 tok, caches = sv.decode(params, caches, tok[:, None])
@@ -66,7 +69,8 @@ def calibrate_bucket(params, cfg, mesh, ctx, row, plen: int, n: int, rng) -> dic
     served = torch.stack(recorded, 1)                           # (n, max_new, V)
     seq = torch.cat([prompts, gen[:, :-1]], 1)
     with cs.recorded_routes() as forward_routes:
-        x = cs.forward(params, seq, ctx, cfg)
+        x = cs.forward(params, seq, ctx, cfg,
+                       **cs.forward_inputs(extras, n, seq.shape[1], n, mesh.device))
     ref = cs.vocab_logits(params["embed"], x[:, plen - 1:], ctx, cfg)
     err = (served - ref).abs()
     top2 = ref.topk(2, dim=-1).values
@@ -122,24 +126,29 @@ def calibrate_bucket(params, cfg, mesh, ctx, row, plen: int, n: int, rng) -> dic
     }
 
 
-def bfloat16_drift(params, params32, cfg, ctx, prompts) -> dict:
-    """How far a bfloat16 forward lies from a float32 forward of the same
-    weights: the final-norm states' relative norm and the largest logit
-    difference."""
-    xb = cs.forward(params, prompts, ctx, cfg)
-    xf = cs.forward(params32, prompts, ctx, cfg)
-    lb = cs.vocab_logits(params["embed"], xb, ctx, cfg)
-    lf = cs.vocab_logits(params32["embed"], xf, ctx, cfg)
+def bfloat16_drift(embed16, xb, params32, cfg, ctx, prompts, kw) -> dict:
+    """How far a bfloat16 forward (final-norm states ``xb``, unembedded
+    through ``embed16``) lies from a float32 forward of the same weights
+    ``params32`` (and the same ``forward`` keywords ``kw``): the states'
+    relative norm and the largest logit difference, one sequence at a time."""
+    xf = cs.forward(params32, prompts, ctx, cfg, **kw)
+    diff, same, n = 0.0, 0, 0
+    for b in range(xb.shape[0]):
+        lb = cs.vocab_logits(embed16, xb[b], ctx, cfg)
+        lf = cs.vocab_logits(params32["embed"], xf[b], ctx, cfg)
+        diff = max(diff, float((lb - lf).abs().max()))
+        same += int((lb.argmax(-1) == lf.argmax(-1)).sum())
+        n += lb.shape[0]
     return {"state_rel_norm": float((xb.float() - xf).norm() / xf.norm()),
-            "max_abs_logit_diff": float((lb - lf).abs().max()),
-            "argmax_equal": float((lb.argmax(-1) == lf.argmax(-1)).float().mean())}
+            "max_abs_logit_diff": diff, "argmax_equal": same / n}
 
 
 def calibration(row, seed: int) -> dict:
     """Decode-to-forward logit error of ``row``'s model at full width, one
     batch of fresh prompts a bucket (its real request count), in bfloat16
     and, for a row checked in float32, in the float32 model of
-    ``row.check_float32_layers`` layers."""
+    ``row.check_float32_layers`` layers (at the row's own depth the same
+    weights, upcast in place once the bfloat16 forwards are read)."""
     cfg = cs.row_config(row)
     mesh = cs.make_local_mesh()
     ctx = cs.mesh_ctx(mesh)
@@ -149,30 +158,41 @@ def calibration(row, seed: int) -> dict:
            "margin_tol": row.margin_tol, "route_gap_tol": cs.ROUTE_GAP_TOL,
            "checked_in": "float32" if row.check_float32_layers else "bfloat16"}
     rng = np.random.default_rng(seed)
-    out["bfloat16"] = {plen: calibrate_bucket(params, cfg, mesh, ctx, row, plen, n, rng)
+    gen = torch.Generator(device=mesh.device).manual_seed(seed + 1)
+    out["bfloat16"] = {plen: calibrate_bucket(params, cfg, mesh, ctx, row, plen, n, rng, gen)
                        for plen, n in row.buckets}
     if row.check_float32_layers == cfg.n_layers:        # the same weights in float32
-        params32 = cs.tree_map(lambda t: t.float(), params)
         rng = np.random.default_rng(seed + 1)
+        cases = []
+        for plen, n in row.buckets:
+            extras = cs.bucket_extras(cfg, plen, n, row.enc_len, lambda shape: torch.randn(
+                shape, generator=gen, device=mesh.device))
+            prompts = torch.tensor([cs.prompt_tokens(rng, cfg, plen) for _ in range(n)],
+                                   dtype=torch.int32, device=mesh.device)
+            kw = cs.forward_inputs(extras, n, plen, n, mesh.device)
+            cases.append((plen, prompts, kw, cs.forward(params, prompts, ctx, cfg, **kw)))
+        embed16 = dict(params["embed"])
+        cs.upcast_(params)
         out["bfloat16_forward_vs_float32"] = {
-            plen: bfloat16_drift(params, params32, cfg, ctx, torch.tensor(
-                rng.integers(0, cfg.vocab, (n, plen)), dtype=torch.int32, device=mesh.device))
-            for plen, n in row.buckets}
-        del params32
-    del params
-    torch.cuda.empty_cache()
-    if row.check_float32_layers:
+            plen: bfloat16_drift(embed16, xb, params, cfg, ctx, prompts, kw)
+            for plen, prompts, kw, xb in cases}
+        del cases, embed16
+    elif row.check_float32_layers:
+        del params
+        torch.cuda.empty_cache()
         cfg = cs.row_config(row, row.check_float32_layers)
         params = cs.init_params(cs.model_spec(cfg, ctx),
                                 torch.Generator(device=mesh.device).manual_seed(seed),
                                 mesh.device)
-        params = cs.tree_map(lambda t: t.float(), params)
+        cs.upcast_(params)
+    if row.check_float32_layers:
         rng = np.random.default_rng(seed)
+        gen = torch.Generator(device=mesh.device).manual_seed(seed + 1)
         out[f"float32_{cfg.n_layers}_layers"] = {
-            plen: calibrate_bucket(params, cfg, mesh, ctx, row, plen, n, rng)
+            plen: calibrate_bucket(params, cfg, mesh, ctx, row, plen, n, rng, gen)
             for plen, n in row.buckets}
-        del params
-        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
     return out
 
 
