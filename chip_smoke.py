@@ -28,7 +28,7 @@ just before it and read just after:
   into 2 encode launches and 1 decode launch per cohort-round; then a
   2-peer hub where one peer crashes and resumes through ``MSG_RESUME``;
 * ``sync`` — a continuous hub (``run_hub_epoch``) with 2 peers of |A| =
-  10^6 for 3 epochs of seeded churn, the resident stores patched in place;
+  10^6 for 2 epochs of seeded churn, the resident stores patched in place;
 * ``obs`` — the observability layer at deployment size: a 2-peer chaos hub
   (one peer crashes and resumes, one sits behind a lossy ARQ channel) with
   one shared ``Tracer(torch_profiler=True)`` as every component's tracer
@@ -69,7 +69,26 @@ just before it and read just after:
   the active parameters only, and the routed experts a decode step read,
   counted from the router's top-k on the card; for whisper the encoder's
   operations over its frames, and a decode step's cross cache without
-  the encoder's weights).
+  the encoder's weights);
+* ``model_train`` — the training path (``train.make_train_step``:
+  autograd through the serving path's torch ops with per-layer remat and a
+  chunked loss, ``optim`` AdamW with float32 or int8 states, error-feedback
+  top-k compression; ``checkpoint``, ``data`` and ``launch.train`` through
+  ``examples/train_lm_torch.py``), which launches no PBS kernel: one
+  ``bundle.step`` of each of the ten smoke configs on the CPU and on the
+  card from one carried float32 state (metrics, every parameter and
+  state leaf after the step); qwen2-1.5b's gradients at full width and 2
+  layers in float32 over 512 tokens, card against CPU, leaf by leaf; then
+  qwen2-1.5b at full width, all 28 layers in bfloat16, 8 x 4 096 tokens a
+  step as 2 microbatches of 4 (the reference's ``train_4k`` cell, its
+  batch of 256 cut to 8): 6 steps with float32 states on one repeated
+  batch (the loss must fall by ``TRAIN_DESCENT``), the same with int8
+  states (within ``TRAIN_INT8_RTOL`` of them), 3 with 1 % compression,
+  each step timed beside its bound, peak memory, the forward-and-backward
+  and optimizer halves of a step and the card's busy share of one; last
+  the ``train_lm`` twin killed at step 35 and resumed (the resumed state
+  bit-equal to the checkpoint, its losses within ``TWIN_LOSS_ATOL`` of an
+  uninterrupted run's).
 
 Every result is compared with the package's own numpy oracle
 ``core.pbs.reconcile`` (per session, per tree leaf) and with the true set
@@ -92,7 +111,7 @@ hash from ``cuobjdump -sass`` of the built kernels (phase ``sass``).
 
 Each phase prints one JSON line (a few print more); any failed phase
 raises and the process exits non-zero.  ``--kernels-only`` skips every
-path, ``model_serve`` included.  The last line of standard output is
+path, ``model_serve`` and ``model_train`` included.  The last line of standard output is
 ``{"ok": true, "device": {...}}``.  Needs a CUDA device: exits 1 without one.
 """
 from __future__ import annotations
@@ -196,6 +215,13 @@ from repro_torch.models.spec import (  # noqa: E402
 from repro_torch.serve.engine import make_serve_fns  # noqa: E402
 from repro_torch.serve.scheduler import BatchScheduler, Request  # noqa: E402
 from repro_torch.train.step import mesh_ctx  # noqa: E402
+from repro_torch.checkpoint import restore_checkpoint  # noqa: E402
+from repro_torch.data import DataConfig, global_batch  # noqa: E402
+from repro_torch.models.backbone import ce_loss  # noqa: E402
+from repro_torch.optim import OptConfig, init_opt_state  # noqa: E402
+from repro_torch.optim.adamw import QBLK  # noqa: E402
+from repro_torch.optim.compression import CompressionConfig, init_error_state  # noqa: E402
+from repro_torch.train import make_train_step  # noqa: E402
 
 DEV = torch.device("cuda", 0)
 
@@ -3075,6 +3101,371 @@ def model_serve_phase(args, smi, rows=MODEL_ROWS) -> None:
     emit({"phase": "model_serve", "models": [r.arch for r in rows],
           "model_serve_phase_s": time.perf_counter() - t_phase})
 
+# ---------------------------------------------------------------------------
+# the model scaffold's training path (phase model_train)
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "qwen2-1.5b"
+# the reference's train_4k cell (src/repro/launch/cells.py: seq 4 096, batch
+# 256), its batch cut to 8 rows, as 2 microbatches of 4, to fit one card
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICROBATCH = 4096, 8, 2
+TRAIN_STEPS, TRAIN_COMPRESSED_STEPS = 6, 3
+TRAIN_OPT = dict(warmup=2, total_steps=20)     # as the reference's optimizer tests
+# stated before the first run on a card (PERF.md, the training prediction): on one
+# repeated batch the f32-state run's loss after 5 updates lies at least
+# TRAIN_DESCENT below its first; the int8-state run's losses within
+# TRAIN_INT8_RTOL of the f32 run's at every step (the reference's own
+# tests/test_optim.py tolerance for the same comparison)
+TRAIN_DESCENT = 0.5
+TRAIN_INT8_RTOL = 5e-3
+TRAIN_COMPRESSION = 0.01
+# smoke width, float32 weights and states, one bundle.step on the CPU and
+# on the card from one carried state (tests/test_torch_train.py's
+# tolerances against the reference): metrics within 1e-5 relative,
+# parameters and master within 1e-6 absolute, m and v within 1e-4 of the
+# leaf's largest entry
+SMOKE_TRAIN_RTOL, SMOKE_TRAIN_PARAM_ATOL, SMOKE_TRAIN_STATE_REL = 1e-5, 1e-6, 1e-4
+# full width, 2 layers, float32, 1 x 512 tokens: every gradient leaf on the
+# card within this share of the leaf's largest CPU entry, the loss within
+# SMOKE_TRAIN_RTOL
+GRAD_CHECK_LAYERS, GRAD_CHECK_TOKENS, GRAD_CHECK_REL = 2, 512, 1e-4
+# examples/train_lm_torch.py on the card: the resumed run's losses within
+# this of an uninterrupted run's.  The card gave equal losses run to run;
+# the bound leaves room for reordered float sums and sits below the
+# median step-to-step change of the loss (a resume off by a step reads the
+# largest of those changes)
+TWIN_LOSS_ATOL = 1e-3
+
+
+def flat_leaves(tree, path="") -> dict:
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(flat_leaves(v, f"{path}/{k}"))
+        return out
+    return {path: tree}
+
+
+def carried_state_(opt, rng) -> None:
+    """A carried optimizer state, in place: step 10, m ~ N(0, 1e-3), v in
+    [1e-4, 2e-4) — above the squared gradients, so the Adam update is a
+    smooth function of the gradient and a float32 difference in a gradient
+    moves a parameter by far less than a learning rate."""
+    opt["step"].fill_(10)
+    for path, t in flat_leaves(opt["leaves"]).items():
+        if path.endswith("/m"):
+            t.copy_(torch.from_numpy(1e-3 * rng.standard_normal(t.shape)))
+        elif path.endswith("/v"):
+            t.copy_(torch.from_numpy(1e-4 * (1 + rng.random(t.shape))))
+
+
+def smoke_train_batch(cfg, rng, B=4, T=48) -> dict:
+    """tokens and labels (the first 3 labels -1), with an encoder-decoder's
+    frames and a patch frontend's embeddings (its first positions -1)."""
+    toks = rng.integers(0, cfg.vocab, (B, T)).astype(np.int32)
+    labels = rng.integers(0, cfg.vocab, (B, T)).astype(np.int32)
+    labels[:, :3] = -1
+    batch = {"tokens": toks, "labels": labels}
+    if cfg.family == "encdec":
+        batch["enc"] = rng.standard_normal((B, 24, cfg.d_model)).astype(np.float32)
+    if cfg.frontend == "patch_stub":
+        toks[:, :cfg.n_frontend_tokens] = -1
+        batch["frontend"] = (0.02 * rng.standard_normal((B, T, cfg.d_model))).astype(np.float32)
+    return batch
+
+
+def leaf_errors(got: dict, want: dict) -> dict:
+    """Per leaf of two flat trees: (max |a - b|, max |b|), on the CPU."""
+    out = {}
+    for k, w in want.items():
+        a, b = got[k].detach().cpu().float(), w.detach().cpu().float()
+        out[k] = (float((a - b).abs().max()) if b.numel() else 0.0,
+                  float(b.abs().max()) if b.numel() else 0.0)
+    return out
+
+
+def smoke_train_check(rng, arch: str) -> dict:
+    """One ``bundle.step`` (float32 weights and states, microbatch 2) of the
+    smoke config on the CPU and on the card from one carried state: the
+    metrics, every parameter and every state leaf after the step."""
+    cfg = get_smoke_config(arch)
+    if arch == "recurrentgemma-2b":
+        cfg = cfg.scaled(n_layers=8)        # its unscanned groups run too
+    ocfg = OptConfig(**TRAIN_OPT)
+    arrays = draw_np(model_spec(cfg, mesh_ctx(make_local_mesh(device="cpu"))), rng)
+    batch = smoke_train_batch(cfg, rng)
+    state_rng = np.random.default_rng(int(rng.integers(1 << 31)))
+    out = {}
+    for name, device in (("cpu", "cpu"), ("card", None)):
+        mesh = make_local_mesh(device=device)
+        bundle = make_train_step(cfg, mesh, ocfg, batch=4, microbatch=2)
+        params = params_from_numpy(arrays, mesh.device)
+        opt = init_opt_state(params, bundle.plan, ocfg)
+        if name == "cpu":
+            carried_state_(opt, state_rng)
+            carried = {k: v.clone() for k, v in flat_leaves(opt).items()}
+        else:
+            for k, v in flat_leaves(opt).items():
+                v.copy_(carried[k])
+        params, opt, m = bundle.step(params, opt, batch)
+        out[name] = ({k: float(v) for k, v in m.items()}, flat_leaves(params),
+                     flat_leaves(opt))
+    (mc, pc, oc), (mg, pg, og) = out["cpu"], out["card"]
+    metric_err = {k: abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-30) for k in mc}
+    p_err = max(e for e, _ in leaf_errors(pg, pc).values())
+    st = leaf_errors(og, oc)
+    master_err = max(e for k, (e, _) in st.items() if k.endswith("/master"))
+    mv_rel = max(e / max(s, 1e-30) for k, (e, s) in st.items() if k[-2:] in ("/m", "/v"))
+    assert all(metric_err[k] <= SMOKE_TRAIN_RTOL for k in ("loss", "aux", "grad_norm", "lr")), \
+        (arch, metric_err)
+    assert p_err <= SMOKE_TRAIN_PARAM_ATOL and master_err <= SMOKE_TRAIN_PARAM_ATOL, \
+        (arch, p_err, master_err)
+    assert mv_rel <= SMOKE_TRAIN_STATE_REL, (arch, mv_rel)
+    assert int(og["/step"]) == int(oc["/step"]) == 11
+    return {"arch": arch, "n_layers": cfg.n_layers, "loss": mc["loss"], "aux": mc["aux"],
+            "metric_rel_err": metric_err, "param_max_abs_err": p_err,
+            "master_max_abs_err": master_err, "m_v_max_rel_err": mv_rel}
+
+
+def full_width_grad_check(args) -> dict:
+    """qwen2-1.5b at its full width and GRAD_CHECK_LAYERS layers in float32,
+    1 x GRAD_CHECK_TOKENS tokens: the objective's gradient (autograd through
+    remat and the chunked loss) of every leaf on the card against the
+    port's CPU path on the same weights and tokens."""
+    cfg = get_config(TRAIN_ARCH).scaled(n_layers=GRAD_CHECK_LAYERS)
+    ctx = mesh_ctx(make_local_mesh(device="cpu"))
+    spec = model_spec(cfg, ctx)
+    params_cpu = init_params(spec, torch.Generator().manual_seed(args.seed), "cpu")
+    upcast_(params_cpu)
+    gb = global_batch(0, DataConfig(vocab=cfg.vocab, seq_len=GRAD_CHECK_TOKENS, global_batch=1))
+    res, secs = {}, {}
+    for name, dev in (("cpu", torch.device("cpu")), ("card", DEV)):
+        params = params_cpu if name == "cpu" else tree_map(lambda t: t.to(DEV), params_cpu)
+        flat = flat_leaves(params)
+        for t in flat.values():
+            t.requires_grad_(True)
+        t0 = time.perf_counter()
+        x = forward(params, torch.as_tensor(gb["tokens"], device=dev), ctx, cfg)
+        loss = ce_loss(params["embed"], x, torch.as_tensor(gb["labels"], device=dev), ctx, cfg)
+        grads = torch.autograd.grad(loss, list(flat.values()))
+        if name == "card":
+            torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        res[name] = (float(loss.detach()), dict(zip(flat, (g.cpu() for g in grads))))
+        for t in flat.values():
+            t.requires_grad_(False)
+        del params, flat, grads, x, loss
+    (lc, gc), (lg, gg) = res["cpu"], res["card"]
+    errs = leaf_errors(gg, gc)
+    rel = {k: e / max(s, 1e-30) for k, (e, s) in errs.items()}
+    worst = max(rel, key=rel.get)
+    assert abs(lg - lc) <= SMOKE_TRAIN_RTOL * abs(lc), (lg, lc)
+    assert rel[worst] <= GRAD_CHECK_REL, (worst, rel[worst])
+    torch.cuda.empty_cache()
+    return {"config": f"{TRAIN_ARCH} n_layers {cfg.n_layers}, d {cfg.d_model}, vocab "
+                      f"{cfg.vocab}, float32", "tokens": GRAD_CHECK_TOKENS,
+            "params": count_params(spec), "leaves": len(errs), "loss_cpu": lc,
+            "loss_card": lg, "worst_leaf": worst, "worst_rel_err": rel[worst],
+            "tolerance": GRAD_CHECK_REL, "seconds": secs}
+
+
+def train_bound(cfg, n_params: int, state: str) -> dict:
+    """The least time of one step at TRAIN_BATCH x TRAIN_SEQ: the larger of
+    the operations — 6 per parameter per token (forward and backward; the
+    tied table's unembedding counted once, its lookup none) plus causal
+    attention's score and value products, 2 · 2 · B · H · T² / 2 · dh
+    forward and twice that backward — at the bf16 tensor rate, and the
+    optimizer's bytes at the memory rate: the float32 accumulator read,
+    m, v and master read and written (int8: 1-byte codes, float32 scales
+    a 256-block), the bf16 parameter written."""
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    dh = cfg.resolved_head_dim
+    attn = 3 * 2 * TRAIN_BATCH * cfg.n_heads * TRAIN_SEQ ** 2 * dh * cfg.n_layers
+    flops = 6 * n_params * tokens + attn
+    per = 4 + 2 + 8 + (2 * 2 * (1 + 4 / QBLK) if state == "int8" else 2 * 2 * 4)
+    opt_bytes = n_params * per
+    f_ms, b_ms = flops / BF16_TENSOR_FLOPS * 1e3, opt_bytes / HBM_BYTES_PER_S * 1e3
+    return {"flops": flops, "attention_flops": attn, "optimizer_bytes": opt_bytes,
+            "flops_ms": f_ms, "optimizer_bytes_ms": b_ms, "bound_ms": max(f_ms, b_ms),
+            "bound_by": "operations" if f_ms >= b_ms else "bytes"}
+
+
+def train_run(args, cfg, spec, name: str, state, steps: int, compression=None,
+              profile: bool = False) -> dict:
+    """``steps`` of ``bundle.step`` at full width in bfloat16 on one
+    repeated batch (``data.global_batch`` step 0), weights from the seed:
+    every step timed with CUDA events in its two halves (``bundle.grads``,
+    the forward and backward; ``bundle.update``, sync and AdamW — together
+    ``bundle.step``) and its loss read.  With ``profile``, one more step
+    under ``torch.profiler`` (the card's busy share)."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mesh = make_local_mesh()
+    ocfg = OptConfig(**TRAIN_OPT, state_dtype=state)
+    ccfg = (CompressionConfig(ratio=compression, min_leaf_size=65_536, enabled=True)
+            if compression else None)
+    bundle = make_train_step(cfg, mesh, ocfg, batch=TRAIN_BATCH, microbatch=TRAIN_MICROBATCH,
+                             compression=ccfg)
+    params = init_params(spec, torch.Generator(device=DEV).manual_seed(args.seed), DEV)
+    opt = init_opt_state(params, bundle.plan, ocfg)
+    if ccfg:
+        opt["err"] = init_error_state(params, bundle.plan, ccfg)
+    gb = global_batch(0, DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                    global_batch=TRAIN_BATCH))
+    batch = {k: torch.as_tensor(gb[k], device=DEV) for k in ("tokens", "labels")}
+    losses, ms, halves = [], [], []
+    for _ in range(steps):                  # bundle.step, its two halves timed apart
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        marks[0].record()
+        grads, ce, aux = bundle.grads(params, batch)
+        marks[1].record()
+        params, opt, m = bundle.update(params, opt, grads, ce, aux)
+        marks[2].record()
+        del grads
+        torch.cuda.synchronize()
+        ms.append(marks[0].elapsed_time(marks[2]))
+        halves.append((marks[0].elapsed_time(marks[1]), marks[1].elapsed_time(marks[2])))
+        losses.append(float(m["loss"]))
+        assert np.isfinite(losses[-1]), (name, losses)
+    out = {"run": name, "state_dtype": str(state), "steps": steps, "losses": losses,
+           "step_ms": ms, "step_ms_median_warm": float(np.median(ms[1:])),
+           "forward_backward_ms_median_warm": float(np.median([h[0] for h in halves[1:]])),
+           "optimizer_ms_median_warm": float(np.median([h[1] for h in halves[1:]])),
+           "grad_norm_last": float(m["grad_norm"]), "lr_last": float(m["lr"]),
+           "peak_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if ccfg:
+        err = [t for t in flat_leaves(opt["err"]).values() if t.numel() > 1]
+        mass = float(sum(t.abs().sum() for t in err))
+        assert err and 0 < mass < 1e9 and np.isfinite(mass), mass
+        out["compression"] = {"ratio": compression, "eligible_leaves": len(err),
+                              "error_feedback_abs_sum": mass, **bundle.stats["compression_bytes"]}
+    if profile:
+        holder = {}
+
+        def one_step():
+            holder["s"] = bundle.step(params, opt, batch)
+
+        out["profile_one_step"] = device_profile(one_step)
+        holder.clear()
+    del params, opt, bundle
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_lm_twin_on_card() -> dict:
+    """``examples/train_lm_torch.py`` on the card: killed at step 35, resumed
+    from the step-20 checkpoint — the state it resumed with equal to the
+    checkpoint bit for bit — then an uninterrupted run; the resumed run's
+    losses within TWIN_LOSS_ATOL of the uninterrupted run's."""
+    import importlib.util
+    import shutil
+
+    path = ROOT / "examples" / "train_lm_torch.py"
+    spec = importlib.util.spec_from_file_location("train_lm_torch", path)
+    twin = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(twin)
+    checked = {}
+
+    def on_resume(params, opt, step):
+        tree, saved = restore_checkpoint(checked["dir"], step)
+        want = flat_leaves({"params": tree["params"], "opt": tree["opt"]})
+        got = flat_leaves({"params": params, "opt": opt})
+        assert set(got) == set(want)
+        for k, w in want.items():
+            g = got[k].detach().cpu()
+            w = w if isinstance(w, torch.Tensor) else torch.from_numpy(np.array(w))
+            assert g.dtype == w.dtype and torch.equal(
+                g.view(torch.int16) if g.dtype == torch.bfloat16 else g,
+                w.view(torch.int16) if w.dtype == torch.bfloat16 else w), k
+        checked.update(step=step, leaves=len(want))
+
+    root = Path(tempfile.mkdtemp(prefix="train_lm_twin_"))
+    checked["dir"] = root / "killed"
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        res = twin.main(kill_at=35, ckpt_dir=str(root / "killed"), on_resume=on_resume)
+        whole = twin.main(kill_at=0, ckpt_dir=str(root / "whole"))
+    wall = time.perf_counter() - t0
+    shutil.rmtree(root, ignore_errors=True)
+    tail = {r["step"]: r["loss"] for r in whole["resumed"]["steps"]}
+    resumed = res["resumed"]["steps"]
+    diff = max(abs(r["loss"] - tail[r["step"]]) for r in resumed)
+    # a resume one step off reads the largest of the uninterrupted run's
+    # step-to-step loss changes
+    shift = [abs(tail[s + 1] - tail[s]) for s in range(20, 59)]
+    assert checked.get("step") == 20 and [r["step"] for r in resumed] == list(range(20, 60))
+    assert diff <= TWIN_LOSS_ATOL, diff
+    return {"resumed_from": checked["step"], "leaves_bit_equal": checked["leaves"],
+            "resumed_steps": len(resumed), "max_abs_loss_diff_vs_uninterrupted": diff,
+            "tolerance": TWIN_LOSS_ATOL,
+            "step_to_step_loss_change": {"median": float(np.median(shift)), "max": max(shift)},
+            "last_loss": resumed[-1]["loss"], "wall_s": wall}
+
+
+def model_train_phase(args, smi) -> None:
+    """The training path on the card (``train.make_train_step``,
+    ``optim``, ``launch.train`` through its example twin), which launches no
+    PBS kernel (the launch counts must read 0): the ten smoke configs'
+    CPU = card step, the full-width gradient check, then qwen2-1.5b at full
+    width (28 layers, bf16) in three runs — f32 states, int8 states,
+    compression — and last the ``train_lm`` twin's kill and resume."""
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(args.seed)
+    platform.reset_launch_counts()
+    t0 = time.perf_counter()
+    smoke = [smoke_train_check(rng, arch) for arch in TRAIN_SMOKE_ARCHS]
+    emit({"phase": "model_train", "step": "smoke_width_cpu_vs_card", "configs": smoke,
+          "tolerances": {"metrics_rel": SMOKE_TRAIN_RTOL, "params_abs": SMOKE_TRAIN_PARAM_ATOL,
+                         "m_v_rel_to_leaf_max": SMOKE_TRAIN_STATE_REL},
+          "seconds": time.perf_counter() - t0})
+    grad = full_width_grad_check(args)
+    emit({"phase": "model_train", "step": "full_width_gradients", **grad})
+
+    cfg = get_config(TRAIN_ARCH)
+    spec = model_spec(cfg, mesh_ctx(make_local_mesh()))
+    n_params = count_params(spec)
+    runs = {"f32": train_run(args, cfg, spec, "f32", torch.float32, TRAIN_STEPS, profile=True)}
+    runs["int8"] = train_run(args, cfg, spec, "int8", "int8", TRAIN_STEPS)
+    runs["compression"] = train_run(args, cfg, spec, "compression", torch.float32,
+                                    TRAIN_COMPRESSED_STEPS, compression=TRAIN_COMPRESSION)
+    f32, int8 = runs["f32"]["losses"], runs["int8"]["losses"]
+    descent = f32[0] - f32[-1]
+    int8_rel = max(abs(a - b) / abs(b) for a, b in zip(int8, f32))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    for name, r in runs.items():
+        b = train_bound(cfg, n_params, "int8" if name == "int8" else "f32")
+        r.update(b, tokens_per_s=tokens / (r["step_ms_median_warm"] / 1e3),
+                 bound_share=b["bound_ms"] / r["step_ms_median_warm"])
+        emit({"phase": "model_train", "step": "full_width", "gpu": smi, **r})
+    twin = train_lm_twin_on_card()
+    emit({"phase": "model_train", "step": "train_lm_twin", **twin})
+    pbs = platform.launch_counts()
+    assert descent >= TRAIN_DESCENT, f32
+    assert int8_rel <= TRAIN_INT8_RTOL, (int8, f32)
+    assert not pbs, pbs                      # the training path launches no PBS kernel
+    emit({"phase": "model_train", "gpu": smi,
+          "config": {"arch": TRAIN_ARCH, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+                     "vocab": cfg.vocab, "params": n_params, "dtype": "bfloat16",
+                     "weights": f"torch.Generator seed {args.seed}",
+                     "batch": f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens, microbatch "
+                              f"{TRAIN_MICROBATCH} x {TRAIN_BATCH // TRAIN_MICROBATCH}",
+                     "reduced": "global batch 256 -> 8 (the reference's train_4k cell), "
+                                "memory of one card",
+                     "opt": TRAIN_OPT},
+          "f32_loss_descent": descent, "descent_required": TRAIN_DESCENT,
+          "int8_vs_f32_max_rel": int8_rel, "int8_rtol": TRAIN_INT8_RTOL,
+          "step_ms_median_warm": {k: r["step_ms_median_warm"] for k, r in runs.items()},
+          "bound_ms": {k: r["bound_ms"] for k, r in runs.items()},
+          "peak_memory_allocated_gb": {k: r["peak_memory_allocated_gb"]
+                                       for k, r in runs.items()},
+          "pbs_kernel_launches": pbs,
+          "model_train_phase_s": time.perf_counter() - t_phase})
+
+
+TRAIN_SMOKE_ARCHS = ("qwen2-1.5b", "internlm2-1.8b", "qwen3-14b", "command-r-35b",
+                     "recurrentgemma-2b", "mamba2-780m", "deepseek-v2-236b",
+                     "deepseek-v3-671b", "whisper-tiny", "pixtral-12b")
+
 
 def profile_run(sessions, out_path):
     """One more warm ``run()`` under ``torch.profiler``: device time by
@@ -3190,6 +3581,7 @@ def main() -> None:
             launches["examples"], launched["examples"] = examples_phase()
         del sessions, serve_results, trees
         model_serve_phase(args, smi)
+        model_train_phase(args, smi)
         report = main_shape_phase(args, rng, launched, k4_inputs, sass)
         emit({"kernels": [
             {"name": name, **meta, "launches": launches[HOME_PATH[name]][name], **report[name],

@@ -1,1 +1,2 @@
-"""Launch layer: meshes (one card so far)."""
+"""Launch layer: meshes (one card so far), the elastic control plane and the
+training driver."""

@@ -1,3 +1,12 @@
-"""Training layer: the mesh helpers the serving engine shares (the training
-step itself is slice 2 of ROADMAP Queue A item 15)."""
-from .step import batch_axes, mesh_ctx, mesh_sizes  # noqa: F401
+"""Training layer: the step factory (``make_train_step``) and state init,
+and the mesh helpers the serving engine shares."""
+from .step import (  # noqa: F401
+    TrainBundle,
+    batch_axes,
+    batch_pspec_tree,
+    batch_shapes,
+    init_train_state,
+    make_train_step,
+    mesh_ctx,
+    mesh_sizes,
+)

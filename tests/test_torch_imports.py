@@ -32,6 +32,10 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
         import repro_torch.models.rglru, repro_torch.models.ssm
         import repro_torch.configs, repro_torch.serve, repro_torch.serve.engine
         import repro_torch.serve.scheduler, repro_torch.launch.mesh, repro_torch.train.step
+        import repro_torch.optim, repro_torch.optim.adamw, repro_torch.optim.compression
+        import repro_torch.train, repro_torch.data, repro_torch.data.pipeline
+        import repro_torch.checkpoint, repro_torch.checkpoint.manager
+        import repro_torch.launch.elastic, repro_torch.launch.train
         for arch in repro_torch.configs.ARCH_IDS:
             repro_torch.configs.get_config(arch)
         bad = sorted(
@@ -50,7 +54,7 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
 def test_sources_name_no_jax_import():
     root = Path(SRC) / "repro_torch"
     twins = sorted((Path(SRC).parent / "examples").glob("*_torch.py"))
-    assert len(twins) == 4
+    assert len(twins) == 6
     files = list(root.rglob("*.py")) + [Path(SRC).parent / "chip_smoke.py"] + twins
     assert len(files) > 18
     for path in files:
@@ -68,7 +72,7 @@ def test_example_twins_import_no_jax_and_no_reference_package():
         import importlib.util, sys
         from pathlib import Path
         paths = sorted(Path({str(Path(SRC).parent / "examples")!r}).glob("*_torch.py"))
-        assert len(paths) == 4, paths
+        assert len(paths) == 6, paths
         for path in paths:
             spec = importlib.util.spec_from_file_location(path.stem, path)
             mod = importlib.util.module_from_spec(spec)
@@ -83,7 +87,7 @@ def test_example_twins_import_no_jax_and_no_reference_package():
         print("clean", len(paths))
     """)
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.strip() == "clean 4"
+    assert proc.stdout.strip() == "clean 6"
 
 
 def test_every_kernel_has_source_and_plain_version():
