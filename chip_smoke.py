@@ -28,7 +28,7 @@ just before it and read just after:
   into 2 encode launches and 1 decode launch per cohort-round; then a
   2-peer hub where one peer crashes and resumes through ``MSG_RESUME``;
 * ``sync`` — a continuous hub (``run_hub_epoch``) with 2 peers of |A| =
-  10^6 for 2 epochs of seeded churn, the resident stores patched in place;
+  10^6 for 3 epochs of seeded churn, the resident stores patched in place;
 * ``obs`` — the observability layer at deployment size: a 2-peer chaos hub
   (one peer crashes and resumes, one sits behind a lossy ARQ channel) with
   one shared ``Tracer(torch_profiler=True)`` as every component's tracer
@@ -89,6 +89,18 @@ just before it and read just after:
   the ``train_lm`` twin killed at step 35 and resumed (the resumed state
   bit-equal to the checkpoint, its losses within ``TWIN_LOSS_ATOL`` of an
   uninterrupted run's).
+* ``dryrun`` — ``launch.dryrun`` and ``roofline``, which launch no PBS
+  kernel: the 40-cell grid counted on meta tensors by
+  ``python -m repro_torch.launch.dryrun``, one process an arch, the card
+  hidden from them, counting beside the kernels' build and sweeps and
+  read before the first path runs (at most ``DRYRUN_GRID_BUDGET_S``;
+  records under ``chiprun_out/dryrun/``), then
+  four cells at a reduced batch predicted on meta tensors and run for
+  real — qwen2-1.5b train_4k (``model_train``'s f32 run, re-used),
+  prefill_32k and decode_32k, mamba2-780m long_500k: flops equal to
+  ``FlopCounterMode``'s over the real step, the peak within
+  ``roofline.PEAK_RTOL`` of ``max_memory_allocated``, the measured step no
+  faster than the roofline step.
 
 Every result is compared with the package's own numpy oracle
 ``core.pbs.reconcile`` (per session, per tree leaf) and with the true set
@@ -111,14 +123,16 @@ hash from ``cuobjdump -sass`` of the built kernels (phase ``sass``).
 
 Each phase prints one JSON line (a few print more); any failed phase
 raises and the process exits non-zero.  ``--kernels-only`` skips every
-path, ``model_serve`` and ``model_train`` included.  The last line of standard output is
+path, ``model_serve``, ``model_train`` and ``dryrun`` included.  The last line of standard output is
 ``{"ok": true, "device": {...}}``.  Needs a CUDA device: exits 1 without one.
 """
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import ctypes
+import gc
 import json
 import multiprocessing
 import os
@@ -144,6 +158,7 @@ if not torch.cuda.is_available():
 from repro_torch.core.bch import BCHCode  # noqa: E402
 from repro_torch.core.pbs import PBSConfig, plan_from_d_known, reconcile  # noqa: E402
 from repro_torch.core.simdata import make_pair, make_pair_two_sided  # noqa: E402
+from repro_torch.core.sets import setdiff_keys, setxor_keys, unique_keys  # noqa: E402
 from repro_torch.kernels import platform  # noqa: E402
 from repro_torch.kernels.bin_xorsum import (  # noqa: E402
     bin_parity_xorsum,
@@ -222,15 +237,24 @@ from repro_torch.optim import OptConfig, init_opt_state  # noqa: E402
 from repro_torch.optim.adamw import QBLK  # noqa: E402
 from repro_torch.optim.compression import CompressionConfig, init_error_state  # noqa: E402
 from repro_torch.train import make_train_step  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch.cells import ENC_LEN, SHAPES, all_cells, at_position, build_cell  # noqa: E402
+from repro_torch.roofline import (  # noqa: E402
+    HBM_BYTES,
+    HBM_BYTES_PER_S,
+    PEAK_BF16_FLOPS,
+    PEAK_RTOL,
+)
+from repro_torch.serve.engine import cache_spec  # noqa: E402
 
 DEV = torch.device("cuda", 0)
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense): device memory
-# 3.35 TB/s; int8 tensor cores 1979 TOP/s (the rate a 0/1 matrix product is
-# held to); 67 T op/s for 32-bit arithmetic outside the tensor cores (the
-# float32 figure — the integer pipes are narrower, so the bound is generous).
-HBM_BYTES_PER_S = 3.35e12
-BF16_TENSOR_FLOPS = 989e12        # dense bf16 tensor-core rate (phase model_serve)
+# at HBM_BYTES_PER_S and the dense bf16 tensor-core rate PEAK_BF16_FLOPS
+# (phase model_serve and the roofline), both from repro_torch.roofline;
+# int8 tensor cores 1979 TOP/s (the rate a 0/1 matrix product is held to);
+# 67 T op/s for 32-bit arithmetic outside the tensor cores (the float32
+# figure — the integer pipes are narrower, so the bound is generous).
 INT8_TENSOR_OPS_PER_S = 1979e12
 ALU32_OPS_PER_S = 67e12
 
@@ -305,9 +329,15 @@ HOME_PATH = {"bin_xorsum_units": "serve", "gf2_matmul": "serve", "tow_sketch": "
 
 
 _OUT = []     # files that receive every JSON line besides standard output
+_T_START = time.perf_counter()
 
 
 def emit(obj) -> None:
+    """Print one JSON line (and write it to every ``--out`` file); a phase's
+    line also gets ``t_s``, the seconds since the script started, so a log
+    splits the whole run's time by phase."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - _T_START}
     line = json.dumps(obj)
     print(line, flush=True)
     for f in _OUT:
@@ -1231,7 +1261,7 @@ def serve_phase(args, rng, pool):
         got, want = results[sid], wants[sid]
         assert got.success, (sid, label)
         assert got == want, (sid, label, got, want)      # every result field
-        assert got.diff == set(np.setxor1d(a, b).tolist()), (sid, label)
+        assert got.diff == set(setxor_keys(a, b).tolist()), (sid, label)
     oracle_s = time.perf_counter() - t0
 
     warm_server, warm_results, warm_s, warm_submit_s = run_server(sessions)
@@ -1281,15 +1311,15 @@ def tree_pairs(args):
     union = args.size
     d = max(2, int(0.01 * union))
     half = d // 2
-    univ = np.unique(rng.choice(1 << 32, size=union, replace=False).astype(np.uint32))
+    univ = unique_keys(rng.choice(1 << 32, size=union, replace=False).astype(np.uint32))
     a = univ[: union - d + half]
     b = np.concatenate([univ[: union - d], univ[union - d + half :]])
     rng = np.random.default_rng(args.seed + 78)
     shared = rng.choice(1 << 32, size=union, replace=False).astype(np.uint64)
     lo = int(rng.integers(0, (1 << 32) - (1 << 16)))
     hot = lo + rng.choice(1 << 16, size=2000, replace=False)
-    a2 = np.unique(np.concatenate([shared, hot[:1000]]).astype(np.uint32))
-    b2 = np.unique(np.concatenate([shared, hot[1000:]]).astype(np.uint32))
+    a2 = unique_keys(np.concatenate([shared, hot[:1000]]).astype(np.uint32))
+    b2 = unique_keys(np.concatenate([shared, hot[1000:]]).astype(np.uint32))
     return [("uniform", a, b), ("clustered", a2, b2)]
 
 
@@ -1320,7 +1350,7 @@ def tree_run(label, a, b, cfg, pool, captured):
         assert launches.get(name, 0) > 0, f"tree path never launched {name}: {launches}"
     assert st.launches == st.levels == launches["tree_digest"], (st, launches)
     assert tr.success, label
-    truth = set(np.setxor1d(a, b).tolist())
+    truth = set(setxor_keys(a, b).tolist())
     assert tr.diff == truth, label
     depth_bound = 32 - int(np.floor(np.log2(tcfg.leaf_d)))
     assert st.depth <= depth_bound, (label, st.depth, depth_bound)
@@ -1328,7 +1358,7 @@ def tree_run(label, a, b, cfg, pool, captured):
     # every leaf against a standalone oracle session over its range at the
     # tree's planned d; plain PBS at the honest and a 10x-wrong d beside it
     t0 = time.perf_counter()
-    au, bu = np.unique(a), np.unique(b)
+    au, bu = unique_keys(a), unique_keys(b)
     jobs = [(sa, sb, cfg, leaf.d_plan)
             for sa, sb, leaf in zip(leaf_slices(au, tr.leaves), leaf_slices(bu, tr.leaves),
                                     tr.leaves)]
@@ -1407,13 +1437,13 @@ def recording_k4(captured):
 def walk_setup_split(a, b, reps: int = 3) -> dict:
     """The set-up pieces of ``partition_pair`` outside its level spans, each
     timed alone on the same pair as the walk runs them (median of ``reps``):
-    ``np.unique`` of each side, the two checksum prefix sums, the key
+    ``unique_keys`` of each side, the two checksum prefix sums, the key
     upload."""
     times = {"unique_s": [], "prefix_s": [], "upload_s": []}
     for _ in range(reps):
         t0 = time.perf_counter()
-        ua = np.unique(np.asarray(a, dtype=np.uint32))
-        ub = np.unique(np.asarray(b, dtype=np.uint32))
+        ua = unique_keys(np.asarray(a, dtype=np.uint32))
+        ub = unique_keys(np.asarray(b, dtype=np.uint32))
         t1 = time.perf_counter()
         tree_partition._checksum_prefix(ua)
         tree_partition._checksum_prefix(ub)
@@ -1467,10 +1497,10 @@ def encode_group_phase(rng):
     and the two-sided round trip of the kernel tests (BCH(255, 11), 6
     differing keys, decoded by ``bch_decode_batched``)."""
     platform.reset_launch_counts()
-    keys = np.unique(rng.integers(1, 1 << 32, size=1_000_100, dtype=np.uint64).astype(np.uint32))
+    keys = unique_keys(rng.integers(1, 1 << 32, size=1_000_100, dtype=np.uint64).astype(np.uint32))
     big = np.concatenate([[0], keys[:999_999]]).astype(np.uint32)    # key 0 is a member
     group = rng.integers(1, 1 << 32, size=4096, dtype=np.uint64).astype(np.uint32)
-    base = np.unique(rng.integers(1, 1 << 32, size=4000, dtype=np.uint64).astype(np.uint32))
+    base = unique_keys(rng.integers(1, 1 << 32, size=4000, dtype=np.uint64).astype(np.uint32))
     cases = [("set 10^6", big, BCHCode(8191, 16), 7), ("group 4096", group, BCHCode(255, 16), 7),
              ("round trip A", base, BCHCode(255, 11), 11),
              ("round trip B", base[:-6], BCHCode(255, 11), 11)]
@@ -1642,7 +1672,7 @@ def wire_tree_run(a, b, cfg, tr, captured):
         assert results[sid] == tr.results[sid], sid          # every result field
         diff |= results[sid].diff
     assert sorted(results) == list(range(st.leaves))
-    assert diff == set(np.setxor1d(a, b).tolist())
+    assert diff == set(setxor_keys(a, b).tolist())
     assert bob.verified == [True] * st.leaves
     sa, sb = side_report(alice, levels), side_report(bob, levels)
     tree_bytes = sa["wire_stats"]["tree_frame_bytes"]
@@ -1670,7 +1700,7 @@ def wire_phase(sessions, serve_results, trees):
     est = next(s for s in picks if sessions[s][4] is None)
     _, a, _, cfg, _ = sessions[est]
     t0 = time.perf_counter()
-    tow_sketches(np.unique(a), derive_seed(cfg.seed, 0x70), cfg.ell)
+    tow_sketches(unique_keys(a), derive_seed(cfg.seed, 0x70), cfg.ell)
     emit({"phase": "wire", "host_phase0_sketch_s": time.perf_counter() - t0,
           "keys": len(a), "ell": cfg.ell})
 
@@ -1792,7 +1822,7 @@ def hub_run(sessions, serve_results, trees, captured):
         assert results[ch_tree][sid] == tr.results[sid], sid      # every result field
     assert sorted(results[ch_tree]) == list(range(ts.leaves))
     tree_diff = set().union(*(r.diff for r in results[ch_tree].values()))
-    assert tree_diff == set(np.setxor1d(a3, b3).tolist())
+    assert tree_diff == set(setxor_keys(a3, b3).tolist())
     for ch, o in outcomes.items():
         assert o.ok and o.error_kind is None, (ch, o.error)
         assert o.verified == [True] * len(results[ch]), ch
@@ -1948,8 +1978,8 @@ def epoch_churn(rng, base, n: int):
     ``base``: ``n`` fresh keys added and ``n`` keys removed a side, the two
     sides' keys disjoint, so the epoch's difference is exactly 4n keys."""
     removed = rng.permutation(base)[: 2 * n]
-    fresh = np.setdiff1d(
-        np.unique(rng.integers(1, 1 << 32, size=3 * n, dtype=np.uint64).astype(np.uint32)),
+    fresh = setdiff_keys(
+        unique_keys(rng.integers(1, 1 << 32, size=3 * n, dtype=np.uint64).astype(np.uint32)),
         base)
     fresh = rng.permutation(fresh)[: 2 * n]
     assert len(fresh) == 2 * n
@@ -2017,7 +2047,7 @@ def sync_run(args, sessions, pool, cold=None):
                          cfgs[ch], dks[ch]) for ch in alices]
                 for r, want, (a_e, b_e, _, _) in zip(got, pool.starmap(reconcile, jobs), jobs):
                     assert r.success and r == want, (e, r, want)
-                    truth = set(np.setxor1d(a_e, b_e).tolist())
+                    truth = set(setxor_keys(a_e, b_e).tolist())
                     assert r.diff == truth and (e == 0 or len(truth) == d_epoch), e
             else:
                 assert got == cold[e]["results"], e
@@ -3003,7 +3033,7 @@ def model_serve_row(args, smi, row: ModelRow) -> None:
         flops = (2 * (active - enc_params) * SERVE_BATCH * plen + logit_flops
                  + 2 * enc_params * SERVE_BATCH * frames
                  + ssd_prefill_flops(cfg, SERVE_BATCH, plen))
-        bound = flops / BF16_TENSOR_FLOPS * 1e3
+        bound = flops / PEAK_BF16_FLOPS * 1e3
         prefill[plen] = {"batch_rows": SERVE_BATCH, "real_rows": n, "ms": ms,
                          "tok_per_s": SERVE_BATCH * plen / (ms / 1e3),
                          "real_tok_per_s": n * plen / (ms / 1e3),
@@ -3284,7 +3314,7 @@ def train_bound(cfg, n_params: int, state: str) -> dict:
     flops = 6 * n_params * tokens + attn
     per = 4 + 2 + 8 + (2 * 2 * (1 + 4 / QBLK) if state == "int8" else 2 * 2 * 4)
     opt_bytes = n_params * per
-    f_ms, b_ms = flops / BF16_TENSOR_FLOPS * 1e3, opt_bytes / HBM_BYTES_PER_S * 1e3
+    f_ms, b_ms = flops / PEAK_BF16_FLOPS * 1e3, opt_bytes / HBM_BYTES_PER_S * 1e3
     return {"flops": flops, "attention_flops": attn, "optimizer_bytes": opt_bytes,
             "flops_ms": f_ms, "optimizer_bytes_ms": b_ms, "bound_ms": max(f_ms, b_ms),
             "bound_by": "operations" if f_ms >= b_ms else "bytes"}
@@ -3297,9 +3327,12 @@ def train_run(args, cfg, spec, name: str, state, steps: int, compression=None,
     every step timed with CUDA events in its two halves (``bundle.grads``,
     the forward and backward; ``bundle.update``, sync and AdamW — together
     ``bundle.step``) and its loss read.  With ``profile``, one more step
-    under ``torch.profiler`` (the card's busy share)."""
+    under ``torch.profiler`` (the card's busy share), and one more under
+    ``FlopCounterMode`` (phase dryrun's flops check).  The peak is also
+    read above what was allocated when the run began."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    at_start = torch.cuda.memory_allocated()
     mesh = make_local_mesh()
     ocfg = OptConfig(**TRAIN_OPT, state_dtype=state)
     ccfg = (CompressionConfig(ratio=compression, min_leaf_size=65_536, enabled=True)
@@ -3332,7 +3365,8 @@ def train_run(args, cfg, spec, name: str, state, steps: int, compression=None,
            "forward_backward_ms_median_warm": float(np.median([h[0] for h in halves[1:]])),
            "optimizer_ms_median_warm": float(np.median([h[1] for h in halves[1:]])),
            "grad_norm_last": float(m["grad_norm"]), "lr_last": float(m["lr"]),
-           "peak_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
+           "peak_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "peak_above_start_bytes": torch.cuda.max_memory_allocated() - at_start}
     if ccfg:
         err = [t for t in flat_leaves(opt["err"]).values() if t.numel() > 1]
         mass = float(sum(t.abs().sum() for t in err))
@@ -3347,6 +3381,7 @@ def train_run(args, cfg, spec, name: str, state, steps: int, compression=None,
 
         out["profile_one_step"] = device_profile(one_step)
         holder.clear()
+        out["counted_step_flops"] = counted_flops(lambda: bundle.step(params, opt, batch))
     del params, opt, bundle
     torch.cuda.empty_cache()
     return out
@@ -3424,6 +3459,10 @@ def model_train_phase(args, smi) -> None:
     cfg = get_config(TRAIN_ARCH)
     spec = model_spec(cfg, mesh_ctx(make_local_mesh()))
     n_params = count_params(spec)
+    # phase dryrun's prediction of the f32 run's step, counted on meta tensors
+    predicted = dryrun_prediction(TRAIN_ARCH, "train_4k", TRAIN_BATCH,
+                                  microbatch=TRAIN_MICROBATCH,
+                                  opt_cfg=OptConfig(**TRAIN_OPT, state_dtype=torch.float32))
     runs = {"f32": train_run(args, cfg, spec, "f32", torch.float32, TRAIN_STEPS, profile=True)}
     runs["int8"] = train_run(args, cfg, spec, "int8", "int8", TRAIN_STEPS)
     runs["compression"] = train_run(args, cfg, spec, "compression", torch.float32,
@@ -3436,6 +3475,9 @@ def model_train_phase(args, smi) -> None:
         b = train_bound(cfg, n_params, "int8" if name == "int8" else "f32")
         r.update(b, tokens_per_s=tokens / (r["step_ms_median_warm"] / 1e3),
                  bound_share=b["bound_ms"] / r["step_ms_median_warm"])
+        if name == "f32":                    # the counter's flops against the hand count
+            r.update(counter_flops=predicted["flops"],
+                     counter_over_hand_flops=predicted["flops"] / b["flops"])
         emit({"phase": "model_train", "step": "full_width", "gpu": smi, **r})
     twin = train_lm_twin_on_card()
     emit({"phase": "model_train", "step": "train_lm_twin", **twin})
@@ -3460,11 +3502,259 @@ def model_train_phase(args, smi) -> None:
                                        for k, r in runs.items()},
           "pbs_kernel_launches": pbs,
           "model_train_phase_s": time.perf_counter() - t_phase})
+    return {"prediction": predicted, "run": runs["f32"]}
 
 
 TRAIN_SMOKE_ARCHS = ("qwen2-1.5b", "internlm2-1.8b", "qwen3-14b", "command-r-35b",
                      "recurrentgemma-2b", "mamba2-780m", "deepseek-v2-236b",
                      "deepseek-v3-671b", "whisper-tiny", "pixtral-12b")
+
+
+# ---------------------------------------------------------------------------
+# the dry-run grid and its roofline, held against the card (phase dryrun)
+# ---------------------------------------------------------------------------
+
+# the whole 40-cell grid on meta tensors (repro_torch.launch.dryrun) takes
+# at most this long
+DRYRUN_GRID_BUDGET_S = 120
+# (b): cells at a reduced batch, each predicted on meta tensors and then
+# run once for real on the card; (arch, shape, batch, why this one).  The
+# fourth, qwen2-1.5b train_4k at TRAIN_BATCH, is phase model_train's f32 run
+DRYRUN_CHECKS = (
+    ("qwen2-1.5b", "prefill_32k", 1, "the blockwise pair loop at full length"),
+    ("qwen2-1.5b", "decode_32k", 8, "a full 32 k cache read"),
+    ("mamba2-780m", "long_500k", 1, "the one sub-quadratic decode at 524 288"),
+)
+DRYRUN_REPS = 3
+
+
+def counted_flops(step) -> int:
+    """The flops ``FlopCounterMode`` counts over one call of ``step``."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as counter:
+        result = step()
+    del result
+    return counter.get_total_flops()
+
+
+def dryrun_prediction(arch: str, shape: str, batch: int, memo=None, **build) -> dict:
+    """The dry run's count of one cell at ``batch`` rows (meta tensors): its
+    flops, bytes and peak, the roofline terms on one card and the model's
+    flops over the roofline step (``roofline_fraction``)."""
+    info = SHAPES[shape]
+    _, roo, times = dryrun.count_cell(arch, shape, make_local_mesh(device="meta"), memo,
+                                      batch=batch, **build)
+    compute_s = roo["flops_global"] / PEAK_BF16_FLOPS
+    memory_s = roo["bytes_global"] / HBM_BYTES_PER_S
+    step_s = max(compute_s, memory_s)
+    mf = dryrun.model_flops(arch, info["kind"], batch, info["seq"])
+    return {"flops": int(roo["flops_global"]), "bytes": roo["bytes_global"],
+            "peak_bytes": roo["peak_bytes_per_device"],
+            "argument_bytes": roo["argument_bytes_per_device"],
+            "compute_s": compute_s, "memory_s": memory_s, "step_s": step_s,
+            "bound": "compute_s" if compute_s >= memory_s else "memory_s",
+            "model_flops": mf, "roofline_fraction": mf / PEAK_BF16_FLOPS / step_s,
+            "count_s": times}
+
+
+def cell_on_card(arch: str, shape: str, batch: int, seed: int):
+    """The cell's step function and a maker of its arguments on the card:
+    weights drawn from ``seed`` by the model's init law, random tokens, and
+    a decode's zeroed caches at the cell's last position (fresh ``"len"``s a
+    call: decode advances them)."""
+    cfg = get_config(arch)
+    seq = SHAPES[shape]["seq"]
+    cell = build_cell(arch, shape, make_local_mesh(device="meta"), batch=batch)
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    params = init_params(model_spec(cfg, mesh_ctx(make_local_mesh())), gen, DEV)
+    if cell.kind == "prefill":
+        tokens = torch.randint(0, cfg.vocab, (batch, seq), generator=gen, device=DEV,
+                               dtype=torch.int32)
+        return cell, lambda: (params, {"tokens": tokens})
+    caches = init_params(cache_spec(cfg, make_local_mesh(), batch, seq, ENC_LEN), gen, DEV)
+    tokens = torch.randint(0, cfg.vocab, (batch, 1), generator=gen, device=DEV,
+                           dtype=torch.int32)
+    return cell, lambda: (params, at_position(caches, seq - 1), tokens)
+
+
+def measured_cell(arch: str, shape: str, batch: int, seed: int) -> dict:
+    """One cell's step on the card: a warm-up call under ``FlopCounterMode``
+    (its flops), then DRYRUN_REPS calls timed with CUDA events, their peak
+    read above what was allocated before the arguments were made."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    cell, make_args = cell_on_card(arch, shape, batch, seed)
+    flops = counted_flops(lambda: cell.fn(*make_args()))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for _ in range(DRYRUN_REPS):
+        args = make_args()
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        marks[0].record()
+        out = cell.fn(*args)
+        marks[1].record()
+        torch.cuda.synchronize()
+        ms.append(marks[0].elapsed_time(marks[1]))
+        del out, args
+    peak = torch.cuda.max_memory_allocated() - before
+    del cell, make_args
+    torch.cuda.empty_cache()
+    return {"step_ms": ms, "step_ms_median": float(np.median(ms)), "peak_bytes": peak,
+            "flops": flops}
+
+
+def dryrun_check(arch: str, shape: str, batch: int, why: str, predicted: dict,
+                 measured: dict, reduced: str) -> dict:
+    """Prediction against the card: flops equal, the peak within PEAK_RTOL,
+    the step no faster than the roofline allows."""
+    peak_rel = predicted["peak_bytes"] / measured["peak_bytes"] - 1
+    row = {"arch": arch, "shape": shape, "batch": batch, "why": why, "reduced": reduced,
+           "predicted": predicted, "measured": measured,
+           "flops_equal": predicted["flops"] == measured["flops"],
+           "peak_rel_err": peak_rel, "peak_rtol": PEAK_RTOL,
+           "roofline_step_ms": predicted["step_s"] * 1e3,
+           "roofline_fraction": predicted["roofline_fraction"],
+           "bound_share": predicted["step_s"] * 1e3 / measured["step_ms_median"]}
+    emit({"phase": "dryrun", "step": "check", **row})
+    assert row["flops_equal"], (arch, shape, predicted["flops"], measured["flops"])
+    assert abs(peak_rel) <= PEAK_RTOL, (arch, shape, peak_rel)
+    assert measured["step_ms_median"] >= row["roofline_step_ms"], (arch, shape, row)
+    return row
+
+
+# processes of the grid at once, beside the kernels' build (three nvcc) and
+# the main process; the archs with routed experts go first: they take longest
+DRYRUN_GRID_PROCS = max(1, (os.cpu_count() or 8) - 3)
+DRYRUN_GRID_FIRST = ("deepseek-v3-671b", "deepseek-v2-236b")
+
+
+def start_dryrun_grid(out_dir: Path) -> dict:
+    """Start the 40-cell grid: ``python -m repro_torch.launch.dryrun --arch
+    <arch> --out out_dir``, one process an arch, at most DRYRUN_GRID_PROCS
+    at once, the card hidden from them (``CUDA_VISIBLE_DEVICES`` empty: the
+    dry run needs none).  They count on the host while the kernels build
+    and their sweeps run, which nothing times; ``dryrun_grid`` waits for
+    them before the first timed phase.  Each one's lines go to
+    ``out_dir/<arch>.log``; ``stop_dryrun_grid`` ends them."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    archs = list(dict.fromkeys(arch for arch, _ in all_cells()))
+    archs = [a for a in DRYRUN_GRID_FIRST if a in archs] + [
+        a for a in archs if a not in DRYRUN_GRID_FIRST]
+    for arch, shape in all_cells():
+        (out_dir / f"{arch}__{shape}__card.json").unlink(missing_ok=True)
+    path = [str(ROOT / "src")] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "1",
+           "PYTHONPATH": os.pathsep.join(path)}
+    grid = {"out_dir": out_dir, "archs": archs, "logs": {}, "procs": {}, "stop": False,
+            "lock": threading.Lock(), "t0": time.perf_counter()}
+
+    def run():
+        for arch in archs:
+            while sum(p.poll() is None for p in grid["procs"].values()) >= DRYRUN_GRID_PROCS:
+                time.sleep(0.05)
+            with grid["lock"]:
+                if grid["stop"]:
+                    return
+                grid["logs"][arch] = open(out_dir / f"{arch}.log", "w")
+                grid["procs"][arch] = subprocess.Popen(
+                    [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                     "--out", str(out_dir)], stdout=grid["logs"][arch],
+                    stderr=subprocess.STDOUT, env=env, cwd=ROOT)
+        for proc in grid["procs"].values():
+            proc.wait()
+        grid["wall_s"] = time.perf_counter() - grid["t0"]
+
+    grid["waiter"] = threading.Thread(target=run, daemon=True)
+    grid["waiter"].start()
+    return grid
+
+
+def stop_dryrun_grid(grid: dict) -> None:
+    with grid["lock"]:
+        grid["stop"] = True
+    for proc in grid["procs"].values():
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+    for log in grid["logs"].values():
+        log.close()
+
+
+def dryrun_grid(grid: dict) -> dict:
+    """Wait for the grid ``start_dryrun_grid`` started (its wall from the
+    first start to the last exit, torch's imports included, at most
+    DRYRUN_GRID_BUDGET_S) and read its 40 records."""
+    grid["waiter"].join(max(0.0, grid["t0"] + DRYRUN_GRID_BUDGET_S - time.perf_counter()))
+    if grid["waiter"].is_alive():
+        stop_dryrun_grid(grid)
+        raise AssertionError(f"the dry-run grid ran past {DRYRUN_GRID_BUDGET_S} s")
+    stop_dryrun_grid(grid)
+    assert list(grid["procs"]) == grid["archs"], (list(grid["procs"]), grid["archs"])
+    for arch, proc in grid["procs"].items():
+        log = (grid["out_dir"] / f"{arch}.log").read_text()
+        assert proc.returncode == 0, (arch, proc.returncode, log[-4000:])
+    grid_s = grid["wall_s"]
+    recs = [json.loads((grid["out_dir"] / f"{arch}__{shape}__card.json").read_text())
+            for arch, shape in all_cells()]
+    rows = []
+    for r in recs:
+        row = {"arch": r["arch"], "shape": r["shape"], "status": r["status"]}
+        if r["status"] == "ok":
+            roo = r["roofline"]
+            row.update(flops=r["hlo"]["flops_global"], bytes=r["hlo"]["bytes_global"],
+                       peak_gb=r["memory"]["peak_bytes_per_device"] / 1e9,
+                       compute_s=roo["compute_s"], memory_s=roo["memory_s"],
+                       collective_s=roo["collective_s"], bound=roo["bound"],
+                       seconds=r["times"]["build"] + r["times"]["count"])
+        rows.append(row)
+    status = [r["status"] for r in recs]
+    emit({"phase": "dryrun", "step": "grid", "cells": rows, "grid_s": grid_s,
+          "cells_s": sum(r.get("seconds", 0.0) for r in rows),
+          "budget_s": DRYRUN_GRID_BUDGET_S, "ok": status.count("ok"),
+          "skipped": status.count("skipped"), "records": str(grid["out_dir"])})
+    assert status.count("ok") == 32 and status.count("skipped") == 8, status
+    assert grid_s <= DRYRUN_GRID_BUDGET_S, grid_s
+    return {"grid_s": grid_s}
+
+
+def dryrun_phase(args, smi, train, grid) -> None:
+    """The dry run on the card's host, and its predictions held against the
+    card: (a) the 40-cell grid on meta tensors (``grid``: ``dryrun_grid``'s
+    result, read before the paths ran); (b) the cells of
+    DRYRUN_CHECKS, and phase model_train's f32 run (``train``), each
+    predicted at its reduced batch and run for real.  No PBS kernel
+    launches (the launch counts must read 0)."""
+    t_phase = time.perf_counter()
+    platform.reset_launch_counts()
+    total = torch.cuda.get_device_properties(0).total_memory
+    assert 0.95 * HBM_BYTES <= total <= HBM_BYTES, (total, HBM_BYTES)
+    memo: dict = {}
+    run = train["run"]
+    rows = [dryrun_check(
+        TRAIN_ARCH, "train_4k", TRAIN_BATCH, "phase model_train's f32 run, re-used",
+        train["prediction"],
+        {"step_ms": run["step_ms"][1:], "step_ms_median": run["step_ms_median_warm"],
+         "peak_bytes": run["peak_above_start_bytes"], "flops": run["counted_step_flops"]},
+        f"batch 256 -> {TRAIN_BATCH}, microbatch {TRAIN_MICROBATCH}")]
+    for arch, shape, batch, why in DRYRUN_CHECKS:
+        predicted = dryrun_prediction(arch, shape, batch, memo)
+        measured = measured_cell(arch, shape, batch, args.seed)
+        full = SHAPES[shape]["batch"]
+        rows.append(dryrun_check(arch, shape, batch, why, predicted, measured,
+                                 f"batch {full} -> {batch}" if batch != full else "none"))
+    pbs = platform.launch_counts()
+    assert not pbs, pbs                      # the dry run launches no PBS kernel
+    emit({"phase": "dryrun", "gpu": smi, "grid_s": grid["grid_s"],
+          "total_memory": total, "hbm_bytes": HBM_BYTES,
+          "checks": [{k: r[k] for k in ("arch", "shape", "batch", "flops_equal",
+                                        "peak_rel_err", "roofline_step_ms",
+                                        "roofline_fraction", "bound_share")}
+                     for r in rows],
+          "pbs_kernel_launches": pbs, "dryrun_phase_s": time.perf_counter() - t_phase})
 
 
 def profile_run(sessions, out_path):
@@ -3550,6 +3840,10 @@ def main() -> None:
         "gpu": smi,
     })
 
+    grid_run = None
+    if not args.kernels_only:       # the dry-run grid counts beside the build and sweeps
+        grid_run = start_dryrun_grid(ROOT / "chiprun_out" / "dryrun")
+        atexit.register(stop_dryrun_grid, grid_run)
     t0 = time.perf_counter()
     libs = platform.build_kernels(verbose=True)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
@@ -3564,6 +3858,7 @@ def main() -> None:
 
     kernel_sweeps(rng)
     if not args.kernels_only:
+        grid = dryrun_grid(grid_run)
         launches, launched = {}, {}
         k4_inputs = {}
         with oracle_pool() as pool:
@@ -3581,7 +3876,8 @@ def main() -> None:
             launches["examples"], launched["examples"] = examples_phase()
         del sessions, serve_results, trees
         model_serve_phase(args, smi)
-        model_train_phase(args, smi)
+        train = model_train_phase(args, smi)
+        dryrun_phase(args, smi, train, grid)
         report = main_shape_phase(args, rng, launched, k4_inputs, sass)
         emit({"kernels": [
             {"name": name, **meta, "launches": launches[HOME_PATH[name]][name], **report[name],

@@ -42,6 +42,7 @@ from .bch import (
 )
 from .hashing import derive_seed, hash_to_range
 from .markov import optimize_parameters
+from .sets import setdiff_keys, unique_keys
 from .tow import (
     ELL_DEFAULT,
     GAMMA,
@@ -261,7 +262,7 @@ def new_session_state(a: np.ndarray, b: np.ndarray, plan: ProtocolPlan) -> Sessi
     grp_b, order_b, bounds_b = group_view(b, plan.g, plan.seed_groups)
     grp_a, order_a, bounds_a = group_view(a, plan.g, plan.seed_groups)
     return SessionState(
-        a=a, b=b, a_set=set(int(x) for x in a), diff=set(),
+        a=a, b=b, a_set=set(a.tolist()), diff=set(),
         units=[Unit(uid=i, group=i) for i in range(plan.g)], next_uid=plan.g,
         group_b=grp_b, order_b=order_b, bounds_b=bounds_b,
         group_a=grp_a, order_a=order_a, bounds_a=bounds_a,
@@ -273,7 +274,7 @@ def effective_set(a: np.ndarray, diff: set) -> np.ndarray:
     if not diff:
         return a
     diff_arr = np.fromiter(diff, dtype=np.uint32, count=len(diff))
-    return np.concatenate([np.setdiff1d(a, diff_arr), np.setdiff1d(diff_arr, a)])
+    return np.concatenate([setdiff_keys(a, diff_arr), setdiff_keys(diff_arr, a)])
 
 
 def diff_overlay(st: SessionState) -> tuple[np.ndarray, np.ndarray]:
@@ -536,8 +537,8 @@ def reconcile(
 ) -> ReconcileResult:
     """Run the full PBS protocol; Alice (holding A) learns A △ B."""
     cfg = cfg or PBSConfig()
-    a = np.unique(np.asarray(set_a, dtype=np.uint32))
-    b = np.unique(np.asarray(set_b, dtype=np.uint32))
+    a = unique_keys(np.asarray(set_a, dtype=np.uint32))
+    b = unique_keys(np.asarray(set_b, dtype=np.uint32))
 
     plan = plan_protocol(a, b, cfg, d_known)
     code = plan.code

@@ -7,6 +7,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from .sets import unique_keys
+
 
 def random_set(size: int, rng: np.random.Generator) -> np.ndarray:
     """`size` distinct uniform uint32 keys, 0 excluded."""
@@ -14,7 +16,7 @@ def random_set(size: int, rng: np.random.Generator) -> np.ndarray:
     while len(out) < size:
         need = int((size - len(out)) * 1.1) + 16
         cand = rng.integers(1, 1 << 32, size=need, dtype=np.uint64).astype(np.uint32)
-        out = np.unique(np.concatenate([out, cand]))
+        out = unique_keys(np.concatenate([out, cand]))
     rng.shuffle(out)
     return out[:size]
 

@@ -1,2 +1,2 @@
-"""Launch layer: meshes (one card so far), the elastic control plane and the
-training driver."""
+"""Launch layer: meshes (one card so far), the elastic control plane, the
+training driver, and the dry-run grid (``cells``, ``dryrun``)."""

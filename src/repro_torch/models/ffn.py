@@ -94,10 +94,25 @@ def _route(p, x, cfg: ModelConfig):
     return probs, topw, topi
 
 
+def balanced_routes(rows: int, n_experts: int) -> list:
+    """``rows`` routed (token, slot) pairs split as evenly as they go over
+    ``n_experts``: ``rows // n_experts`` each, one more for the first
+    ``rows % n_experts``."""
+    q, r = divmod(rows, n_experts)
+    return [q + (e < r) for e in range(n_experts)]
+
+
 def _moe_core(p, x, cfg: ModelConfig, ctx: MeshCtx, ep_data_size: int):
     """Route every token of x (N, d) through its experts (on one card each
     token is this rank's: the reference's ``owned`` mask is all true).
-    Returns (y (N, d), aux loss)."""
+    Returns (y (N, d), aux loss).
+
+    On ``meta`` tensors (the dry run, ``repro_torch.launch.cells``), which
+    hold no values to count, the experts take ``balanced_routes`` of the
+    N · k pairs in place of the router's counts: a shape for the step's
+    work to be counted on, never a result.  The reference's dry run charges
+    its capacity-padded dispatch instead (every local expert over
+    ``world · cap`` masked slots), so the two counts differ by design."""
     if ep_data_size * ctx.model_size != 1:
         raise NotImplementedError("expert parallelism across cards: a later slice of "
                                   "ROADMAP Queue A item 15")
@@ -105,7 +120,12 @@ def _moe_core(p, x, cfg: ModelConfig, ctx: MeshCtx, ep_data_size: int):
     E, k = cfg.n_experts, cfg.moe_top_k
     probs, topw, topi = _route(p, x, cfg)
     flat_e = topi.reshape(-1)
-    per_expert = torch.bincount(flat_e, minlength=E)
+    if x.device.type == "meta":
+        counts = balanced_routes(N * k, E)
+        per_expert = torch.tensor(counts, device=x.device)
+    else:
+        per_expert = torch.bincount(flat_e, minlength=E)
+        counts = None
     aux = E * torch.sum(per_expert.float() / (N * k) * probs.mean(0))
 
     # each expert's three GEMMs on its own rows: pairs sorted by expert
@@ -113,7 +133,7 @@ def _moe_core(p, x, cfg: ModelConfig, ctx: MeshCtx, ep_data_size: int):
     rows = x[order // k]                                    # (N·k, d)
     out = torch.empty_like(rows)
     start = 0
-    for e, n in enumerate(per_expert.tolist()):             # the one host sync
+    for e, n in enumerate(counts or per_expert.tolist()):    # the one host sync
         if n:
             xe = rows[start:start + n]
             h = act_fn(cfg, matmul(xe, p["we_gate"][e]), matmul(xe, p["we_up"][e]))

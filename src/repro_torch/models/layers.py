@@ -141,6 +141,12 @@ def act_fn(cfg: ModelConfig, gate, up):
 # blockwise (flash-style) attention — plain torch ops, O(chunk^2) memory
 # --------------------------------------------------------------------------
 
+# [True]: fully masked chunk pairs are skipped (the default); the dry run's
+# ``--no-attn-skip`` sets it to False for the dense pair grid, as the
+# reference's ``BLOCK_SKIP_DEFAULT`` (``repro.models.layers``)
+BLOCK_SKIP_DEFAULT = [True]
+
+
 def _static(off):
     return None if isinstance(off, torch.Tensor) else int(off)
 
@@ -158,13 +164,16 @@ def blockwise_attention(
     q_chunk: int = 1024,
     k_chunk: int = 1024,
     kv_valid_len=None,        # mask k positions >= this (ragged caches)
-    block_skip: bool = True,
+    block_skip: bool | None = None,
 ) -> torch.Tensor:
     """Online-softmax attention over a static list of (q-chunk, k-chunk)
     pairs.  With ``block_skip``, chunk pairs that are fully masked (above
     the causal diagonal, or left of the window band) are dropped from the
-    list, as in the reference; ``block_skip=False`` runs the dense grid.
-    Offsets given as tensors are dynamic: nothing is skipped."""
+    list, as in the reference; ``block_skip=False`` runs the dense grid, and
+    ``None`` reads ``BLOCK_SKIP_DEFAULT[0]``.  Offsets given as tensors are
+    dynamic: nothing is skipped."""
+    if block_skip is None:
+        block_skip = BLOCK_SKIP_DEFAULT[0]
     B, Hl, Tq, Dh = q.shape
     Dv = v.shape[-1]
     Tk = k.shape[2]

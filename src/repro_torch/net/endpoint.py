@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from ..core.hashing import derive_seed
+from ..core.sets import unique_keys
 from ..core.pbs import (
     MAX_PARITY_EXTENSIONS,
     PBSConfig,
@@ -546,7 +547,7 @@ class _Endpoint:
 
     def _submit(self, elems, cfg: PBSConfig | None, d_known: int | None):
         cfg = cfg or PBSConfig()
-        elems = np.unique(np.asarray(elems, dtype=np.uint32))
+        elems = unique_keys(np.asarray(elems, dtype=np.uint32))
         sid = len(self._sessions)
         self._d_known[sid] = d_known
         if d_known is not None:
@@ -583,7 +584,7 @@ class _Endpoint:
         if self._batch is not None:
             raise RuntimeError("tree staging after the session batch formed")
         self._tree = (
-            np.unique(np.asarray(elems, dtype=np.uint32)),
+            unique_keys(np.asarray(elems, dtype=np.uint32)),
             cfg or PBSConfig(),
             tree or TreeConfig(),
         )

@@ -52,6 +52,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from ..core.tow import ESTIMATE_LIMIT_FRAC, EstimateOutOfRange
+from ..core.sets import unique_keys
 from ..core.pbs import (
     MAX_PARITY_EXTENSIONS,
     PBSConfig,
@@ -280,7 +281,7 @@ class HubEndpoint:
         pairing with the peer's ``submit`` order, like the pair path);
         returns the peer-local sid.  Must precede the peer's admission."""
         peer = self._peers[channel]
-        elems = np.unique(np.asarray(set_b, dtype=np.uint32))
+        elems = unique_keys(np.asarray(set_b, dtype=np.uint32))
         with self._lock:
             if peer.admitted:
                 raise RuntimeError(
@@ -318,7 +319,7 @@ class HubEndpoint:
                     f"channel {channel} already has a tree phase staged"
                 )
             peer.tree_pending = (
-                np.unique(np.asarray(set_b, dtype=np.uint32)),
+                unique_keys(np.asarray(set_b, dtype=np.uint32)),
                 cfg or PBSConfig(),
                 tree or TreeConfig(),
             )

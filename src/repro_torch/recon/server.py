@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from ..core.hashing import derive_seed
+from ..core.sets import unique_keys
 from ..core.pbs import (
     MAX_ESCALATIONS,
     MAX_PARITY_EXTENSIONS,
@@ -209,8 +210,8 @@ class ReconcileServer:
         instead of a per-session host loop over ell hash functions.
         """
         cfg = cfg or PBSConfig()
-        a = np.unique(np.asarray(set_a, dtype=np.uint32))
-        b = np.unique(np.asarray(set_b, dtype=np.uint32))
+        a = unique_keys(np.asarray(set_a, dtype=np.uint32))
+        b = unique_keys(np.asarray(set_b, dtype=np.uint32))
         sid = len(self._sessions)
         if d_known is not None:
             plan = plan_from_d_known(cfg, d_known)

@@ -54,6 +54,7 @@ import torch
 
 from ..core.bch import bch_code
 from ..core.hashing import derive_seed_seeded, hash_to_range_seeded
+from ..core.sets import setdiff_keys, unique_keys
 from ..core.pbs import (
     MAX_ESCALATIONS,
     ProtocolPlan,
@@ -824,10 +825,10 @@ def apply_churn(base: np.ndarray, added, removed) -> np.ndarray:
     """One side's next-epoch set: ``(base \\ removed) ∪ added``, unique and
     sorted like every other element array in the stack.  Removing an absent
     element or re-adding a present one is a no-op, matching set semantics."""
-    out = np.setdiff1d(
+    out = setdiff_keys(
         np.asarray(base, dtype=np.uint32), np.asarray(removed, dtype=np.uint32)
     )
-    return np.unique(
+    return unique_keys(
         np.concatenate([out, np.asarray(added, dtype=np.uint32)])
     )
 
@@ -855,10 +856,10 @@ def advance_session(
     honest.  ``new_a``/``new_b`` = None keeps that side's set unchanged.
     """
     old = sess.plan
-    a = sess.state.a if new_a is None else np.unique(
+    a = sess.state.a if new_a is None else unique_keys(
         np.asarray(new_a, dtype=np.uint32)
     )
-    b = sess.state.b if new_b is None else np.unique(
+    b = sess.state.b if new_b is None else unique_keys(
         np.asarray(new_b, dtype=np.uint32)
     )
     layout_same = (plan.n, plan.t, plan.g, plan.seed_groups) == (
@@ -871,7 +872,7 @@ def advance_session(
                 continue
             arr = a if side == "a" else b
             batch.apply_mutations(
-                sess, side, np.setdiff1d(arr, cur), np.setdiff1d(cur, arr)
+                sess, side, setdiff_keys(arr, cur), setdiff_keys(cur, arr)
             )
     else:
         # the row layout moved: the session's resident rows are stale in

@@ -70,6 +70,7 @@ from repro_torch.models.backbone import (
     group_layers,
     hybrid_kind,
     layer_plan,
+    model_spec,
 )
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.ffn import mlp_apply, mlp_decode, moe_apply, moe_decode
@@ -344,6 +345,9 @@ def _layer_slots(group: dict, count: int, scanned: bool) -> list:
 class ServeBundle:
     prefill: Callable
     decode: Callable
+    param_spec: dict          # P tree of the parameters
+    cache_pspec: dict         # P tree of the caches (``cache_spec``)
+    batch_ax: object          # mesh axes the batch is sharded over (``batch_axes``)
     ctx: MeshCtx
 
 
@@ -357,6 +361,8 @@ def make_serve_fns(cfg: ModelConfig, mesh, *, batch: int, max_len: int,
     (``backbone.embed_inputs``).  Prefill raises ``ValueError`` where
     ``"enc"`` or ``"frontend"`` has another leading shape."""
     ctx = mesh_ctx(mesh)
+    spec = model_spec(cfg, ctx)
+    c_spec = cache_spec(cfg, mesh, batch, max_len, enc_len)
     groups = [(f"g{gi}", kind, count, scanned)
               for gi, (kind, count, scanned) in enumerate(layer_plan(cfg)) if count]
     decode_fns = {name: _decode_block(cfg, ctx, kind) for name, kind, _, _ in groups}
@@ -401,4 +407,5 @@ def make_serve_fns(cfg: ModelConfig, mesh, *, batch: int, max_len: int,
         x = apply_norm(params["final_norm"], x, cfg)
         return greedy_token(params["embed"], x, ctx, cfg), caches
 
-    return ServeBundle(prefill=prefill, decode=decode, ctx=ctx)
+    return ServeBundle(prefill=prefill, decode=decode, param_spec=spec, cache_pspec=c_spec,
+                       batch_ax=batch_axes(mesh, batch), ctx=ctx)

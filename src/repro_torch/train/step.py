@@ -24,7 +24,7 @@ import torch
 from repro_torch.models.backbone import ce_loss, forward, model_spec
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import MeshCtx
-from repro_torch.models.spec import init_params
+from repro_torch.models.spec import abstract_params, init_params
 from repro_torch.optim import (
     OptConfig,
     apply_updates,
@@ -76,6 +76,16 @@ class TrainBundle:
     plan: dict                # LeafPlan tree
     device: torch.device
     stats: dict = field(default_factory=dict)   # the last step's compression bytes
+
+    def abstract_args(self, batch_shapes: dict):
+        """``(params, opt_state, batch)`` as tensors on the ``meta`` device,
+        from ``batch_shapes``' ``(shape, dtype)`` entries: nothing allocated."""
+        return (
+            abstract_params(self.param_spec),
+            abstract_params(self.opt_spec),
+            {k: torch.empty(shape, dtype=dtype, device="meta")
+             for k, (shape, dtype) in batch_shapes.items()},
+        )
 
 
 def batch_pspec_tree(cfg: ModelConfig, mesh, batch: int) -> dict:

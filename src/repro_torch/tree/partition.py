@@ -49,6 +49,7 @@ import torch
 
 from ..core.hashing import derive_seed
 from ..core.pbs import KEY_BITS, PBSConfig
+from ..core.sets import unique_keys
 from ..core.tow import GAMMA, planned_d, tow_seeds, tow_sketches
 from ..kernels.platform import pow2_bucket, resolve_device, retrace_count, upload
 from ..kernels.tree_digest import range_rows as _range_rows  # noqa: F401 (the padded gather)
@@ -250,8 +251,8 @@ def partition_pair(
     dev = resolve_device(device)
     tcfg = tree or TreeConfig()
     tracer = tracer if tracer is not None else NULL_TRACER
-    a = np.unique(np.asarray(set_a, dtype=np.uint32))
-    b = np.unique(np.asarray(set_b, dtype=np.uint32))
+    a = unique_keys(np.asarray(set_a, dtype=np.uint32))
+    b = unique_keys(np.asarray(set_b, dtype=np.uint32))
     stats = TreeStats()
     retrace_mark = retrace_count()
     prefix_a, prefix_b = _checksum_prefix(a), _checksum_prefix(b)
@@ -374,8 +375,8 @@ def tree_reconcile(
     cfg = cfg or PBSConfig()
     if rateless and not cfg.rateless:
         cfg = _dc_replace(cfg, rateless=True)
-    a = np.unique(np.asarray(set_a, dtype=np.uint32))
-    b = np.unique(np.asarray(set_b, dtype=np.uint32))
+    a = unique_keys(np.asarray(set_a, dtype=np.uint32))
+    b = unique_keys(np.asarray(set_b, dtype=np.uint32))
     leaves, stats = partition_pair(a, b, tree, device=dev, tracer=tracer)
     server = ReconcileServer(
         device=dev, degrade=True, recorder=recorder, tracer=tracer

@@ -36,6 +36,8 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
         import repro_torch.train, repro_torch.data, repro_torch.data.pipeline
         import repro_torch.checkpoint, repro_torch.checkpoint.manager
         import repro_torch.launch.elastic, repro_torch.launch.train
+        import repro_torch.launch.cells, repro_torch.launch.dryrun, repro_torch.roofline
+        import repro_torch.roofline.count
         for arch in repro_torch.configs.ARCH_IDS:
             repro_torch.configs.get_config(arch)
         bad = sorted(
