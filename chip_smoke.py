@@ -89,6 +89,18 @@ just before it and read just after:
   the ``train_lm`` twin killed at step 35 and resumed (the resumed state
   bit-equal to the checkpoint, its losses within ``TWIN_LOSS_ATOL`` of an
   uninterrupted run's).
+* ``multirank`` — training across ranks (``launch.ranks`` starting the
+  ranks, ``launch.mesh`` with its axis groups, the sequence-parallel and
+  vocab-sharded layers, ZeRO-1, compression over 'data'), the ranks
+  processes sharing the one card over gloo (named: NCCL refuses two ranks
+  on one card), which launches no PBS kernel: qwen2-1.5b at full width,
+  2 layers in float32, 4 x 512 tokens, one step from one carried state on
+  (1, 2), (2, 1) with ZeRO-1 and (2, 2) with 1 % compression, every rank's
+  shards of the loss, synced gradients and updated parameters against the
+  one-rank step on the card; then (1, 2) and (2, 1) with ZeRO-1 timed at 4
+  layers in bfloat16 on ``model_train``'s 8 x 4 096 rows: step wall, the
+  host wall inside the collectives and each rank's peak memory — figures
+  of ranks sharing a card, not of NVLink or of scaling.
 * ``dryrun`` — ``launch.dryrun`` and ``roofline``, which launch no PBS
   kernel: the 40-cell grid counted on meta tensors by
   ``python -m repro_torch.launch.dryrun``, one process an arch, the card
@@ -123,7 +135,7 @@ hash from ``cuobjdump -sass`` of the built kernels (phase ``sass``).
 
 Each phase prints one JSON line (a few print more); any failed phase
 raises and the process exits non-zero.  ``--kernels-only`` skips every
-path, ``model_serve``, ``model_train`` and ``dryrun`` included.  The last line of standard output is
+path, ``model_serve``, ``model_train``, ``multirank`` and ``dryrun`` included.  The last line of standard output is
 ``{"ok": true, "device": {...}}``.  Needs a CUDA device: exits 1 without one.
 """
 from __future__ import annotations
@@ -142,6 +154,7 @@ import sys
 import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from pathlib import Path
 
@@ -233,10 +246,13 @@ from repro_torch.train.step import mesh_ctx  # noqa: E402
 from repro_torch.checkpoint import restore_checkpoint  # noqa: E402
 from repro_torch.data import DataConfig, global_batch  # noqa: E402
 from repro_torch.models.backbone import ce_loss  # noqa: E402
-from repro_torch.optim import OptConfig, init_opt_state  # noqa: E402
+from repro_torch.optim import OptConfig, apply_updates, build_plan, init_opt_state  # noqa: E402
+from repro_torch.optim import sync_gradient  # noqa: E402
 from repro_torch.optim.adamw import QBLK  # noqa: E402
 from repro_torch.optim.compression import CompressionConfig, init_error_state  # noqa: E402
 from repro_torch.train import make_train_step  # noqa: E402
+from repro_torch.launch.ranks import run_ranks  # noqa: E402
+from repro_torch.models.spec import gather_params, shard_params  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch.cells import ENC_LEN, SHAPES, all_cells, at_position, build_cell  # noqa: E402
 from repro_torch.roofline import (  # noqa: E402
@@ -367,27 +383,18 @@ def time_ms(fn, reps: int) -> float:
     return float(np.mean(times_ms(fn, reps)))
 
 
-def device_ms(fn, name: str, reps: int = 20, every_activity: bool = False,
-              per_call: bool = False) -> dict:
-    """Device time per call of ``fn``, which launches kernel ``name`` once:
-    the mean CUDA duration of its symbols (``SYMBOLS[name]``) over the
-    launches ``torch.profiler`` recorded in ``reps`` calls (it may keep
-    fewer than ``reps``; how many is returned).  Where it records none, a
-    CUDA graph of 50 calls is replayed between two events instead.  Returns
-    the time and the method that gave it.  ``every_activity``: instead,
-    every device activity of a call (kernels, copies, memsets) summed over
-    the window and divided by the launches of ``name``'s symbols it kept
-    (the calls it recorded); no fallback (``device_ms`` None where it kept
-    none).  ``per_call``: for a wrapper that may launch several kernels a
-    call — every device activity of the window over the calls it recorded,
-    counted as the launches of ``name``'s first symbol (one a call), each
-    symbol's share beside it (``device_ms_by_symbol``); the graph replay
-    where it recorded none."""
+# profiler windows a function that cannot be captured in a CUDA graph gets
+# before its device time falls back to events over back-to-back calls
+PROFILE_WINDOWS = 4
+
+
+def profile_window(fn, name: str, reps: int):
+    """One ``torch.profiler`` window of ``reps`` calls of ``fn``: the CUDA
+    time and launches of ``name``'s symbols, every device activity's time,
+    and each symbol's time and launches."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
@@ -407,20 +414,59 @@ def device_ms(fn, name: str, reps: int = 20, every_activity: bool = False,
             if k in ev.key:
                 sym_us[k] += us
                 sym_calls[k] += ev.count
+    return total_us, calls, every_us, sym_us, sym_calls
+
+
+def device_ms(fn, name: str, reps: int = 20, every_activity: bool = False,
+              per_call: bool = False, capturable: bool = True) -> dict:
+    """Device time per call of ``fn``, which launches kernel ``name`` once:
+    the mean CUDA duration of its symbols (``SYMBOLS[name]``) over the
+    launches ``torch.profiler`` recorded in ``reps`` calls (it may keep
+    fewer than ``reps``; how many is returned).  Where it records none, a
+    CUDA graph of 50 calls is replayed between two events instead.  Returns
+    the time and the method that gave it.  ``every_activity``: instead,
+    every device activity of a call (kernels, copies, memsets) summed over
+    the window and divided by the launches of ``name``'s symbols it kept
+    (the calls it recorded); no fallback (``device_ms`` None where it kept
+    none).  ``per_call``: for a wrapper that may launch several kernels a
+    call — every device activity of the window over the calls it recorded,
+    counted as the launches of ``name``'s first symbol (one a call), each
+    symbol's share beside it (``device_ms_by_symbol``); the graph replay
+    where it recorded none.  ``capturable=False``: ``fn`` uploads host data
+    each call (a pageable copy, which a graph capture refuses), so the
+    profiler gets ``PROFILE_WINDOWS`` windows, and where none records the
+    kernel the time is events over 50 back-to-back calls, host work between
+    the launches included (said in ``device_ms_by``)."""
+    fn()
+    torch.cuda.synchronize()
     first = SYMBOLS[name][0]
-    if per_call and sym_calls[first] > 0 and every_us > 0:
-        n = sym_calls[first]
-        return {"device_ms": every_us / n / 1e3,
-                "device_ms_by": f"profiler, every device activity per call ({first} launches)",
-                "profiled_launches": n,
-                "device_ms_by_symbol": {k: sym_us[k] / n / 1e3 for k in SYMBOLS[name]},
-                "launches_by_symbol": sym_calls}
+    for _ in range(1 if capturable else PROFILE_WINDOWS):
+        total_us, calls, every_us, sym_us, sym_calls = profile_window(fn, name, reps)
+        if per_call and sym_calls[first] > 0 and every_us > 0:
+            n = sym_calls[first]
+            return {"device_ms": every_us / n / 1e3,
+                    "device_ms_by": f"profiler, every device activity per call ({first} launches)",
+                    "profiled_launches": n,
+                    "device_ms_by_symbol": {k: sym_us[k] / n / 1e3 for k in SYMBOLS[name]},
+                    "launches_by_symbol": sym_calls}
+        if every_activity and calls and every_us > 0:
+            return {"device_ms": every_us / calls / 1e3,
+                    "device_ms_by": "profiler, every device activity", "profiled_launches": calls}
+        if not per_call and not every_activity and calls > 0 and total_us > 0:
+            return {"device_ms": total_us / calls / 1e3, "device_ms_by": "profiler",
+                    "profiled_launches": calls}
     if every_activity:
-        return {"device_ms": every_us / calls / 1e3 if calls and every_us > 0 else None,
-                "device_ms_by": "profiler, every device activity", "profiled_launches": calls}
-    if calls > 0 and total_us > 0:
-        return {"device_ms": total_us / calls / 1e3, "device_ms_by": "profiler",
+        return {"device_ms": None, "device_ms_by": "profiler, every device activity",
                 "profiled_launches": calls}
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if not capturable:
+        start.record()
+        for _ in range(50):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return {"device_ms": start.elapsed_time(end) / 50,
+                "device_ms_by": "cuda_events over 50 back-to-back calls, host work included"}
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -432,7 +478,6 @@ def device_ms(fn, name: str, reps: int = 20, every_activity: bool = False,
             fn()
     graph.replay()
     torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     graph.replay()
     end.record()
@@ -1040,18 +1085,18 @@ def k4_report(captured, launched, sass):
         n_valid = int(cnt.sum())
         tile = ragged_tile(n_valid, torch.cuda.get_device_properties(0).multi_processor_count)
         n_tail = range_tiles(lo, cnt, tile)[1]
-        dev = device_ms(call, "tree_digest")
+        dev = device_ms(call, "tree_digest", capturable=False)
         padded_ms = device_ms(padded, "tree_digest_padded")["device_ms"]
         del mat, valid
         rows.append({
             "shape": [R, Ep, ell], "valid": n_valid, "tile": tile, "tail_tiles": n_tail,
             "launches": count,
             "max_abs_err": err, "ms": float(np.mean(ts)), "ms_min": min(ts), **dev,
-            "ragged_all_device_ms": device_ms(call, "tree_digest", every_activity=True)[
-                "device_ms"],
+            "ragged_all_device_ms": device_ms(call, "tree_digest", every_activity=True,
+                                              capturable=False)["device_ms"],
             "old_route_ms": time_ms(old, 10),
-            "old_route_device_ms": device_ms(old, "tree_digest_padded", every_activity=True)[
-                "device_ms"],
+            "old_route_device_ms": device_ms(old, "tree_digest_padded", every_activity=True,
+                                             capturable=False)["device_ms"],
             "padded_device_ms": padded_ms,
             **bound((n_valid * 4 + 8 * R + 12 * n_tail + ell * 4 + R * ell * 4) / HBM_BYTES_PER_S,
                     n_valid * (MIX32_OPS + ell * K3_OPS_PER_KEY_SEED) / ALU32_OPS_PER_S),
@@ -3505,6 +3550,323 @@ def model_train_phase(args, smi) -> None:
     return {"prediction": predicted, "run": runs["f32"]}
 
 
+# ---------------------------------------------------------------------------
+# training across ranks (phase multirank)
+# ---------------------------------------------------------------------------
+
+# the ranks are processes sharing the one card over gloo, named by the caller
+# (launch.ranks.choose_backend: NCCL needs a card a rank); every number of
+# the phase is of ranks sharing a card, none an NVLink or scaling figure
+MR_BACKEND = "gloo"
+# check: qwen2-1.5b at full width, MR_CHECK_LAYERS layers, float32 weights
+# and states, MR_CHECK_ROWS x MR_CHECK_SEQ tokens, one step from one carried
+# state on each mesh against the one-rank step on the card, with the
+# tolerances of tests/test_torch_mesh_train.py (stated there before the
+# first chip call): loss and grad_norm within 1e-5 relative, every synced
+# gradient leaf within 1e-4 of its largest magnitude, the parameters after
+# the step within 1e-6 absolute.  The compressed mesh's one-rank step is
+# AdamW on one rank from the mesh's own (gathered) compressed gradient.
+MR_CHECK_LAYERS, MR_CHECK_ROWS, MR_CHECK_SEQ = 2, 4, 512
+MR_CHECKS = (((1, 2), False, None), ((2, 1), True, None), ((2, 2), False, TRAIN_COMPRESSION))
+MR_LOSS_RTOL, MR_GRAD_REL, MR_PARAM_ATOL = 1e-5, 1e-4, 1e-6
+# timed: bfloat16 weights, MR_TIMED_LAYERS layers, model_train's train_4k
+# rows (TRAIN_BATCH x TRAIN_SEQ, TRAIN_MICROBATCH microbatches), float32
+# states, one cold step then MR_TIMED_STEPS warm ones
+MR_TIMED_LAYERS, MR_TIMED_STEPS = 4, 3
+MR_TIMED = (((1, 2), False), ((2, 1), True))
+MR_TIMEOUT_S = 300
+
+
+def carried_param_space_(opt, bundle, mesh, spec, seed) -> None:
+    """``model_train``'s carried state (``carried_state_``: step 10, m ~ N(0, 1e-3),
+    v in [1e-4, 2e-4)) drawn in parameter space on the card, leaf by leaf
+    in spec order at the unpadded shape from ``seed``, so every mesh and
+    the one-rank step hold the same moments: each rank keeps its shard
+    (and under ZeRO-1 its 'data' slice) in the state's flat layout."""
+    gen = torch.Generator(device=mesh.device).manual_seed(seed)
+    opt["step"].fill_(10)
+    flat_spec, flat_plan, flat_st = (flat_leaves(spec), flat_leaves(bundle.plan),
+                                     flat_leaves(opt["leaves"]))
+    for path, p in flat_spec.items():
+        pl = flat_plan[path]
+        for key, draw in (("m", lambda t: 1e-3 * t.normal_(generator=gen)),
+                          ("v", lambda t: 1e-4 * (1 + t.uniform_(generator=gen)))):
+            full = draw(torch.empty(p.logical or p.shape, device=mesh.device))
+            if p.logical is not None and p.logical != p.shape:
+                full = torch.nn.functional.pad(
+                    full, [x for a, b in reversed(list(zip(p.shape, p.logical)))
+                           for x in (0, a - b)])
+            local = shard_params({"x": full}, {"x": p}, mesh)["x"].reshape(-1)
+            if pl.scatter:
+                D, i = mesh.shape["data"], mesh.index("data")
+                local = torch.nn.functional.pad(local, (0, pl.chunk * D - local.numel()))
+                local = local[i * pl.chunk:(i + 1) * pl.chunk]
+            st = flat_st[f"{path}/{key}"]
+            st.zero_()
+            st[:local.numel()] = local
+
+
+def mr_state(cfg, mesh, ocfg, ccfg, batch, seed):
+    """A bundle, this rank's float32 parameters (drawn from ``seed`` on the
+    card at the global shape, then sharded) and its carried state."""
+    bundle = make_train_step(cfg, mesh, ocfg, batch=batch, compression=ccfg)
+    spec = bundle.param_spec
+    params = init_params(spec, torch.Generator(device=mesh.device).manual_seed(seed),
+                         mesh.device)
+    upcast_(params)
+    if mesh.world > 1:
+        params = shard_params(params, spec, mesh)
+    opt = init_opt_state(params, bundle.plan, ocfg, mesh)
+    carried_param_space_(opt, bundle, mesh, spec, seed + 1)
+    if ccfg:
+        opt["err"] = init_error_state(params, bundle.plan, ccfg)
+    return bundle, params, opt
+
+
+def mr_check_mesh(dev, data, model, zero1, ratio, seed) -> dict:
+    """One step of the f32 check on this rank of a (data, model) mesh, then
+    the one-rank step on the card from the same weights and carried state
+    (every rank runs it, so nothing is gathered but a compressed
+    gradient): this rank's shards of the loss, the synced gradients and
+    the parameters after the step against the same shards of the one-rank
+    step's (see MR_CHECKS).  The compressed mesh's one-rank step is AdamW
+    from the mesh's own compressed gradient, gathered."""
+    stamps = {"start": time.perf_counter()}
+    cfg = get_config(TRAIN_ARCH).scaled(n_layers=MR_CHECK_LAYERS)
+    mesh = make_local_mesh(data, model, device=dev)
+    ocfg = OptConfig(**TRAIN_OPT, zero1=zero1)
+    ccfg = CompressionConfig(ratio=ratio, min_leaf_size=65_536, enabled=True) if ratio else None
+    gb = global_batch(0, DataConfig(vocab=cfg.vocab, seq_len=MR_CHECK_SEQ,
+                                    global_batch=MR_CHECK_ROWS))
+    batch = {k: gb[k] for k in ("tokens", "labels")}
+    bundle, params, opt = mr_state(cfg, mesh, ocfg, ccfg, MR_CHECK_ROWS, seed)
+    spec = bundle.param_spec
+    torch.cuda.synchronize()
+    stamps["setup"] = time.perf_counter()
+    grads, ce, aux = bundle.grads(params, batch)
+    torch.cuda.synchronize()
+    stamps["grads"] = time.perf_counter()
+    plain = build_plan(spec, mesh.axis_names, mesh.shape, OptConfig(**TRAIN_OPT))
+    with torch.no_grad():
+        synced = tree_zip_plan(lambda g, pl: sync_gradient(g, pl, mesh), grads, plain)
+    sent = None
+    if ccfg:
+        from repro_torch.optim.compression import sync_all
+        sent, _, _ = sync_all(grads, opt["err"], bundle.plan, ocfg, ccfg, mesh)
+    loss = float(mesh.all_reduce(ce / mesh.world, mesh.axis_names))
+    torch.cuda.synchronize()
+    stamps["sync"] = time.perf_counter()
+    params, opt, met = bundle.update(params, opt, grads, ce, aux)
+    torch.cuda.synchronize()
+    stamps["update"] = time.perf_counter()
+    ledger = {k: dict(v) for k, v in mesh.ledger.items()}
+    c_all = None
+    if ccfg:        # every rank needs the whole compressed gradient for its one-rank step:
+        # it is the same on every data rank, so gathered over 'model' only
+        c_all = gather_params(sent, spec, mesh, everywhere=True, axes=("model",))
+    del grads, sent, bundle
+    stamps["gather"] = time.perf_counter()
+    one = make_local_mesh(device=dev)
+    ocfg1 = OptConfig(**TRAIN_OPT)
+    b1, p1, o1 = mr_state(cfg, one, ocfg1, None, MR_CHECK_ROWS, seed)
+    g1, ce1, aux1 = b1.grads(p1, batch)
+    if ccfg:
+        _, _, met1 = apply_updates(c_all, p1, o1, b1.plan, ocfg1, presynced=True)
+    else:
+        _, _, met1 = b1.update(p1, o1, g1, ce1, aux1)
+    torch.cuda.synchronize()
+    stamps["one_rank"] = time.perf_counter()
+    with torch.no_grad():
+        g_err = {k: e / max(w, 1e-30) for k, (e, w) in local_errors(synced, g1, spec, mesh).items()}
+        p_err = max(e for e, _ in local_errors(params, p1, spec, mesh).values())
+    worst = max(g_err, key=g_err.get)
+    loss1 = float(ce1)
+    stamps["compare"] = time.perf_counter()
+    out = {"mesh": [data, model], "zero1": zero1, "compression": ratio, "rank": mesh.rank,
+           "loss": loss, "loss_one_rank": loss1, "loss_rel_err": abs(loss - loss1) / abs(loss1),
+           "grad_norm": float(met["grad_norm"]),
+           "grad_norm_rel_err": abs(float(met["grad_norm"]) - float(met1["grad_norm"]))
+           / float(met1["grad_norm"]),
+           "worst_grad_leaf": worst, "worst_grad_rel_err": g_err[worst],
+           "param_max_abs_err": p_err, "collectives": ledger,
+           "seconds": {k: stamps[k] - prev for (k, prev) in
+                       zip(list(stamps)[1:], list(stamps.values())[:-1])},
+           "pbs_kernel_launches": platform.launch_counts(),
+           "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del params, opt, synced, b1, p1, o1, g1, c_all
+    torch.cuda.empty_cache()
+    return out
+
+
+def local_errors(local, whole, spec, mesh) -> dict:
+    """Per leaf: (max |local - this rank's shard of whole|, max |that
+    shard|), on the card."""
+    out = {}
+    for path, p in flat_leaves(spec).items():
+        want = shard_params({"x": flat_leaves(whole)[path]}, {"x": p}, mesh)["x"].float()
+        got = flat_leaves(local)[path].float()
+        out[path] = (float((got - want).abs().max()) if want.numel() else 0.0,
+                     float(want.abs().max()) if want.numel() else 0.0)
+    return out
+
+
+def tree_zip_plan(fn, tree, plan):
+    if isinstance(plan, dict):
+        return {k: tree_zip_plan(fn, tree[k], plan[k]) for k in plan}
+    return fn(tree, plan)
+
+
+def mr_timed_mesh(dev, data, model, zero1, seed) -> dict:
+    """MR_TIMED_STEPS warm steps (after one cold) of qwen2-1.5b at full
+    width, MR_TIMED_LAYERS layers, bf16 weights, on this rank of a (data,
+    model) mesh whose ranks share the card: each step's wall (host clock
+    around the step and a synchronize), the host wall inside the
+    collective wrappers (gloo, which copies CUDA tensors through host
+    memory itself), this rank's peak memory."""
+    t0 = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH).scaled(n_layers=MR_TIMED_LAYERS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mesh = make_local_mesh(data, model, device=dev)
+    ocfg = OptConfig(**TRAIN_OPT, zero1=zero1)
+    bundle = make_train_step(cfg, mesh, ocfg, batch=TRAIN_BATCH, microbatch=TRAIN_MICROBATCH)
+    params = init_params(bundle.param_spec, torch.Generator(device=dev).manual_seed(seed), dev)
+    params = shard_params(params, bundle.param_spec, mesh)
+    torch.cuda.empty_cache()
+    opt = init_opt_state(params, bundle.plan, ocfg, mesh)
+    gb = global_batch(0, DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH))
+    batch = {k: gb[k] for k in ("tokens", "labels")}
+    setup_s = time.perf_counter() - t0
+    losses, ms, coll = [], [], []
+    for i in range(1 + MR_TIMED_STEPS):
+        torch.cuda.synchronize()
+        mesh.ledger.clear()
+        t0 = time.perf_counter()
+        params, opt, m = bundle.step(params, opt, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        coll.append({k: v["seconds"] * 1e3 for k, v in mesh.ledger.items()})
+        losses.append(float(m["loss"]))
+    assert all(np.isfinite(losses)), losses
+    warm = ms[1:]
+    return {"mesh": [data, model], "zero1": zero1, "rank": mesh.rank, "setup_s": setup_s,
+            "step_ms": ms, "step_ms_median_warm": float(np.median(warm)),
+            "collective_ms_by_op": coll,
+            "collective_ms_median_warm": float(np.median([sum(c.values()) for c in coll[1:]])),
+            "collective_bytes_a_step": {k: v["bytes"] for k, v in mesh.ledger.items()},
+            "losses": losses,
+            "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "pbs_kernel_launches": platform.launch_counts()}
+
+
+def mr_rank(dev, checks, timed, seed, wait_for=None) -> dict:
+    """A rank of phase multirank: its checks, then its timed runs; with
+    ``wait_for``, only once that file exists (a group started early, its
+    start-up beside another group's work)."""
+    platform.reset_launch_counts()
+    started = time.time()
+    while wait_for and not Path(wait_for).exists():
+        time.sleep(0.05)
+    out = {"started": started, "checks": [mr_check_mesh(dev, d, m, z, r, seed) for (d, m), z, r in checks],
+           "timed": [mr_timed_mesh(dev, d, m, z, seed) for (d, m), z in timed]}
+    return out
+
+
+def multirank_phase(args, smi) -> None:
+    """Training across ranks (``launch.ranks``, ``launch.mesh``, the
+    sequence-parallel layers, ZeRO-1, compression), the ranks processes
+    sharing the one card over gloo: two ranks for the (1, 2) and (2, 1)
+    checks and timed runs, four for the (2, 2) check."""
+    t_phase = time.perf_counter()
+    cards = torch.cuda.device_count()
+    root = Path(tempfile.mkdtemp(prefix="multirank_"))
+    torch.cuda.empty_cache()
+    runs, wall, start_up = {}, {}, {}
+
+    def group(world, wait_for=None):
+        checks = [c for c in MR_CHECKS if c[0][0] * c[0][1] == world]
+        timed = [t for t in MR_TIMED if t[0][0] * t[0][1] == world]
+        t0 = time.perf_counter()
+        res = run_ranks(mr_rank, world, root / f"w{world}", device=DEV.type,
+                        backend=MR_BACKEND, args=(checks, timed, args.seed, wait_for),
+                        timeout=MR_TIMEOUT_S, threads=None)
+        runs[world], wall[world] = res, time.perf_counter() - t0
+        start_up[world] = min(r["started"] for r in res) - (time.time() - wall[world])
+
+    # the 4-rank group starts up beside the 2-rank group's work and begins
+    # its own once that is done, so the timed runs have the card to themselves
+    go = root / "go4"
+    with ThreadPoolExecutor(1) as pool:
+        four = pool.submit(group, 4, str(go))
+        try:
+            group(2)
+        finally:
+            go.touch()
+        four.result()
+    checks = [r["checks"] for w in (2, 4) for r in runs[w]]
+    # every rank checked its own shards: the worst over the ranks of a mesh
+    worst = {}
+    for per_rank in checks:
+        for c in per_rank:
+            w = worst.setdefault(tuple(c["mesh"]), dict(c, ranks=0))
+            w["ranks"] += 1
+            for k in ("loss_rel_err", "grad_norm_rel_err", "param_max_abs_err"):
+                w[k] = max(w[k], c[k])
+            if c["worst_grad_rel_err"] > w["worst_grad_rel_err"]:
+                w.update(worst_grad_rel_err=c["worst_grad_rel_err"],
+                         worst_grad_leaf=c["worst_grad_leaf"])
+    lead = list(worst.values())
+    for c in lead:
+        assert c["loss_rel_err"] <= MR_LOSS_RTOL, c
+        assert c["grad_norm_rel_err"] <= MR_LOSS_RTOL, c
+        assert c["worst_grad_rel_err"] <= MR_GRAD_REL, c
+        assert c["param_max_abs_err"] <= MR_PARAM_ATOL, c
+    pbs = {}
+    for w in (2, 4):
+        for r in runs[w]:
+            for c in r["checks"] + r["timed"]:
+                for k, v in c["pbs_kernel_launches"].items():
+                    pbs[k] = pbs.get(k, 0) + v
+    assert not pbs, pbs                           # no PBS kernel on this path
+    timed = []
+    for i, (mesh_, zero1) in enumerate(MR_TIMED):     # every timed mesh has two ranks
+        per = [r["timed"][i] for r in runs[2]]
+        timed.append({"mesh": list(mesh_), "zero1": zero1,
+                      "per_rank": [{k: t[k] for k in (
+                          "rank", "setup_s", "step_ms", "step_ms_median_warm",
+                          "collective_ms_median_warm",
+                          "max_memory_allocated_gb", "losses")} for t in per],
+                      "collective_ms_by_op_rank0": per[0]["collective_ms_by_op"],
+                      "collective_bytes_a_step_rank0": per[0]["collective_bytes_a_step"]})
+    emit({"phase": "multirank", "gpu": smi, "backend": MR_BACKEND, "cards": cards,
+          "ranks_share_one_card": cards == 1,
+          "worlds": {"2": [list(c[0]) for c in MR_CHECKS if c[0][0] * c[0][1] == 2],
+                     "4": [list(c[0]) for c in MR_CHECKS if c[0][0] * c[0][1] == 4]},
+          "note": "ranks are processes sharing one card over gloo (host memory); no "
+                  "collective time here is an NVLink or NCCL figure, no step a scaling one",
+          "check": {"config": f"{TRAIN_ARCH} d {get_config(TRAIN_ARCH).d_model}, "
+                              f"{MR_CHECK_LAYERS} layers, float32, {MR_CHECK_ROWS} x "
+                              f"{MR_CHECK_SEQ} tokens, carried state",
+                    "tolerances": {"loss_rel": MR_LOSS_RTOL, "grad_rel_to_leaf_max": MR_GRAD_REL,
+                                   "params_abs": MR_PARAM_ATOL},
+                    "meshes": [{k: c[k] for k in (
+                        "mesh", "zero1", "compression", "ranks", "loss", "loss_one_rank",
+                        "loss_rel_err", "grad_norm_rel_err", "worst_grad_leaf",
+                        "worst_grad_rel_err", "param_max_abs_err", "seconds",
+                        "collectives")} for c in lead],
+                    "max_memory_allocated_gb": {
+                        str(c["mesh"]): [cc["max_memory_allocated_gb"] for per in checks
+                                         for cc in per if cc["mesh"] == c["mesh"]]
+                        for c in lead}},
+          "timed": {"config": f"{TRAIN_ARCH} {MR_TIMED_LAYERS} layers, bfloat16, "
+                              f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens, microbatch "
+                              f"{TRAIN_MICROBATCH}, float32 states",
+                    "runs": timed},
+          "ranks_s": wall, "start_up_s": start_up,
+          "pbs_kernel_launches": pbs,
+          "multirank_phase_s": time.perf_counter() - t_phase})
+
+
 TRAIN_SMOKE_ARCHS = ("qwen2-1.5b", "internlm2-1.8b", "qwen3-14b", "command-r-35b",
                      "recurrentgemma-2b", "mamba2-780m", "deepseek-v2-236b",
                      "deepseek-v3-671b", "whisper-tiny", "pixtral-12b")
@@ -3877,6 +4239,7 @@ def main() -> None:
         del sessions, serve_results, trees
         model_serve_phase(args, smi)
         train = model_train_phase(args, smi)
+        multirank_phase(args, smi)
         dryrun_phase(args, smi, train, grid)
         report = main_shape_phase(args, rng, launched, k4_inputs, sass)
         emit({"kernels": [

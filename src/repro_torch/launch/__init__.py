@@ -1,2 +1,3 @@
-"""Launch layer: meshes (one card so far), the elastic control plane, the
-training driver, and the dry-run grid (``cells``, ``dryrun``)."""
+"""Launch layer: meshes and the ranks that hold them (``mesh``, ``ranks``),
+the elastic control plane, the training driver, and the dry-run grid
+(``cells``, ``dryrun``)."""

@@ -9,7 +9,7 @@ its step with ``roofline.analyze_step``, depth by trip count
 needed.  The records keep the reference's keys, on one card:
 
 * ``mesh`` is ``"card"`` and ``chips`` 1; the multi-pod meshes wait for the
-  multi-card slice (``--multi-pod`` and ``--both-meshes`` raise);
+  multi-card dry run, sub-item 6d (``--multi-pod`` and ``--both-meshes`` raise);
 * ``times`` holds ``build`` and ``count`` (the reference's ``lower`` and
   ``compile``);
 * ``memory`` holds ``argument_bytes_per_device`` (the meta arguments) and
@@ -36,8 +36,8 @@ import time
 import traceback
 from pathlib import Path
 
-MULTI_CARD_TODO = ("meshes of more than one card: the multi-card slice of ROADMAP Queue A "
-                   "item 15")
+MULTI_CARD_TODO = ("meshes of more than one card: the multi-card dry run, ROADMAP Queue A "
+                   "item 15 sub-item 6d")
 
 
 def model_flops(arch: str, kind: str, batch: int, seq: int) -> float:

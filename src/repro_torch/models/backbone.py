@@ -1,4 +1,4 @@
-"""Model assembly on one card: embeddings, blocks, the layer stack.
+"""Model assembly: embeddings, blocks, the layer stack, one process a rank.
 
 The parameter tree is the reference's (``repro.models.backbone``): the same
 keys, and each scanned group's leaves stacked on a leading layer axis.  The
@@ -27,6 +27,15 @@ reference's ``(x, aux)``.  With ``remat`` (the default, as the reference's
 under ``torch.utils.checkpoint`` and is recomputed in the backward
 (serving records nothing, so it runs the layers as they are).
 
+Across ranks (a ``MeshCtx`` above one rank) the dense family trains as the
+reference's does: the residual stream sequence-sharded over 'model'
+between blocks (``forward`` takes this rank's (B, T/M) tokens), the
+embedding and the logits vocab-sharded (``embed_tokens``, ``ce_loss``
+with ``pmax_const`` and scalar psums), Q/O head-sharded and the MLP split
+column / row.  Every other block kind, the frontends and the encoder
+raise ``NotImplementedError`` above one rank, naming the later sub-item
+of ROADMAP Queue A item 15 that brings them.
+
 ``ce_loss`` is the reference's chunked cross-entropy with one deliberate
 difference: the reference scans ``T // t_chunk`` whole chunks and so
 leaves the last ``T % t_chunk`` positions of a longer sequence out of the
@@ -41,10 +50,27 @@ from torch.utils.checkpoint import checkpoint
 from .attention import gqa_apply, gqa_spec, mla_apply, mla_spec
 from .config import ModelConfig
 from .ffn import mlp_apply, mlp_spec, moe_apply, moe_spec
-from .layers import MeshCtx, ag_seq, apply_norm, matmul, norm_spec, pad_to
+from .layers import (
+    MeshCtx,
+    ag_seq,
+    apply_norm,
+    matmul,
+    norm_spec,
+    pad_to,
+    pmax_const,
+    psum_model,
+    rs_seq,
+)
 from .rglru import rglru_apply, rglru_spec
 from .spec import P, stack_layers, tree_map
 from .ssm import ssm_apply, ssm_spec
+
+
+# what a mesh above one rank does not run yet, and the sub-item that brings it
+ACROSS_RANKS_TODO = ("{what} above one rank: ROADMAP Queue A item 15 sub-item 6c (expert "
+                     "parallelism and the other families across ranks)")
+SERVE_ACROSS_RANKS_TODO = ("serving above one rank: ROADMAP Queue A item 15 sub-item 6b "
+                           "(the sequence-sharded KV cache, the distributed argmax)")
 
 
 def vocab_pad(cfg: ModelConfig) -> int:
@@ -65,22 +91,35 @@ def embed_spec(cfg: ModelConfig) -> dict:
 
 
 def embed_tokens(p, tokens, ctx: MeshCtx, cfg: ModelConfig):
-    """Embedding lookup: ids outside the (padded) vocab embed to zeros, as
-    the reference's vocab-parallel lookup does."""
+    """Vocab-parallel embedding lookup: ids outside this rank's vocab shard
+    (and outside the padded vocab) embed to zeros.
+
+    Above one rank tokens (B, T/M) are this rank's sequence chunk (train):
+    the ids are all-gathered over 'model', looked up over the whole T, and
+    the partial embeddings reduce-scattered back to (B, T/M, d).  The
+    reference's replicated-token form (decode) belongs to serving across
+    ranks, sub-item 6b."""
     v = vocab_pad(cfg)
     vl = v // ctx.model_size
-    loc = tokens.long()
+    v0 = ctx.midx() * vl
+    if ctx.model_size > 1:
+        tokens = ctx.comm().all_gather(tokens, ctx.m, dim=1)       # (B, T)
+    loc = tokens.long() - v0
     ok = (loc >= 0) & (loc < vl)
     emb = p["tok"][loc.clamp(0, vl - 1)]
     emb = torch.where(ok[..., None], emb, 0.0)
+    emb = rs_seq(emb, ctx)
     return emb.to(p["tok"].dtype)  # activation dtype follows the params
 
 
 def embed_inputs(p, tokens, ctx: MeshCtx, cfg: ModelConfig, frontend=None):
-    """The embeddings of tokens (B, T): negative ids embed as id 0, as the
-    reference's ``jnp.maximum(tokens, 0)``, and with ``frontend`` (B, T, d)
-    its rows replace them where the token is below 0.  Raises
-    ``ValueError`` where ``frontend``'s leading shape is not the tokens'."""
+    """The embeddings of tokens (B, T) (this rank's (B, T/M) above one
+    rank): negative ids embed as id 0, as the reference's
+    ``jnp.maximum(tokens, 0)``, and with ``frontend`` (B, T, d) its rows
+    replace them where the token is below 0.  Raises ``ValueError`` where
+    ``frontend``'s leading shape is not the tokens'."""
+    if frontend is not None and ctx.world > 1:
+        raise NotImplementedError(ACROSS_RANKS_TODO.format(what="the patch frontend"))
     x = embed_tokens(p, tokens.clamp(min=0), ctx, cfg)
     if frontend is None:
         return x
@@ -106,29 +145,34 @@ def _mask_vocab_pad(logits, v0, cfg: ModelConfig):
 def vocab_logits(p, x, ctx: MeshCtx, cfg: ModelConfig):
     """float32 logits of final-norm states x (..., d), padding columns
     masked: what ``greedy_token`` takes the argmax of."""
+    if ctx.model_size > 1:
+        raise NotImplementedError(SERVE_ACROSS_RANKS_TODO)
     logits = matmul(x, _unembed_weight(p, cfg)).float()
     if cfg.logit_softcap:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
     return _mask_vocab_pad(logits, 0, cfg)
 
 
-def _chunk_nll(xs, ys, w, cfg: ModelConfig):
+def _chunk_nll(xs, ys, w, cfg: ModelConfig, ctx: MeshCtx):
     """Summed negative log-likelihood and count of valid labels of one
     chunk: xs (B, c, d) final-norm states, ys (B, c) labels (negative ones
-    do not count).  The row max is a constant shift (detached, as the
-    reference's ``stop_gradient``)."""
-    vl = vocab_pad(cfg)
+    do not count), w this rank's vocab shard of the unembedding.  The row
+    max is a constant shift (detached, as the reference's
+    ``stop_gradient``, then ``pmax_const`` over 'model'); the softmax sum
+    and the label's logit are psummed over 'model'."""
+    vl = vocab_pad(cfg) // ctx.model_size
+    v0 = ctx.midx() * vl
     logits = matmul(xs, w).float()
     if cfg.logit_softcap:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
-    logits = _mask_vocab_pad(logits, 0, cfg)
-    m = logits.detach().amax(-1)
-    se = torch.exp(logits - m[..., None]).sum(-1)
+    logits = _mask_vocab_pad(logits, v0, cfg)
+    m = pmax_const(logits.detach().amax(-1), ctx)
+    se = psum_model(torch.exp(logits - m[..., None]).sum(-1), ctx)
     valid = ys >= 0
-    loc = torch.where(valid, ys, 0).long()
+    loc = torch.where(valid, ys, 0).long() - v0
     ok = (loc >= 0) & (loc < vl)
     lab = torch.gather(logits, -1, loc.clamp(0, vl - 1)[..., None])[..., 0]
-    lab = torch.where(ok, lab, 0.0)
+    lab = psum_model(torch.where(ok, lab, 0.0), ctx)
     nll = torch.where(valid, (torch.log(se) + m) - lab, 0.0)
     return nll.sum(), valid.sum()
 
@@ -138,7 +182,9 @@ def ce_loss(p, x_sp, targets, ctx: MeshCtx, cfg: ModelConfig, t_chunk: int = 512
     (B, T), chunked over T: float32 logits of ``t_chunk`` positions at a
     time, the last chunk partial where ``t_chunk`` does not divide T.  With
     autograd recording each chunk's logits are recomputed in the backward,
-    not kept (at qwen2's vocab a chunk of 4 x 512 is 1.24 GB)."""
+    not kept (at qwen2's vocab a chunk of 4 x 512 is 1.24 GB).  Above one
+    rank x_sp is this rank's (B, T/M, d), gathered once; targets are whole
+    (B, T); the logits are this rank's vocab shard."""
     xg = ag_seq(x_sp, ctx)
     T = xg.shape[1]
     w = _unembed_weight(p, cfg)
@@ -148,9 +194,9 @@ def ce_loss(p, x_sp, targets, ctx: MeshCtx, cfg: ModelConfig, t_chunk: int = 512
     for lo in range(0, T, t_chunk):
         xs, ys = xg[:, lo:lo + t_chunk], targets[:, lo:lo + t_chunk]
         if _records(xs, w):
-            nll, n = checkpoint(_chunk_nll, xs, ys, w, cfg, use_reentrant=False)
+            nll, n = checkpoint(_chunk_nll, xs, ys, w, cfg, ctx, use_reentrant=False)
         else:
-            nll, n = _chunk_nll(xs, ys, w, cfg)
+            nll, n = _chunk_nll(xs, ys, w, cfg, ctx)
         total = total + nll
         cnt = cnt + n
     return total / torch.clamp(cnt, min=1).float()
@@ -193,7 +239,10 @@ def make_block_fn(cfg: ModelConfig, ctx: MeshCtx, kind: str, *, memory=None,
     """Returns f(params, x) -> x for train / prefill; with ``with_aux``
     f(params, x) -> (x, aux), aux the MoE block's aux loss and ``None`` for
     every other kind.  A ``dec`` block attends to ``memory`` (B, Tm, d), the
-    encoder's output."""
+    encoder's output.  Above one rank only the dense ``attn`` block runs
+    (the others raise ``NotImplementedError``)."""
+    if ctx.world > 1 and kind != "attn":
+        raise NotImplementedError(ACROSS_RANKS_TODO.format(what=f"the {kind!r} block"))
 
     def attn_block(p, x):
         w = cfg.window if kind == "attn_window" else None
@@ -336,6 +385,8 @@ def encode(params, enc_embeds, ctx: MeshCtx, cfg: ModelConfig, remat: bool = Tru
     """The encoder over stub frame embeddings (B, Te, d) -> memory (B, Te, d):
     the frames cast to the parameters' dtype, non-causal ``attn`` blocks
     (rope over the frame positions), then the encoder's own norm."""
+    if ctx.world > 1:
+        raise NotImplementedError(ACROSS_RANKS_TODO.format(what="the encoder"))
     fn = make_block_fn(cfg, ctx, "attn", causal=False, with_aux=True)
     x = enc_embeds.to(params["enc"]["norm"]["scale"].dtype)
     x, _ = _run_layers(fn, group_layers(params["enc"]["layers"], cfg.n_enc_layers, True), x,
@@ -351,7 +402,8 @@ def forward(params, tokens, ctx: MeshCtx, cfg: ModelConfig, *, frontend=None,
     ``enc_embeds`` (B, Te, d) are the stub frontends' inputs
     (``embed_inputs``, ``encode``); an encoder-decoder needs ``enc_embeds``.
     ``remat`` recomputes each layer in the backward (only while autograd
-    records)."""
+    records).  Above one rank tokens are this rank's (B, T/M) chunk and the
+    result its (B, T/M, d) shard of the stream."""
     x = embed_inputs(params["embed"], tokens, ctx, cfg, frontend)
     memory = (encode(params, enc_embeds, ctx, cfg, remat) if cfg.family == "encdec"
               else None)

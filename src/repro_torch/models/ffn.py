@@ -1,6 +1,8 @@
-"""Dense FFN and MoE blocks on one card.
+"""Dense FFN and MoE blocks.
 
-Dense: the reference's tensor-parallel MLP with a model axis of 1.
+Dense: the reference's tensor-parallel MLP — ``w_gate`` / ``w_up`` split by
+columns and ``w_down`` by rows over 'model', inside the sequence-parallel
+all-gather / reduce-scatter pair.
 
 MoE: the reference (``repro.models.ffn``) shards experts over the combined
 ('data', 'model') axis and routes tokens with a capacity-bounded
@@ -114,8 +116,8 @@ def _moe_core(p, x, cfg: ModelConfig, ctx: MeshCtx, ep_data_size: int):
     its capacity-padded dispatch instead (every local expert over
     ``world · cap`` masked slots), so the two counts differ by design."""
     if ep_data_size * ctx.model_size != 1:
-        raise NotImplementedError("expert parallelism across cards: a later slice of "
-                                  "ROADMAP Queue A item 15")
+        raise NotImplementedError("expert parallelism above one rank: ROADMAP Queue A item "
+                                  "15 sub-item 6c (the all_to_all over ('data', 'model'))")
     N, d = x.shape
     E, k = cfg.n_experts, cfg.moe_top_k
     probs, topw, topi = _route(p, x, cfg)

@@ -1,11 +1,19 @@
-"""Core transformer layers on one device.
+"""Core transformer layers, one process a rank.
 
 The reference (``repro.models.layers``) runs these inside ``shard_map``:
 the residual stream sequence-sharded over 'model' between blocks, Q/O
-projections head-sharded, embeddings vocab-sharded.  The port keeps the
-same functions and signatures on a mesh of one card, where every
-collective is the identity (``MeshCtx.model_size == 1``); a wider model
-axis raises until the multi-card slice (ROADMAP Queue A item 15).
+projections head-sharded, embeddings vocab-sharded.  The port runs the
+same functions on this rank's shards.  ``MeshCtx`` carries the mesh
+(``repro_torch.launch.mesh.LocalMesh``: its process groups and this rank's
+coordinates); on a mesh of one rank every collective is the identity.
+
+The collectives that autograd runs through are ``torch.autograd.Function``s
+with the reference's transposes under ``jax.shard_map(...,
+check_vma=False)``: the gradient a rank gets is that of the sum of every
+rank's objective.  So ``ag_seq`` (all-gather) and ``rs_seq``
+(reduce-scatter) are each other's transpose, ``psum_model``'s transpose is
+itself (a psum of the cotangents, not the identity), and ``pmax_const`` is
+a constant (a zero gradient), as the reference's ``custom_jvp``.
 
 ``blockwise_attention`` is the reference's own online-softmax attention
 over a static list of (q-chunk, k-chunk) pairs, in plain torch ops: the
@@ -15,7 +23,8 @@ fills and ``kv_valid_len`` mask.
 from __future__ import annotations
 
 import functools
-from dataclasses import dataclass
+from dataclasses import dataclass, field
+from typing import Any
 
 import numpy as np
 import torch
@@ -27,21 +36,37 @@ from .spec import P
 
 @dataclass(frozen=True)
 class MeshCtx:
-    """Axis context passed through every layer (one card: model_size 1)."""
+    """Axis context passed through every layer: the axis sizes, this rank's
+    coordinate on 'model' and the mesh whose process groups the collectives
+    run over (``comm()``; a context without one still sizes a spec)."""
 
     model_axis: str = "model"
     model_size: int = 1
     data_axes: tuple = ("data",)
     data_size: int = 1
+    model_index: int = 0
+    mesh: Any = field(default=None, repr=False, compare=False)
 
-    def __post_init__(self):
-        if self.model_size != 1 or self.data_size != 1:
-            raise NotImplementedError(
-                "repro_torch.models runs on one card (model_size == data_size == 1); "
-                "sharded meshes come with a later slice of ROADMAP Queue A item 15")
+    def comm(self):
+        """The mesh the collectives run over; raises ``ValueError`` where
+        the context has none."""
+        if self.mesh is None:
+            raise ValueError(
+                f"collectives over a MeshCtx of model {self.model_size} x data "
+                f"{self.data_size} need its mesh (repro_torch.launch.mesh.make_local_mesh "
+                "over a process group)")
+        return self.mesh
+
+    @property
+    def m(self):
+        return self.model_axis
+
+    @property
+    def world(self) -> int:
+        return self.model_size * self.data_size
 
     def midx(self) -> int:
-        return 0
+        return self.model_index
 
 
 def pad_to(x: int, mult: int) -> int:
@@ -61,22 +86,91 @@ def einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------
-# sequence-parallel plumbing: identities on one card
+# sequence-parallel plumbing: collectives over 'model' that autograd records
 # --------------------------------------------------------------------------
 
 
+class _AllGather(torch.autograd.Function):
+    """All-gather along ``dim``; its transpose reduce-scatters."""
+
+    @staticmethod
+    def forward(fctx, x, mesh, axes, dim):
+        fctx.args = (mesh, axes, dim)
+        return mesh.all_gather(x, axes, dim)
+
+    @staticmethod
+    def backward(fctx, g):
+        mesh, axes, dim = fctx.args
+        return mesh.reduce_scatter(g, axes, dim), None, None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """Reduce-scatter along ``dim``; its transpose all-gathers."""
+
+    @staticmethod
+    def forward(fctx, x, mesh, axes, dim):
+        fctx.args = (mesh, axes, dim)
+        return mesh.reduce_scatter(x, axes, dim)
+
+    @staticmethod
+    def backward(fctx, g):
+        mesh, axes, dim = fctx.args
+        return mesh.all_gather(g, axes, dim), None, None, None
+
+
+class _Psum(torch.autograd.Function):
+    """Sum over ``axes``; its transpose is the same sum of the cotangents
+    (``jax.lax.psum``'s under ``check_vma=False``)."""
+
+    @staticmethod
+    def forward(fctx, x, mesh, axes):
+        fctx.args = (mesh, axes)
+        return mesh.all_reduce(x, axes)
+
+    @staticmethod
+    def backward(fctx, g):
+        mesh, axes = fctx.args
+        return mesh.all_reduce(g, axes), None, None
+
+
+class _PmaxConst(torch.autograd.Function):
+    """Max over ``axes``, a constant under differentiation."""
+
+    @staticmethod
+    def forward(fctx, x, mesh, axes):
+        return mesh.all_reduce(x, axes, op="max")
+
+    @staticmethod
+    def backward(fctx, g):
+        return torch.zeros_like(g), None, None
+
+
 def ag_seq(x: torch.Tensor, ctx: MeshCtx) -> torch.Tensor:
-    """(B, T/M, d) -> (B, T, d): gather the sequence shards (M = 1)."""
-    return x
+    """(B, T/M, d) -> (B, T, d): gather the sequence shards."""
+    if ctx.model_size == 1:
+        return x
+    return _AllGather.apply(x, ctx.comm(), ctx.m, 1)
 
 
 def rs_seq(x: torch.Tensor, ctx: MeshCtx) -> torch.Tensor:
-    """(B, T, d) partial sums -> (B, T/M, d) reduced shard (M = 1)."""
-    return x
+    """(B, T, d) partial sums -> (B, T/M, d) reduced shard (psum_scatter)."""
+    if ctx.model_size == 1:
+        return x
+    return _ReduceScatter.apply(x, ctx.comm(), ctx.m, 1)
 
 
 def psum_model(x: torch.Tensor, ctx: MeshCtx) -> torch.Tensor:
-    return x
+    if ctx.model_size == 1:
+        return x
+    return _Psum.apply(x, ctx.comm(), ctx.m)
+
+
+def pmax_const(x: torch.Tensor, ctx: MeshCtx) -> torch.Tensor:
+    """The max over 'model', treated as a constant under differentiation
+    (the softmax's max shift)."""
+    if ctx.model_size == 1:
+        return x
+    return _PmaxConst.apply(x, ctx.comm(), ctx.m)
 
 
 # --------------------------------------------------------------------------
@@ -267,5 +361,11 @@ def attention_partial_lse(q, k, v, kv_for_q, *, k_offset, kv_valid_len, q_pos):
 
 
 def combine_partials(num, m, l, ctx: MeshCtx):
-    """LSE-combine the partials across the model axis (one shard here)."""
+    """LSE-combine per-shard partial attention across the model axis."""
+    if ctx.model_size == 1:
+        return (num / torch.clamp(l[..., None], min=1e-30)).to(torch.bfloat16)
+    m_all = ctx.comm().all_reduce(m, ctx.m, op="max")
+    corr = torch.exp(m - m_all)
+    num = ctx.comm().all_reduce(num * corr[..., None], ctx.m)
+    l = ctx.comm().all_reduce(l * corr, ctx.m)
     return (num / torch.clamp(l[..., None], min=1e-30)).to(torch.bfloat16)

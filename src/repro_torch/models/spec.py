@@ -5,9 +5,14 @@ we derive (a) materialized parameters drawn from a seed, (b) stand-ins on
 the ``meta`` device (nothing allocated), and (c) parameters carried over
 from the JAX package, key for key (`params_from_numpy`).
 
-The logical sharding axes of each leaf ('model', 'data', None) are kept as
-the reference declares them; the port runs on one card, so nothing reads
-them yet.
+The logical sharding axes of each leaf ('model', 'data', None, or a tuple
+of axes sharding one dimension, major first) are the reference's.  A
+rank holds the slices its mesh coordinates pick (``dim_blocks``,
+``shard_params``), as ``shard_map`` hands them to the reference's body;
+``gather_params`` puts every rank's slices back together.  Both work on
+any tree of `P` leaves: the parameters, and the optimizer state's tree
+(``optim.opt_state_spec``, whose flat leaves are sharded over their
+holders and, under ZeRO-1, over 'data').
 """
 from __future__ import annotations
 
@@ -121,6 +126,90 @@ def params_from_numpy(tree_of_arrays, device, dtype=None):
     else in each leaf's own dtype (bfloat16 leaves stay bfloat16)."""
     device = torch.device(device)
     return tree_map(lambda a: _leaf_from_numpy(a, device, dtype), tree_of_arrays)
+
+
+def _dim_axes(ax) -> tuple:
+    return () if ax is None else (ax if isinstance(ax, tuple) else (ax,))
+
+
+def dim_blocks(shape, axes, sizes: dict, at: dict) -> tuple:
+    """The slices of an array of ``shape`` held at mesh coordinates ``at``
+    (axis -> index) of a mesh of ``sizes``: dimension ``i`` split over
+    ``axes[i]`` — an axis, a tuple of axes (major first, as a
+    ``PartitionSpec`` entry) or None.  Raises ``ValueError`` where a
+    dimension does not split evenly."""
+    out = []
+    for dim, ax in zip(shape, axes):
+        idx, n = 0, 1
+        for a in _dim_axes(ax):
+            idx, n = idx * sizes[a] + at.get(a, 0), n * sizes[a]
+        if dim % n:
+            raise ValueError(f"dimension {dim} of {tuple(shape)} does not split over {ax} ({n})")
+        out.append(slice(idx * (dim // n), (idx + 1) * (dim // n)))
+    return tuple(out)
+
+
+def shard_params(tree_of_arrays, spec, mesh, dtype=None):
+    """This rank's slices of global arrays (numpy, JAX or CPU tensors,
+    shaped as ``spec``'s leaves) on ``mesh.device``, each in its own dtype
+    or cast to ``dtype``."""
+    at = dict(zip(mesh.axis_names, mesh.coords))
+
+    def leaf(a, p: P):
+        if tuple(a.shape) != tuple(p.shape):
+            raise ValueError(f"array of shape {tuple(a.shape)} for a leaf of {p.shape}")
+        part = a[dim_blocks(p.shape, p.axes, mesh.shape, at)]
+        if isinstance(part, torch.Tensor):
+            return part.to(device=mesh.device, dtype=dtype or part.dtype).contiguous()
+        return _leaf_from_numpy(part, mesh.device, dtype)
+
+    return _zip_spec(leaf, tree_of_arrays, spec)
+
+
+def _zip_spec(fn, tree, spec):
+    if isinstance(spec, dict):
+        if not isinstance(tree, dict) or set(tree) != set(spec):
+            raise ValueError(f"tree keys {sorted(tree) if isinstance(tree, dict) else tree!r} "
+                             f"against spec keys {sorted(spec)}")
+        return {k: _zip_spec(fn, tree[k], spec[k]) for k in spec}
+    return fn(tree, spec)
+
+
+def gather_params(tree, spec, mesh, *, everywhere: bool = False, axes=None):
+    """Every rank's local leaves of ``spec`` put back into global tensors
+    (on the CPU; on each rank's device with ``everywhere``): returned on
+    rank 0, ``None`` on the others — on every rank with ``everywhere``.
+    ``axes`` (default: all of the mesh's) are the axes gathered over; a
+    leaf must be replicated over the others (``ValueError`` otherwise).
+    Collective: every rank of the mesh calls it."""
+    axes = mesh.axis_names if axes is None else tuple(axes)
+    live = [a for a in mesh.axis_names if a in axes and mesh.shape[a] > 1]
+    keep = everywhere or mesh.rank == 0
+    members = []                                # each group member's coordinates
+    for j in range(int(np.prod([mesh.shape[a] for a in live]))):
+        at = dict(zip(mesh.axis_names, mesh.coords))
+        at.update(zip(live, (int(c) for c in np.unravel_index(j, [mesh.shape[a]
+                                                                  for a in live]))))
+        members.append(at)
+
+    def leaf(x, p: P):
+        left = {a for ax in p.axes for a in _dim_axes(ax)} - set(live)
+        if any(mesh.shape[a] > 1 for a in left):
+            raise ValueError(f"a leaf sharded over {sorted(left)} gathered over {live}")
+        if not live:
+            return x.detach().clone() if everywhere else x.detach().cpu().clone()
+        parts = mesh.all_gather(x.detach().contiguous().reshape(1, -1), live, 0)
+        if not keep:
+            return None
+        if not everywhere:
+            parts = parts.cpu()
+        out = torch.empty(p.shape, dtype=x.dtype, device=parts.device)
+        for part, at in zip(parts, members):
+            out[dim_blocks(p.shape, p.axes, mesh.shape, at)] = part.reshape(x.shape)
+        return out
+
+    out = _zip_spec(leaf, tree, spec)
+    return out if keep else None
 
 
 def stack_layers(tree, n_layers: int):

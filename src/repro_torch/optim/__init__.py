@@ -1,5 +1,5 @@
-"""AdamW (+ the ZeRO-1 plan) and LR schedules, and error-feedback top-k
-gradient compression, on one card."""
+"""AdamW (its per-leaf gradient sync and ZeRO-1 across ranks) and LR
+schedules, and error-feedback top-k gradient compression."""
 from .adamw import (  # noqa: F401
     LeafPlan,
     OptConfig,

@@ -1,16 +1,19 @@
 """AdamW with per-leaf gradient synchronization and optional ZeRO-1 state
-sharding, on one card.
+sharding, one process a rank.
 
-The reference (``repro.optim.adamw``) runs inside ``shard_map``: a leaf's
-local gradient is partial along its replication axes and is ``psum``-ed
-over them (``sync_gradient``), or under ZeRO-1 reduce-scattered over
-'data' with the Adam state and the fp32 master kept for this rank's 1/D
-slice.  The port keeps the plan (``build_plan`` is pure and works for any
-mesh sizes) and the state layout, key for key, so states carry across
-packages (``opt_state_from_numpy``).  On one card every replication axis
-has size 1: ``sync_gradient`` is the float32 cast, the global-norm
-``psum`` the identity.  A plan that scatters (ZeRO-1 needs ``data > 1``)
-raises ``NotImplementedError`` where a step would scatter.
+The port of ``repro.optim.adamw``.  Parameters live as this rank's shards
+of the `P` spec tree; after the backward a leaf's local gradient is
+partial along exactly its replication axes, so ``sync_gradient`` sums it
+over them (an all-reduce a leaf), or under ZeRO-1 (``zero1=True``)
+reduce-scatters it over 'data' and sums the rest: the Adam state and the
+float32 master are then kept for this rank's 1/D slice of the flat leaf
+(``init_opt_state`` builds that slice), and the updated slice is
+all-gathered back over 'data'.  The global gradient norm is exact under
+both: each leaf contributes ``norm_weight · Σ g²`` and one scalar psum over
+the whole mesh sums them.  The collectives run over ``mesh``
+(``repro_torch.launch.mesh.LocalMesh``); a plan of one rank needs none.
+The plan (``build_plan``) and the state layout are the reference's, key
+for key, so states carry across packages (``opt_state_from_numpy``).
 
 ``apply_updates`` updates the parameters and the state **in place** under
 ``torch.no_grad()`` (the reference donates both to its jitted step) and
@@ -27,10 +30,6 @@ import numpy as np
 import torch
 
 from repro_torch.models.spec import P, params_from_numpy, tree_map_p
-
-ZERO1_TODO = ("ZeRO-1 needs data > 1: the multi-card slice of ROADMAP Queue A item 15 "
-              "(one card has no 'data' axis to scatter over)")
-
 
 @dataclass(frozen=True)
 class OptConfig:
@@ -223,14 +222,19 @@ def opt_state_spec(spec_tree, plan_tree, mesh_sizes: dict, cfg: OptConfig):
     return {"step": P((), (), "zeros", dtype=torch.int32), "leaves": walk(spec_tree, plan_tree)}
 
 
-def init_opt_state(params, plan_tree, cfg: OptConfig):
-    """The optimizer state of ``params``, on their device: zero moments, the
-    float32 master copy of each leaf, step 0."""
+def _check_mesh(plans, mesh) -> None:
+    """A plan that scatters or syncs over more than one rank needs its mesh."""
+    if mesh is None and any(pl.scatter or pl.norm_weight != 1.0 for pl in plans):
+        raise ValueError("a plan over more than one rank needs its mesh (mesh=)")
+
+
+def init_opt_state(params, plan_tree, cfg: OptConfig, mesh=None):
+    """This rank's optimizer state of ``params``, on their device: zero
+    moments, the float32 master copy of each leaf (under ZeRO-1 of this
+    rank's slice of it over 'data'), step 0."""
 
     def leaf(x, plan: LeafPlan):
-        if plan.scatter:
-            raise NotImplementedError(ZERO1_TODO)
-        base = int(np.prod(plan.local_shape))
+        base = plan.chunk if plan.scatter else int(np.prod(plan.local_shape))
         pad = _state_pad(base, cfg)
         dev = x.device
         if cfg.int8_states:
@@ -247,7 +251,7 @@ def init_opt_state(params, plan_tree, cfg: OptConfig):
             }
         if cfg.master_fp32:
             master = torch.zeros((pad,), dtype=torch.float32, device=dev)
-            master[:base] = x.detach().reshape(-1)
+            master[:base] = _my_slice(x, plan, mesh) if plan.scatter else x.detach().reshape(-1)
             st["master"] = master
         return st
 
@@ -259,8 +263,20 @@ def init_opt_state(params, plan_tree, cfg: OptConfig):
         first.append(par.device)
         return leaf(par, plan)
 
+    _check_mesh([pl for pl, _ in _flat_leaves(plan_tree, [params], [])], mesh)
     leaves = walk(params, plan_tree)
     return {"step": torch.zeros((), dtype=torch.int32, device=first[0]), "leaves": leaves}
+
+
+def _my_slice(x, plan: LeafPlan, mesh) -> torch.Tensor:
+    """This rank's 'data' slice (``plan.chunk`` entries) of the flat leaf,
+    zero-padded past its end."""
+    flat = x.detach().reshape(-1)
+    D = mesh.shape["data"]
+    if flat.shape[0] != plan.chunk * D:
+        flat = torch.nn.functional.pad(flat, (0, plan.chunk * D - flat.shape[0]))
+    i = mesh.index("data")
+    return flat[i * plan.chunk:(i + 1) * plan.chunk]
 
 
 def opt_state_from_numpy(state, device):
@@ -274,12 +290,22 @@ def opt_state_from_numpy(state, device):
     return params_from_numpy(state, device)
 
 
-def sync_gradient(g, plan: LeafPlan):
-    """Partial local grad -> fully-reduced grad: on one card every sync
-    axis has size 1, so the float32 cast."""
+def sync_gradient(g, plan: LeafPlan, mesh=None):
+    """Partial local grad -> fully-reduced float32 grad: summed over the
+    leaf's sync axes, and under ZeRO-1 first reduce-scattered over 'data'
+    (this rank's ``plan.chunk`` slice of the flat leaf)."""
+    _check_mesh([plan], mesh)
     if plan.scatter:
-        raise NotImplementedError(ZERO1_TODO)
-    return g.float()
+        flat = g.reshape(-1).float()
+        D = mesh.shape["data"]
+        if flat.shape[0] != plan.chunk * D:
+            flat = torch.nn.functional.pad(flat, (0, plan.chunk * D - flat.shape[0]))
+        gs = mesh.reduce_scatter(flat, "data")
+        return mesh.all_reduce(gs, plan.sync_axes) if plan.sync_axes else gs
+    g = g.float()
+    if mesh is None or not plan.sync_axes:
+        return g
+    return mesh.all_reduce(g, plan.sync_axes)
 
 
 def _flat_leaves(plan, trees, out):
@@ -294,23 +320,26 @@ def _flat_leaves(plan, trees, out):
 
 
 def apply_updates(grads, params, opt_state, plan_tree, cfg: OptConfig, mesh_axes=None,
-                  *, presynced: bool = False):
+                  *, presynced: bool = False, mesh=None):
     """One AdamW step, in place.  Returns (params, opt_state, metrics) — the
     same trees, updated — with metrics ``grad_norm`` and ``lr`` (0-d float32
     tensors on the device).
 
     presynced=True: ``grads`` are already fully reduced (e.g. by the
     error-feedback top-k compressor, ``repro_torch.optim.compression``).
-    ``grads`` is a tree shaped like ``params``."""
+    ``grads`` is a tree shaped like ``params``.  ``mesh``: the rank's mesh,
+    needed where the plan spans more than one rank."""
     with torch.no_grad():
         flat = _flat_leaves(plan_tree, [grads, params, opt_state["leaves"]], [])
         plans = [pl for pl, _ in flat]
-        gs = [g for _, (g, _x, _st) in flat]
-        if any(pl.scatter for pl in plans):
-            raise NotImplementedError(ZERO1_TODO)
-        # the exact global norm: Σ norm_weight · Σ g² (the mesh psum is the identity)
-        gnorm = torch.sqrt(sum(pl.norm_weight * torch.sum(torch.square(g.float()))
-                               for g, pl in zip(gs, plans)))
+        _check_mesh(plans, mesh)
+        gs = [g.float() if presynced else sync_gradient(g, pl, mesh)
+              for pl, (g, _x, _st) in flat]
+        # the exact global norm: Σ norm_weight · Σ g², summed over the mesh
+        sq = sum(pl.norm_weight * torch.sum(torch.square(g)) for g, pl in zip(gs, plans))
+        if mesh is not None:
+            sq = mesh.all_reduce(sq, mesh.axis_names)
+        gnorm = torch.sqrt(sq)
         scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
 
         step = opt_state["step"]
@@ -319,9 +348,15 @@ def apply_updates(grads, params, opt_state, plan_tree, cfg: OptConfig, mesh_axes
         bc1 = 1.0 - cfg.beta1 ** t
         bc2 = 1.0 - cfg.beta2 ** t
 
-        for pl, (g, x, st) in flat:
-            _update_leaf(g if presynced else sync_gradient(g, pl), x, st, scale, lr, bc1,
-                         bc2, cfg)
+        for g, (pl, (_g, x, st)) in zip(gs, flat):
+            if pl.scatter:
+                # update this rank's slice, then all-gather the slices over 'data'
+                part = _my_slice(x, pl, mesh).clone()
+                _update_leaf(g, part, st, scale, lr, bc1, bc2, cfg)
+                whole = mesh.all_gather(part, "data")
+                x.view(-1).copy_(whole[:x.numel()])
+            else:
+                _update_leaf(g, x, st, scale, lr, bc1, bc2, cfg)
         step.add_(1)
     return params, opt_state, {"grad_norm": gnorm, "lr": lr}
 

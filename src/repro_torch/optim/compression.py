@@ -4,10 +4,10 @@ The reference (``repro.optim.compression``): per leaf above a size
 threshold, each data rank sends only the top-k fraction of its gradient
 by magnitude (the residual stays in a local error-feedback buffer and is
 added back next step), all-gathers the sparse (index, value) sets over
-'data' and scatter-adds them into a dense gradient.  On one card the
-'data' axis has size 1: the all-gather is the identity, so the synced
-gradient is the top-k entries of (gradient + error) and the new error the
-rest.  The byte ledger counts what a data rank would send, as the
+'data' and scatter-adds them into a dense gradient, which is then summed
+densely over the leaf's other sync axes.  With a 'data' axis of size 1 the
+synced gradient is the top-k entries of (gradient + error) and the new
+error the rest.  The byte ledger counts what a data rank sends, as the
 reference's does.
 """
 from __future__ import annotations
@@ -68,12 +68,12 @@ def init_error_state(params, plan_tree, ccfg: CompressionConfig):
     return walk(params, plan_tree)
 
 
-def compressed_sync(g, err, plan: LeafPlan, ccfg: CompressionConfig):
-    """EF-top-k reduction over 'data' (size 1 here).  Returns (g_synced,
-    new_err), both float32 of g's shape.  Where entries tie in magnitude at
-    the k-th place the chosen set may differ from ``jax.lax.top_k``'s; the
-    results differ only if tied entries differ in value (ties of zeros
-    give the same sums)."""
+def compressed_sync(g, err, plan: LeafPlan, ccfg: CompressionConfig, mesh=None):
+    """EF-top-k reduction over 'data' (+ a dense psum over the leaf's other
+    sync axes).  Returns (g_synced, new_err), both float32 of g's shape.
+    Where entries tie in magnitude at the k-th place the chosen set may
+    differ from ``jax.lax.top_k``'s; the results differ only if tied
+    entries differ in value (ties of zeros give the same sums)."""
     acc = g.float() + err.float()
     flat = acc.reshape(-1)
     k = k_for(plan, ccfg)
@@ -81,13 +81,20 @@ def compressed_sync(g, err, plan: LeafPlan, ccfg: CompressionConfig):
     send_vals = flat[idx]                                   # (k,)
     new_err = flat.clone()
     new_err[idx] = 0.0
-    # the all-gather over a 'data' axis of size 1 is the identity
+    if mesh is not None:                                    # (D·k,) over 'data'
+        idx = mesh.all_gather(idx, "data")
+        send_vals = mesh.all_gather(send_vals, "data")
     dense = torch.zeros_like(flat).index_add_(0, idx, send_vals)
+    other = tuple(a for a in plan.sync_axes if a != "data")
+    if mesh is not None and other:
+        dense = mesh.all_reduce(dense, other)
     return dense.reshape(g.shape), new_err.reshape(g.shape)
 
 
-def sync_all(grads, err_state, plan_tree, cfg: OptConfig, ccfg: CompressionConfig):
-    """Per-leaf sync: compressed where eligible, dense elsewhere.
+def sync_all(grads, err_state, plan_tree, cfg: OptConfig, ccfg: CompressionConfig,
+             mesh=None):
+    """Per-leaf sync: compressed where eligible, dense elsewhere.  ``mesh``:
+    the rank's mesh, needed where the plan spans more than one rank.
 
     Returns (synced grads tree (f32), new error state tree, bytes ledger)."""
     sent_dense = [0]
@@ -98,13 +105,13 @@ def sync_all(grads, err_state, plan_tree, cfg: OptConfig, ccfg: CompressionConfi
             out = {k: walk(g[k], e[k], plan[k]) for k in plan}
             return {k: v[0] for k, v in out.items()}, {k: v[1] for k, v in out.items()}
         if eligible(plan, ccfg):
-            gs, ne = compressed_sync(g, e, plan, ccfg)
+            gs, ne = compressed_sync(g, e, plan, ccfg, mesh)
             sent_sparse[0] += 8 * k_for(plan, ccfg)
             return gs, ne
         size = int(np.prod(plan.local_shape))
         if "data" in plan.sync_axes or plan.scatter:
             sent_dense[0] += 4 * size
-        return sync_gradient(g, plan), e
+        return sync_gradient(g, plan, mesh), e
 
     with torch.no_grad():
         gs, ne = walk(grads, err_state, plan_tree)

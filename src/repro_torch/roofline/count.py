@@ -293,10 +293,10 @@ def analyze_step(fn, args, chips: int = 1, memo: dict | None = None) -> dict:
     ``analyze_hlo``'s keys for it, plus ``argument_bytes_per_device`` and
     ``peak_bytes_per_device``.  Give ``meta`` arguments to count without
     allocating; a collective is counted nowhere yet, so ``chips`` must be 1
-    until the multi-card slice."""
+    until the multi-card dry run (sub-item 6d)."""
     if chips != 1:
-        raise NotImplementedError("collectives across cards: the multi-card slice of "
-                                  "ROADMAP Queue A item 15")
+        raise NotImplementedError("collectives across cards: the multi-card dry run, "
+                                  "ROADMAP Queue A item 15 sub-item 6d")
     mode = StepCounter(memo)
     arg_bytes = mode.track_all(args)
     with mode:

@@ -63,6 +63,7 @@ from repro_torch.models.attention import (
     mla_init_cache,
 )
 from repro_torch.models.backbone import (
+    SERVE_ACROSS_RANKS_TODO,
     embed_inputs,
     embed_tokens,
     encode,
@@ -359,7 +360,10 @@ def make_serve_fns(cfg: ModelConfig, mesh, *, batch: int, max_len: int,
     ``inputs`` holds ``"tokens"`` (B, T) int, and ``"enc"`` (B, enc_len, d)
     for an encoder-decoder, and may hold ``"frontend"`` (B, T, d)
     (``backbone.embed_inputs``).  Prefill raises ``ValueError`` where
-    ``"enc"`` or ``"frontend"`` has another leading shape."""
+    ``"enc"`` or ``"frontend"`` has another leading shape.  A mesh of more
+    than one rank raises ``NotImplementedError`` (sub-item 6b)."""
+    if mesh.world > 1:
+        raise NotImplementedError(SERVE_ACROSS_RANKS_TODO)
     ctx = mesh_ctx(mesh)
     spec = model_spec(cfg, ctx)
     c_spec = cache_spec(cfg, mesh, batch, max_len, enc_len)

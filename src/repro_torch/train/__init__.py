@@ -1,5 +1,6 @@
 """Training layer: the step factory (``make_train_step``) and state init,
-and the mesh helpers the serving engine shares."""
+one process a rank, the mesh helpers the serving engine shares, and the
+state's one-rank layout (``layout``)."""
 from .step import (  # noqa: F401
     TrainBundle,
     batch_axes,

@@ -1,18 +1,26 @@
-"""Training-step factory on one card, and the mesh helpers the serving
-engine shares.
+"""Training-step factory, one process a rank, and the mesh helpers the
+serving engine shares.
 
 ``make_train_step(cfg, mesh, opt_cfg, batch=...)`` returns a ``TrainBundle``
 whose ``step(params, opt_state, batch) -> (params, opt_state, metrics)``
-is the reference's (``repro.train.step``): the objective
-``(ce + aux_coef · aux) / (world · microbatch)``, gradients by autograd
-over every parameter leaf (``torch.autograd.grad``), microbatches
+is the reference's (``repro.train.step``) on this rank's shards: the
+objective ``(ce + aux_coef · aux) / (world · microbatch)``, gradients by
+autograd over every parameter leaf (``torch.autograd.grad``), microbatches
 accumulated in a float32 accumulator a leaf, optional error-feedback top-k
-compression, then AdamW.  The reference donates ``(params, opt_state)`` to
-its jitted step; the port updates both in place and returns the same
-trees (at qwen2-1.5b's full width a second copy of the state would be
-~50 GB), and frees each microbatch's gradients once they are accumulated.
-Metrics are 0-d float32 tensors on the device: ``loss``, ``aux``,
+compression, then AdamW (its gradient sync and ZeRO-1 over the mesh).
+``step`` takes the global batch and keeps this rank's part of it
+(``batch_pspec_tree``: rows over the batch axes, tokens sequence-sharded
+over 'model', labels whole over 'model').  The reference donates
+``(params, opt_state)`` to its jitted step; the port updates both in place
+and returns the same trees (at qwen2-1.5b's full width a second copy of
+the state would be ~50 GB), and frees each microbatch's gradients once
+they are accumulated.  Metrics are 0-d float32 tensors on the device:
+``loss`` and ``aux`` summed over every rank (each rank's ``ce / world``),
 ``grad_norm``, ``lr``.
+
+``init_train_state`` draws the global parameters from a seed on every
+rank and keeps this rank's shards; the optimizer state is built on each
+rank from them, so ZeRO-1 slices land on their owners.
 """
 from __future__ import annotations
 
@@ -24,7 +32,7 @@ import torch
 from repro_torch.models.backbone import ce_loss, forward, model_spec
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import MeshCtx
-from repro_torch.models.spec import abstract_params, init_params
+from repro_torch.models.spec import abstract_params, dim_blocks, init_params, shard_params
 from repro_torch.optim import (
     OptConfig,
     apply_updates,
@@ -47,6 +55,8 @@ def mesh_ctx(mesh) -> MeshCtx:
         model_size=mesh.shape["model"],
         data_axes=tuple(a for a in names if a != "model"),
         data_size=mesh.shape.get("data", 1),
+        model_index=mesh.index("model"),
+        mesh=mesh,
     )
 
 
@@ -90,8 +100,8 @@ class TrainBundle:
 
 def batch_pspec_tree(cfg: ModelConfig, mesh, batch: int) -> dict:
     """The logical sharding of each batch entry, as the reference's
-    ``PartitionSpec``s (tuples of axis names): what the multi-card and
-    dry-run slices of ROADMAP Queue A item 15 shard a batch by."""
+    ``PartitionSpec``s (tuples of axis names, a tuple or None a
+    dimension): what ``local_batch`` keeps of it on a rank."""
     ba = batch_axes(mesh, batch)
     tree = {"tokens": (ba, "model"), "labels": (ba, None)}
     if cfg.family == "encdec":
@@ -127,8 +137,14 @@ def _unflatten(plan, values):
     return build(plan)
 
 
-def _on_device(batch_: dict, device: torch.device) -> dict:
-    return {k: torch.as_tensor(v, device=device) for k, v in batch_.items()}
+def local_batch(batch_: dict, pspecs: dict, mesh) -> dict:
+    """This rank's part of a global batch (numpy arrays or tensors), on the
+    mesh's device: each dimension split over its ``pspecs`` axes (major
+    first), in mesh coordinates."""
+    at = dict(zip(mesh.axis_names, mesh.coords))
+    return {k: torch.as_tensor(v[dim_blocks(v.shape, pspecs[k], mesh.shape, at)],
+                               device=mesh.device)
+            for k, v in batch_.items()}
 
 
 def make_train_step(
@@ -157,6 +173,7 @@ def make_train_step(
     if ccfg.enabled:
         o_spec["err"] = error_spec(spec, plan, ccfg)
     device = mesh.device
+    b_ps = batch_pspec_tree(cfg, mesh, batch)
     stats: dict = {}
 
     def objective(params, mb):
@@ -166,7 +183,7 @@ def make_train_step(
         return (ce + aux_coef * aux) / (world * microbatch), ce, aux
 
     def grads_of(params, batch_):
-        batch_ = _on_device(batch_, device)
+        batch_ = local_batch(batch_, b_ps, mesh)
         leaves = [x for _, (x,) in _flat_leaves(plan, [params], [])]
         was = [t.requires_grad for t in leaves]
         for t in leaves:
@@ -201,18 +218,20 @@ def make_train_step(
 
     def update(params, opt_state, grads, ce, aux):
         if ccfg.enabled:
-            synced, new_err, ledger = sync_all(grads, opt_state["err"], plan, opt_cfg, ccfg)
+            synced, new_err, ledger = sync_all(grads, opt_state["err"], plan, opt_cfg, ccfg,
+                                               mesh)
             with torch.no_grad():
                 for _, (e, ne) in _flat_leaves(plan, [opt_state["err"], new_err], []):
                     if ne is not e:
                         e.copy_(ne)
             stats["compression_bytes"] = ledger
             params, opt_state, om = apply_updates(synced, params, opt_state, plan, opt_cfg,
-                                                  mesh.axis_names, presynced=True)
+                                                  mesh.axis_names, presynced=True, mesh=mesh)
         else:
             params, opt_state, om = apply_updates(grads, params, opt_state, plan, opt_cfg,
-                                                  mesh.axis_names)
-        metrics = {"loss": ce / world, "aux": aux / world, "grad_norm": om["grad_norm"],
+                                                  mesh.axis_names, mesh=mesh)
+        summed = mesh.all_reduce(torch.stack([ce, aux]).float() / world, mesh.axis_names)
+        metrics = {"loss": summed[0], "aux": summed[1], "grad_norm": om["grad_norm"],
                    "lr": om["lr"]}
         return params, opt_state, metrics
 
@@ -227,12 +246,15 @@ def make_train_step(
 
 def init_train_state(bundle: TrainBundle, cfg: ModelConfig, mesh, opt_cfg: OptConfig,
                      seed=0, compression: CompressionConfig | None = None):
-    """Materialize (params, opt_state) on the mesh's device: parameters drawn
-    from a ``torch.Generator`` seeded with ``seed`` on that device (torch's
-    random stream, not JAX's), then the optimizer state of them."""
+    """Materialize (params, opt_state) on the mesh's device: the global
+    parameters drawn from a ``torch.Generator`` seeded with ``seed`` on that
+    device (torch's random stream, not JAX's; every rank draws the same),
+    this rank's shards of them kept, then the optimizer state of those."""
     gen = torch.Generator(device=mesh.device).manual_seed(seed)
     params = init_params(bundle.param_spec, gen, mesh.device)
-    opt = init_opt_state(params, bundle.plan, opt_cfg)
+    if mesh.world > 1:
+        params = shard_params(params, bundle.param_spec, mesh)
+    opt = init_opt_state(params, bundle.plan, opt_cfg, mesh)
     ccfg = compression or CompressionConfig()
     if ccfg.enabled:
         opt["err"] = init_error_state(params, bundle.plan, ccfg)

@@ -1,0 +1,235 @@
+"""The reference's side of the multi-rank tests, run as a script on fake
+CPU devices (``tests/test_compression.py`` runs its 8-device test so):
+
+    python tests/_jax_mesh_ref.py IN.npz OUT.npz DEVICES
+
+``IN.npz`` holds ``job`` (a JSON list of tasks) and each task's input
+arrays under ``<name>/...``; the results go to ``OUT.npz`` under the same
+prefixes.  Every task runs the reference's own functions inside
+``jax.shard_map(..., check_vma=False)`` on a (data, model) mesh of the
+first ``data · model`` devices.  A per-rank result comes back stacked on a
+leading axis in rank order (``out_specs`` over ('data', 'model') of a
+leading axis of one a rank), so a test holds rank ``r`` of the port
+against row ``r``.
+
+Tasks (``kind``):
+
+* ``coll``: ``ag_seq``, ``rs_seq``, ``psum_model``, ``pmax_const`` (as
+  ``x * pmax_const(x)``) and ``combine_partials`` on a (1, n) mesh: each
+  rank's output and ``jax.grad`` of ``Σ out · cot`` (cotangents per rank);
+* ``layers``: ``embed_tokens``, ``ce_loss``, ``gqa_apply`` and
+  ``mlp_apply``, each rank's output and gradients of ``Σ out · cot``
+  (``ce_loss``: of the loss);
+* ``step``: the loss and the synced gradients of the training objective
+  (the reference's ``sync_gradient`` a leaf, global arrays), then one
+  ``make_train_step`` step from the given state: parameters, state and
+  metrics after it;
+* ``init``: ``init_train_state``'s parameters (seed 0) and the losses of
+  ``steps`` steps of ``make_train_step`` on a repeated batch.
+"""
+import json
+import os
+import sys
+
+os.environ["XLA_FLAGS"] = f"--xla_force_host_platform_device_count={sys.argv[3]}"
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+from jax.sharding import PartitionSpec as JP  # noqa: E402
+
+from repro.configs import get_smoke_config  # noqa: E402
+from repro.models import attention, backbone, ffn, layers  # noqa: E402
+from repro.models.spec import pspecs  # noqa: E402
+from repro.optim import OptConfig, build_plan, sync_gradient  # noqa: E402
+from repro.optim.compression import CompressionConfig  # noqa: E402
+from repro.train import init_train_state, make_train_step  # noqa: E402
+from repro.train.step import mesh_ctx, mesh_sizes  # noqa: E402
+
+RANKS = JP(("data", "model"))
+
+
+def mesh_of(d, m):
+    return jax.make_mesh((d, m), ("data", "model"), devices=jax.devices()[:d * m],
+                         axis_types=(jax.sharding.AxisType.Auto,) * 2)
+
+
+def unflat(flat: dict, prefix: str) -> dict:
+    out = {}
+    for k, v in flat.items():
+        if not k.startswith(prefix + "/"):
+            continue
+        node = out
+        parts = k[len(prefix) + 1:].split("/")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = v
+    return out
+
+
+def flat(tree, prefix: str, out: dict) -> dict:
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            flat(v, f"{prefix}/{k}", out)
+    else:
+        out[prefix] = np.asarray(jnp.asarray(tree, jnp.float32))
+    return out
+
+
+def config(task):
+    return get_smoke_config(task["arch"]).scaled(**task.get("scale", {}))
+
+
+def per_rank(mesh, fn, in_specs, *args):
+    body = jax.shard_map(fn, mesh=mesh, in_specs=in_specs, out_specs=RANKS, check_vma=False)
+    return jax.jit(body)(*args)
+
+
+def coll(task, inp, out):
+    n = task["n"]
+    mesh = mesh_of(1, n)
+    ctx = layers.MeshCtx(model_size=n)
+    name = task["name"]
+
+    def grad_of(f):
+        def body(x, cot):
+            y, pull = jax.vjp(f, x[0])
+            return y[None], pull(cot[0])[0][None]
+        return body
+
+    fns = {
+        "ag": lambda x: layers.ag_seq(x, ctx),
+        "rs": lambda x: layers.rs_seq(x, ctx),
+        "psum": lambda x: layers.psum_model(x, ctx),
+        "pmax": lambda x: x * layers.pmax_const(x, "model"),
+    }
+    for op, f in fns.items():
+        y, g = per_rank(mesh, grad_of(f), (RANKS, RANKS), inp[f"{name}/{op}/x"],
+                        inp[f"{name}/{op}/cot"])
+        out[f"{name}/{op}/y"], out[f"{name}/{op}/dx"] = np.asarray(y), np.asarray(g)
+
+    def comb(num, m, l):
+        return layers.combine_partials(num[0], m[0], l[0], ctx).astype(jnp.float32)[None]
+
+    out[f"{name}/combine/y"] = np.asarray(per_rank(
+        mesh, comb, (RANKS,) * 3, *(inp[f"{name}/combine/{k}"] for k in ("num", "m", "l"))))
+
+
+def layer_fns(task, inp, out):
+    d, m = task["mesh"]
+    mesh = mesh_of(d, m)
+    ctx = mesh_ctx(mesh)
+    cfg = config(task)
+    name = task["name"]
+    p = unflat(inp, f"{name}/params")
+    x, tokens, targets = (inp[f"{name}/{k}"] for k in ("x", "tokens", "targets"))
+    sp = {"embed": pspecs(backbone.embed_spec(cfg)), "attn": pspecs(attention.gqa_spec(cfg, ctx)),
+          "mlp": pspecs(ffn.mlp_spec(cfg))}
+    seq, rows = JP("data", "model", None), JP("data", None)
+
+    # the parameters' gradients are local shards: return them stacked per
+    # rank; the input's too, where it is a float stream (not token ids)
+    def stacked(f, wrt_x):
+        def body(params, xs, cot):
+            if wrt_x:
+                y, pull = jax.vjp(f, params, xs)
+                gp, gx = pull(cot[0])
+            else:
+                y, pull = jax.vjp(lambda pp: f(pp, xs), params)
+                (gp,), gx = pull(cot[0]), jnp.zeros(())
+            return y[None], jax.tree.map(lambda g: g[None], gp), gx[None]
+        return body
+
+    def run_stacked(key, f, params, xs, x_spec, wrt_x=True):
+        body = jax.shard_map(stacked(f, wrt_x), mesh=mesh, in_specs=(sp[key], x_spec, RANKS),
+                             out_specs=RANKS, check_vma=False)
+        y, gp, gx = jax.jit(body)(params, xs, inp[f"{name}/cot/{key}"])
+        out[f"{name}/{key}/y"], out[f"{name}/{key}/dx"] = np.asarray(y), np.asarray(gx)
+        flat(gp, f"{name}/{key}/dp", out)
+
+    run_stacked("embed", lambda pe, t: backbone.embed_tokens(pe, t, ctx, cfg),
+                p["embed"], tokens.astype(np.int32), JP("data", "model"), wrt_x=False)
+    run_stacked("attn", lambda pa, xs: attention.gqa_apply(pa, xs, ctx, cfg), p["attn"], x, seq)
+    run_stacked("mlp", lambda pm, xs: ffn.mlp_apply(pm, xs, ctx, cfg), p["mlp"], x, seq)
+
+    def ce_body(pe, xs, ys):
+        loss, (gp, gx) = jax.value_and_grad(
+            lambda a, b: backbone.ce_loss(a, b, ys, ctx, cfg), argnums=(0, 1))(pe, xs)
+        return loss[None], jax.tree.map(lambda g: g[None], gp), gx[None]
+
+    body = jax.shard_map(ce_body, mesh=mesh, in_specs=(sp["embed"], seq, rows),
+                         out_specs=RANKS, check_vma=False)
+    loss, gp, gx = jax.jit(body)(p["embed"], x, targets)
+    out[f"{name}/ce/y"], out[f"{name}/ce/dx"] = np.asarray(loss), np.asarray(gx)
+    flat(gp, f"{name}/ce/dp", out)
+
+
+def step(task, inp, out):
+    d, m = task["mesh"]
+    mesh = mesh_of(d, m)
+    ctx = mesh_ctx(mesh)
+    cfg = config(task)
+    name = task["name"]
+    ocfg = OptConfig(warmup=2, total_steps=20, zero1=task.get("zero1", False))
+    ccfg = CompressionConfig(**task["compression"]) if task.get("compression") else None
+    params = unflat(inp, f"{name}/params")
+    opt = unflat(inp, f"{name}/opt")
+    opt["step"] = jnp.asarray(inp[f"{name}/opt/step"], jnp.int32)
+    batch = {k: jnp.asarray(inp[f"{name}/batch/{k}"], jnp.int32) for k in ("tokens", "labels")}
+    B = batch["tokens"].shape[0]
+    bundle = make_train_step(cfg, mesh, ocfg, batch=B, compression=ccfg)
+    world = d * m
+    plan = build_plan(bundle.param_spec, mesh.axis_names, mesh_sizes(mesh),
+                      OptConfig(warmup=2, total_steps=20))
+    p_ps = pspecs(bundle.param_spec)
+
+    def grads_body(params, b):
+        def objective(pp):
+            x, aux = backbone.forward(pp, b["tokens"], ctx, cfg, ep_data_size=d)
+            ce = backbone.ce_loss(pp["embed"], x, b["labels"], ctx, cfg)
+            return (ce + 1e-3 * aux) / world, ce
+        (_, ce), g = jax.value_and_grad(objective, has_aux=True)(params)
+        g = jax.tree.map(lambda gl, pl: sync_gradient(gl, pl), g, plan,
+                         is_leaf=lambda z: hasattr(z, "sync_axes"))
+        return jax.lax.psum(ce / world, ("data", "model")), g
+
+    body = jax.shard_map(grads_body, mesh=mesh, in_specs=(p_ps, bundle.batch_pspecs),
+                         out_specs=(JP(), p_ps), check_vma=False)
+    loss, g = jax.jit(body)(params, batch)
+    out[f"{name}/loss"] = np.asarray(loss)
+    flat(g, f"{name}/grads", out)
+    new_p, new_o, metrics = bundle.step(params, opt, batch)
+    flat(new_p, f"{name}/after/params", out)
+    flat(new_o, f"{name}/after/opt", out)
+    flat(metrics, f"{name}/metrics", out)
+
+
+def init(task, inp, out):
+    d, m = task["mesh"]
+    mesh = mesh_of(d, m)
+    cfg = config(task)
+    name = task["name"]
+    ocfg = OptConfig(warmup=2, total_steps=40)
+    bundle = make_train_step(cfg, mesh, ocfg, batch=task["batch"])
+    params, opt = init_train_state(bundle, cfg, mesh, ocfg)
+    flat(params, f"{name}/params", out)
+    toks = jnp.asarray(inp[f"{name}/tokens"], jnp.int32)
+    losses = []
+    for _ in range(task["steps"]):
+        params, opt, met = bundle.step(params, opt, {"tokens": toks, "labels": toks})
+        losses.append(float(met["loss"]))
+    out[f"{name}/losses"] = np.asarray(losses, np.float64)
+
+
+def main():
+    inp = dict(np.load(sys.argv[1]))
+    out = {}
+    for task in json.loads(str(inp.pop("job"))):
+        {"coll": coll, "layers": layer_fns, "step": step, "init": init}[task["kind"]](
+            task, inp, out)
+    np.savez(sys.argv[2], **out)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,239 @@
+"""The port's side of the multi-rank tests: what each rank runs.
+
+Every function here is a rank's body for ``repro_torch.launch.ranks.
+run_ranks`` (``fn(device, *args)``) and imports nothing of JAX or of the
+reference: the children import this module and ``repro_torch`` only.
+Inputs are global numpy arrays (the same the reference's script gets);
+each rank keeps its part of them and returns its own results (or, where
+named, the gathered global arrays on rank 0).
+"""
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch.configs import get_smoke_config
+from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.models import attention, backbone, ffn, layers
+from repro_torch.models.spec import gather_params, shard_params, tree_map
+from repro_torch.optim import OptConfig, build_plan, sync_gradient
+from repro_torch.optim.compression import CompressionConfig
+from repro_torch.train import make_train_step
+from repro_torch.train.step import mesh_ctx
+
+
+def config(arch, scale=None):
+    return get_smoke_config(arch).scaled(**(scale or {}))
+
+
+def block(arr, mesh, axes_by_dim):
+    """This rank's block of a global array: dimension ``i`` split over the
+    mesh axes ``axes_by_dim[i]`` (None: whole)."""
+    idx = []
+    for dim, ax in zip(arr.shape, axes_by_dim):
+        if ax is None:
+            idx.append(slice(None))
+            continue
+        n, i = mesh.shape[ax], mesh.index(ax)
+        idx.append(slice(i * (dim // n), (i + 1) * (dim // n)))
+    return arr[tuple(idx)]
+
+
+def _grads(out, leaves_, cot):
+    gs = torch.autograd.grad(out, leaves_, grad_outputs=cot)
+    return [g.detach() for g in gs]
+
+
+def collectives(dev, n, cases):
+    """Each collective of ``layers`` on a (1, n) mesh: this rank's output
+    and the gradient of ``Σ out · cot`` (its cotangent row)."""
+    mesh = make_local_mesh(1, n, device=dev)
+    ctx = mesh_ctx(mesh)
+    r = mesh.rank
+    fns = {
+        "ag": lambda x: layers.ag_seq(x, ctx),
+        "rs": lambda x: layers.rs_seq(x, ctx),
+        "psum": lambda x: layers.psum_model(x, ctx),
+        "pmax": lambda x: x * layers.pmax_const(x, ctx),
+    }
+    out = {}
+    for op, f in fns.items():
+        x = torch.from_numpy(cases[op]["x"][r]).requires_grad_(True)
+        y = f(x)
+        (dx,) = _grads(y, [x], torch.from_numpy(cases[op]["cot"][r]))
+        out[op] = {"y": y.detach().numpy(), "dx": dx.numpy()}
+    c = {k: torch.from_numpy(v[r]) for k, v in cases["combine"].items()}
+    out["combine"] = {"y": layers.combine_partials(c["num"], c["m"], c["l"], ctx).float().numpy()}
+    out["ledger"] = {k: dict(v) for k, v in mesh.ledger.items()}
+    return out
+
+
+def layer_functions(dev, tasks):
+    """``embed_tokens``, ``gqa_apply``, ``mlp_apply`` and ``ce_loss`` on
+    each task's mesh: this rank's outputs and gradients (of ``Σ out · cot``;
+    of the loss for ``ce_loss``)."""
+    results = {}
+    for t in tasks:
+        d, m = t["mesh"]
+        mesh = make_local_mesh(d, m, device=dev)
+        ctx = mesh_ctx(mesh)
+        cfg = config(t["arch"], t.get("scale"))
+        r = mesh.rank
+        specs = {"embed": backbone.embed_spec(cfg), "attn": attention.gqa_spec(cfg, ctx),
+                 "mlp": ffn.mlp_spec(cfg)}
+        seq = ("data", "model", None)
+        x = torch.from_numpy(np.ascontiguousarray(block(t["x"], mesh, seq)))
+        tokens = torch.from_numpy(np.ascontiguousarray(block(t["tokens"], mesh, ("data", "model"))))
+        targets = torch.from_numpy(np.ascontiguousarray(block(t["targets"], mesh, ("data", None))))
+        res = {}
+        for key, fn, inp in (
+                ("embed", lambda p, _x: backbone.embed_tokens(p, tokens, ctx, cfg), None),
+                ("attn", lambda p, xs: attention.gqa_apply(p, xs, ctx, cfg), x),
+                ("mlp", lambda p, xs: ffn.mlp_apply(p, xs, ctx, cfg), x),
+                ("ce", lambda p, xs: backbone.ce_loss(p, xs, targets, ctx, cfg), x)):
+            p = shard_params(t["params"]["embed" if key == "ce" else key],
+                             specs["embed" if key == "ce" else key], mesh)
+            flat = [(k, v.requires_grad_(True)) for k, v in _leaves(p)]
+            xs = inp.clone().requires_grad_(True) if inp is not None else None
+            y = fn(p, xs)
+            wrt = [v for _, v in flat] + ([xs] if xs is not None else [])
+            cot = (torch.ones(()) if key == "ce" else torch.from_numpy(t["cot"][key][r]))
+            gs = _grads(y, wrt, cot)
+            res[key] = {"y": y.detach().numpy(),
+                        "dp": {k: g.numpy() for (k, _), g in zip(flat, gs)},
+                        "dx": gs[-1].numpy() if xs is not None else None}
+        results[t["name"]] = res
+    return results
+
+
+def _leaves(tree, path=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, f"{path}/{k}")
+    else:
+        yield path, tree
+
+
+def train_steps(dev, tasks):
+    """One ``bundle.step`` of each task's mesh from the given global state
+    (the mesh layout): on rank 0 the loss, the synced gradients (plain
+    sync, gathered), and the parameters, state and metrics after the step
+    (gathered); on every rank the collectives' ledger."""
+    results = {}
+    for t in tasks:
+        d, m = t["mesh"]
+        mesh = make_local_mesh(d, m, device=dev)
+        cfg = config(t["arch"], t.get("scale"))
+        ocfg = OptConfig(warmup=2, total_steps=20, zero1=t.get("zero1", False))
+        ccfg = CompressionConfig(**t["compression"]) if t.get("compression") else None
+        B = t["batch"]["tokens"].shape[0]
+        bundle = make_train_step(cfg, mesh, ocfg, batch=B, compression=ccfg)
+        params = shard_params(t["params"], bundle.param_spec, mesh)
+        opt = shard_params(t["opt"], bundle.opt_spec, mesh)
+        round_trip = (gather_params(params, bundle.param_spec, mesh),
+                      gather_params(opt, bundle.opt_spec, mesh))
+        grads, ce, aux = bundle.grads(params, t["batch"])
+        plain = build_plan(bundle.param_spec, mesh.axis_names, mesh.shape,
+                           OptConfig(warmup=2, total_steps=20))
+        with torch.no_grad():
+            synced = _zip_plan(lambda g, pl: sync_gradient(g, pl, mesh), grads, plain)
+        loss = mesh.all_reduce(ce / mesh.world, mesh.axis_names)
+        # the synced gradients are the same on every data rank: gathered over
+        # 'model' alone, every rank holds them whole
+        over_model = tree_map(lambda x: x.numpy(), gather_params(
+            synced, bundle.param_spec, mesh, everywhere=True, axes=("model",)))
+        params, opt, metrics = bundle.update(params, opt, grads, ce, aux)
+        out = {"loss": float(loss),
+               "grads": gather_params(synced, bundle.param_spec, mesh),
+               "params": gather_params(params, bundle.param_spec, mesh),
+               "opt": gather_params(opt, bundle.opt_spec, mesh),
+               "metrics": {k: float(v) for k, v in metrics.items()},
+               "round_trip": round_trip,
+               "ledger": {k: dict(v) for k, v in mesh.ledger.items()}}
+        results[t["name"]] = (dict(out, over_model=over_model) if mesh.rank == 0
+                              else {"ledger": out["ledger"], "over_model": over_model})
+        dist.barrier()
+    return results
+
+
+def _zip_plan(fn, tree, plan):
+    if isinstance(plan, dict):
+        return {k: _zip_plan(fn, tree[k], plan[k]) for k in plan}
+    return fn(tree, plan)
+
+
+def train_losses(dev, d, m, arch, params, tokens, steps, runs):
+    """``steps`` steps of ``make_train_step`` on (d, m) from the given
+    global parameters (float32 arrays of bfloat16 values, cast back) and a
+    fresh state, once a run of ``runs`` (a compression config or None):
+    each run's losses."""
+    from repro_torch.optim import init_opt_state
+    from repro_torch.optim.compression import init_error_state
+
+    mesh = make_local_mesh(d, m, device=dev)
+    cfg = config(arch)
+    ocfg = OptConfig(warmup=2, total_steps=40)
+    batch = {"tokens": tokens, "labels": tokens}
+    out = []
+    for comp in runs:
+        ccfg = CompressionConfig(**comp) if comp else None
+        bundle = make_train_step(cfg, mesh, ocfg, batch=tokens.shape[0], compression=ccfg)
+        p = tree_map(lambda a: torch.from_numpy(a).to(torch.bfloat16), params)
+        p = shard_params(p, bundle.param_spec, mesh)
+        opt = init_opt_state(p, bundle.plan, ocfg, mesh)
+        if ccfg:
+            opt["err"] = init_error_state(p, bundle.plan, ccfg)
+        losses = []
+        for _ in range(steps):
+            p, opt, met = bundle.step(p, opt, batch)
+            losses.append(float(met["loss"]))
+        err = None
+        if ccfg:
+            err = float(sum(e.abs().sum() for _, e in _leaves(opt["err"]) if e.numel() > 1))
+        out.append({"losses": losses, "err_abs_sum": err})
+    return out
+
+
+def layers_and_steps(dev, layer_tasks, step_tasks):
+    """``layer_functions`` then ``train_steps`` in one group of ranks."""
+    return {"layers": layer_functions(dev, layer_tasks), "steps": train_steps(dev, step_tasks)}
+
+
+def fail_on(dev, rank):
+    """Rank ``rank`` raises; the others wait in a barrier that never ends."""
+    if dist.get_rank() == rank:
+        raise ValueError(f"rank {rank} fails on purpose")
+    dist.barrier()
+
+
+def sleep_for(dev, seconds):
+    import time
+
+    time.sleep(seconds)
+
+
+def exit_with(dev, code):
+    raise SystemExit(code)
+
+
+def sparse_sync(dev, d, m, gs, errs, k):
+    """``compressed_sync`` of one leaf replicated over the whole mesh (its
+    sync axes ('data', 'model')) on (d, m): rank r's partial gradient
+    ``gs[r]`` and error ``errs[r]``; returns (synced, new error)."""
+    from repro_torch.optim.adamw import LeafPlan
+    from repro_torch.optim.compression import compressed_sync
+
+    mesh = make_local_mesh(d, m, device=dev)
+    r = mesh.rank
+    n = gs.shape[1]
+    plan = LeafPlan(sync_axes=("data", "model"), scatter=False, param_axes=(),
+                    norm_weight=1.0 / (d * m), chunk=n, local_shape=(n,))
+    ccfg = CompressionConfig(ratio=k / n, min_leaf_size=1, enabled=True)
+    synced, err = compressed_sync(torch.from_numpy(gs[r]), torch.from_numpy(errs[r]), plan,
+                                  ccfg, mesh)
+    return synced.numpy(), err.numpy()
+
+
+def twin(dev, d, m, arch, params, tokens, steps, runs, gs, errs, k):
+    """``train_losses`` and ``sparse_sync`` in one group of ranks."""
+    return {"losses": train_losses(dev, d, m, arch, params, tokens, steps, runs),
+            "sync": sparse_sync(dev, d, m, gs, errs, k)}

@@ -1,0 +1,219 @@
+"""The collectives across ranks (``repro_torch.models.layers``: ``ag_seq``,
+``rs_seq``, ``psum_model``, ``pmax_const``, ``combine_partials``) against
+the reference's inside ``jax.shard_map(..., check_vma=False)`` on 2 and 4
+fake CPU devices (``tests/_jax_mesh_ref.py``), forward and backward; the
+rank launcher (``launch.ranks``) and the mesh (``launch.mesh``); and the
+paths outside this slice, which raise above one rank naming their
+sub-item of ROADMAP Queue A item 15.
+
+The port's ranks run as gloo processes on the CPU, a group of 2 and one of
+4 for the module.  Each rank's output and its gradient of
+``Σ out · cot`` (its own cotangents) are held against the reference's
+``jax.vjp`` of the same body: the reference's transposes are those of the
+sum of every rank's objective (all-gather and reduce-scatter each other's,
+psum its own, pmax a constant).
+
+Tolerances, stated before the first run: outputs and gradients within
+1e-6 of their largest magnitude (float32 sums of up to 4 terms in another
+order); ``combine_partials`` returns bfloat16, within one bfloat16 step of
+its largest magnitude (2^-8).
+"""
+import json
+import os
+import subprocess
+import sys
+import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import _torch_ranks
+from repro_torch.configs import get_smoke_config
+from repro_torch.launch import mesh as port_mesh
+from repro_torch.launch.ranks import choose_backend, run_ranks
+from repro_torch.models import backbone, ffn
+from repro_torch.models.layers import MeshCtx
+from repro_torch.serve.engine import make_serve_fns
+
+ROOT = Path(__file__).resolve().parents[1]
+NS = (2, 4)
+OPS = ("ag", "rs", "psum", "pmax", "combine")
+
+
+def cases(n, rng):
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    return {
+        "ag": {"x": f(n, 2, 3, 5), "cot": f(n, 2, 3 * n, 5)},
+        "rs": {"x": f(n, 2, 3 * n, 5), "cot": f(n, 2, 3, 5)},
+        "psum": {"x": f(n, 2, 5), "cot": f(n, 2, 5)},
+        "pmax": {"x": f(n, 2, 5), "cot": f(n, 2, 5)},
+        "combine": {"num": f(n, 2, 3, 1, 4), "m": f(n, 2, 3, 1),
+                    "l": (1 + rng.random((n, 2, 3, 1))).astype(np.float32)},
+    }
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("collectives")
+    rng = np.random.default_rng(5)
+    inputs = {n: cases(n, rng) for n in NS}
+    arrays = {f"c{n}/{op}/{k}": v for n in NS for op, kv in inputs[n].items()
+              for k, v in kv.items()}
+    job = [{"kind": "coll", "name": f"c{n}", "n": n} for n in NS]
+    np.savez(tmp / "in.npz", job=json.dumps(job), **arrays)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
+    ref = subprocess.Popen([sys.executable, str(ROOT / "tests" / "_jax_mesh_ref.py"),
+                            str(tmp / "in.npz"), str(tmp / "out.npz"), "4"],
+                           env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    def ranks(n):
+        return run_ranks(_torch_ranks.collectives, n, tmp / f"rdv{n}", device="cpu",
+                         args=(n, inputs[n]), timeout=120)
+
+    try:
+        with ThreadPoolExecutor(len(NS)) as pool:      # both groups at once
+            port = dict(zip(NS, pool.map(ranks, NS)))
+        _, err = ref.communicate(timeout=120)
+    finally:
+        if ref.poll() is None:
+            ref.kill()
+            ref.wait()
+    assert ref.returncode == 0, err[-3000:]
+    return {"ref": dict(np.load(tmp / "out.npz")), "port": port}
+
+
+def assert_close(got, want, rel, name):
+    assert got.shape == want.shape, (name, got.shape, want.shape)
+    err, scale = float(np.abs(got - want).max()), float(np.abs(want).max())
+    assert err <= rel * scale + 1e-12, (name, err, scale)
+
+
+@pytest.mark.parametrize("op", OPS)
+@pytest.mark.parametrize("n", NS)
+def test_collective_forward_and_backward_match_reference(runs, n, op):
+    ref = runs["ref"]
+    for r in range(n):
+        got = runs["port"][n][r][op]
+        if op == "combine":
+            assert_close(got["y"], ref[f"c{n}/combine/y"][r], 2.0 ** -8, f"{op} rank {r}")
+            continue
+        assert_close(got["y"], ref[f"c{n}/{op}/y"][r], 1e-6, f"{op} rank {r} out")
+        assert_close(got["dx"], ref[f"c{n}/{op}/dx"][r], 1e-6, f"{op} rank {r} grad")
+
+
+@pytest.mark.parametrize("n", NS)
+def test_transposes_are_the_global_sums(runs, n):
+    """Independently of the reference: ``ag_seq``'s gradient on rank r is
+    the sum over ranks of their cotangents' r-th sequence block, and
+    ``psum_model``'s the sum of every rank's cotangent; ``pmax_const``
+    passes no gradient through the max."""
+    port = runs["port"][n]
+    cot = np.stack([port[r]["ag"]["dx"] for r in range(n)])
+    # rebuild from the inputs the ranks saw
+    rng = np.random.default_rng(5)
+    inputs = {k: cases(k, rng) for k in NS}[n]
+    want = inputs["ag"]["cot"].sum(0).reshape(2, n, 3, 5).transpose(1, 0, 2, 3)
+    np.testing.assert_allclose(cot, want, rtol=1e-6, atol=1e-6)
+    ps = inputs["psum"]["cot"].sum(0)
+    for r in range(n):
+        np.testing.assert_allclose(port[r]["psum"]["dx"], ps, rtol=1e-6, atol=1e-6)
+        mx = inputs["pmax"]["x"].max(0)
+        np.testing.assert_allclose(port[r]["pmax"]["dx"], inputs["pmax"]["cot"][r] * mx,
+                                   rtol=1e-6, atol=1e-6)
+        led = port[r]["ledger"]
+        assert led["all_gather"]["calls"] >= 2 and led["reduce_scatter"]["calls"] >= 2
+
+
+# ---------------------------------------------------------------------------
+# the launcher and the mesh
+# ---------------------------------------------------------------------------
+
+
+def test_mesh_above_one_rank_needs_its_process_group():
+    """No fallback: without a process group of data · model ranks a wider
+    mesh raises; a mesh of one rank needs none."""
+    with pytest.raises(RuntimeError, match="process group of 4 ranks"):
+        port_mesh.make_local_mesh(2, 2, device="cpu")
+    one = port_mesh.make_local_mesh(device="cpu")
+    assert one.world == 1 and one.backend is None and one.coords == (0, 0)
+    x = torch.arange(6.0).reshape(2, 3)
+    assert one.all_gather(x, "model", 1) is x and one.all_reduce(x, ("data", "model")) is x
+    with pytest.raises(NotImplementedError, match="sub-item 6d"):
+        port_mesh.make_production_mesh()
+
+
+@pytest.mark.parametrize("world,device,asked,cards,want", [
+    (2, "cpu", None, 0, "gloo"),
+    (4, "cpu", "gloo", 0, "gloo"),
+    (2, "cpu", "nccl", 0, ValueError),
+    (2, "cuda", None, 2, "nccl"),
+    (4, "cuda", None, 8, "nccl"),
+    (2, "cuda", None, 1, ValueError),          # ranks sharing a card: ask for gloo by name
+    (2, "cuda", "gloo", 1, "gloo"),
+    (4, "cuda", "nccl", 1, ValueError),
+    (2, "cuda", "mpi", 1, ValueError),
+])
+def test_backend_rule(monkeypatch, world, device, asked, cards, want):
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    if want is ValueError:
+        with pytest.raises(ValueError):
+            choose_backend(world, device, asked)
+    else:
+        assert choose_backend(world, device, asked) == want
+
+
+def test_a_failing_rank_fails_the_call_at_once(tmp_path):
+    t0 = time.monotonic()
+    with pytest.raises(RuntimeError, match="rank 1 fails on purpose"):
+        run_ranks(_torch_ranks.fail_on, 2, tmp_path, device="cpu", args=(1,), timeout=60)
+    assert time.monotonic() - t0 < 40          # rank 0 waited in a barrier: killed
+
+
+def test_a_hung_rank_times_out(tmp_path):
+    t0 = time.monotonic()
+    with pytest.raises(TimeoutError, match="still running"):
+        run_ranks(_torch_ranks.sleep_for, 1, tmp_path, device="cpu", args=(300,), timeout=8)
+    assert time.monotonic() - t0 < 30
+
+
+def test_ranks_exiting_alike_exit_the_call(tmp_path):
+    with pytest.raises(SystemExit) as e:
+        run_ranks(_torch_ranks.exit_with, 1, tmp_path, device="cpu", args=(17,), timeout=60)
+    assert e.value.code == 17
+
+
+# ---------------------------------------------------------------------------
+# what this slice does not run above one rank
+# ---------------------------------------------------------------------------
+
+TWO = MeshCtx(model_size=2)
+DP = MeshCtx(data_size=2)
+
+
+@pytest.mark.parametrize("kind", ["attn_window", "mla_dense", "mla_moe", "ssm", "rglru", "dec"])
+@pytest.mark.parametrize("ctx", [TWO, DP], ids=["model2", "data2"])
+def test_other_block_kinds_raise_above_one_rank(kind, ctx):
+    cfg = get_smoke_config("qwen2-1.5b")
+    with pytest.raises(NotImplementedError, match="sub-item 6c"):
+        backbone.make_block_fn(cfg, ctx, kind)
+    backbone.make_block_fn(cfg, ctx, "attn")           # the dense block runs
+
+
+def test_frontends_encoder_experts_and_serving_raise_above_one_rank():
+    cfg = get_smoke_config("whisper-tiny")
+    with pytest.raises(NotImplementedError, match="sub-item 6c"):
+        backbone.encode({}, torch.zeros(1, 4, cfg.d_model), TWO, cfg)
+    with pytest.raises(NotImplementedError, match="sub-item 6c"):
+        backbone.embed_inputs({}, torch.zeros(1, 4, dtype=torch.int32), DP, cfg,
+                              frontend=torch.zeros(1, 4, cfg.d_model))
+    moe = get_smoke_config("deepseek-v2-236b")
+    with pytest.raises(NotImplementedError, match="sub-item 6c"):
+        ffn._moe_core({}, torch.zeros(4, moe.d_model), moe, TWO, 1)
+    with pytest.raises(NotImplementedError, match="sub-item 6b"):
+        backbone.vocab_logits({}, torch.zeros(1, 8), TWO, cfg)
+    mesh = port_mesh.LocalMesh(("data", "model"), {"data": 1, "model": 2},
+                               torch.device("cpu"))
+    with pytest.raises(NotImplementedError, match="sub-item 6b"):
+        make_serve_fns(get_smoke_config("qwen2-1.5b"), mesh, batch=2, max_len=16)

@@ -37,7 +37,7 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
         import repro_torch.checkpoint, repro_torch.checkpoint.manager
         import repro_torch.launch.elastic, repro_torch.launch.train
         import repro_torch.launch.cells, repro_torch.launch.dryrun, repro_torch.roofline
-        import repro_torch.roofline.count
+        import repro_torch.roofline.count, repro_torch.launch.ranks, repro_torch.train.layout
         for arch in repro_torch.configs.ARCH_IDS:
             repro_torch.configs.get_config(arch)
         bad = sorted(
@@ -51,6 +51,36 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
     """)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "clean"
+
+
+def test_rank_launcher_and_its_children_import_nothing_of_the_reference(tmp_path):
+    """``launch.mesh`` and ``launch.ranks`` import without JAX; ``ranks``
+    needs nothing of the port beyond itself, and a rank it starts imports
+    only what its function needs (here a module of the standard library's
+    and this probe)."""
+    (tmp_path / "rank_probe.py").write_text(textwrap.dedent("""
+        import sys
+        def modules(device):
+            return sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib",
+                                                                        "repro", "repro_torch"))
+    """))
+    proc = _run(f"""
+        import sys
+        sys.path.insert(0, {str(tmp_path)!r})
+        import repro_torch.launch.ranks
+        mine = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "repro", "repro_torch"))
+        assert mine == ["repro_torch", "repro_torch.launch", "repro_torch.launch.ranks"], mine
+        import repro_torch.launch.mesh
+        assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "repro")]
+        import rank_probe
+        from repro_torch.launch.ranks import run_ranks
+        (child,) = run_ranks(rank_probe.modules, 1, {str(tmp_path / "rdv")!r}, device="cpu",
+                             timeout=120)
+        assert child == ["repro_torch", "repro_torch.launch", "repro_torch.launch.ranks"], child
+        print("clean")
+    """)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "clean"
 
 
 def test_sources_name_no_jax_import():

@@ -383,8 +383,13 @@ def test_model_spec_equals_the_reference_at_full_width(jmesh, arch):
 
 
 def test_mesh_ctx_is_one_card():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_layers.MeshCtx(model_size=16)
+    """A MeshCtx above one rank sizes a spec, but runs no collective
+    without the mesh of its process groups."""
+    wide = port_layers.MeshCtx(model_size=16)
+    with pytest.raises(ValueError, match="need its mesh"):
+        port_layers.ag_seq(torch.zeros(1, 16, 4), wide)
+    with pytest.raises(ValueError, match="need its mesh"):
+        port_layers.rs_seq(torch.zeros(1, 16, 4), wide)
     assert PCTX.model_size == 1 and PCTX.midx() == 0
 
 

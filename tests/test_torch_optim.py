@@ -226,14 +226,16 @@ def test_opt_state_spec_matches_reference(state):
 
 
 def test_zero1_scatter_raises_on_one_card():
+    """A plan that scatters over 'data' needs the mesh of its ranks: without
+    one (a single process) every step that would scatter raises."""
     sizes = {"data": 4, "model": 1}
     spec = _example_specs(PortP, torch.float32)
     plan = port_optim.build_plan(spec, AXES, sizes, port_optim.OptConfig(zero1=True))
     assert plan["wq"].scatter
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="needs its mesh"):
         port_optim.sync_gradient(torch.zeros(64, 128), plan["wq"])
     params = {k: torch.zeros(p.shape) for k, p in spec.items()}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="needs its mesh"):
         port_optim.init_opt_state(params, plan, port_optim.OptConfig(zero1=True))
 
 

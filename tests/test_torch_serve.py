@@ -308,7 +308,7 @@ def test_recurrent_plan_serves_past_max_len(jmesh, cpu_mesh, arch):
 
 def test_meshes_run_on_the_card_unless_asked():
     """``make_local_mesh()`` means the CUDA card and raises without one;
-    wider meshes wait for the multi-card slice."""
+    a wider mesh needs a process group of its ranks and raises without one."""
     if torch.cuda.is_available():
         assert make_local_mesh().device.type == "cuda"
     else:
@@ -317,7 +317,7 @@ def test_meshes_run_on_the_card_unless_asked():
     mesh = make_local_mesh(device="cpu")
     assert mesh.axis_names == ("data", "model") and mesh.device.type == "cpu"
     assert mesh_ctx(mesh).model_size == 1
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(RuntimeError, match="process group"):
         make_local_mesh(2, 1, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_production_mesh()
