@@ -100,7 +100,16 @@ just before it and read just after:
   one-rank step on the card; then (1, 2) and (2, 1) with ZeRO-1 timed at 4
   layers in bfloat16 on ``model_train``'s 8 x 4 096 rows: step wall, the
   host wall inside the collectives and each rank's peak memory — figures
-  of ranks sharing a card, not of NVLink or of scaling.
+  of ranks sharing a card, not of NVLink or of scaling.  Then the 2-rank
+  group serves qwen2-1.5b at full width and all 28 layers in bfloat16
+  (``BatchScheduler`` over each rank's shards, the sequence-sharded KV
+  cache, the distributed argmax) on (1, 2) and (2, 1), buckets 128 x 8
+  and 1 536 x 4, 16 new tokens: prefill ms a bucket, decode ms a step,
+  the collectives of a step from the mesh's ledger, each rank's peak;
+  after them rank 0 alone runs one rank and checks every mesh's tokens
+  against its no-cache forward (``MR_SERVE_MARGIN``) and a float32
+  2-layer model's against its run (``MR_SERVE_F32_MARGIN``), on a line
+  ``"step": "serve"`` before the phase's own.
 * ``dryrun`` — ``launch.dryrun`` and ``roofline``, which launch no PBS
   kernel: the 40-cell grid counted on meta tensors by
   ``python -m repro_torch.launch.dryrun``, one process an arch, the card
@@ -144,6 +153,7 @@ import argparse
 import atexit
 import contextlib
 import ctypes
+import dataclasses
 import gc
 import json
 import multiprocessing
@@ -241,7 +251,7 @@ from repro_torch.models.spec import (  # noqa: E402
     tree_map_p,
 )
 from repro_torch.serve.engine import make_serve_fns  # noqa: E402
-from repro_torch.serve.scheduler import BatchScheduler, Request  # noqa: E402
+from repro_torch.serve.scheduler import BatchScheduler, Completion, Request  # noqa: E402
 from repro_torch.train.step import mesh_ctx  # noqa: E402
 from repro_torch.checkpoint import restore_checkpoint  # noqa: E402
 from repro_torch.data import DataConfig, global_batch  # noqa: E402
@@ -3574,7 +3584,33 @@ MR_LOSS_RTOL, MR_GRAD_REL, MR_PARAM_ATOL = 1e-5, 1e-4, 1e-6
 # states, one cold step then MR_TIMED_STEPS warm ones
 MR_TIMED_LAYERS, MR_TIMED_STEPS = 4, 3
 MR_TIMED = (((1, 2), False), ((2, 1), True))
-MR_TIMEOUT_S = 300
+# serving across ranks, in the 2-rank group after its training work:
+# qwen2-1.5b at full width and all its 28 layers, bfloat16 weights drawn
+# from --seed on every rank (each keeps its shards), batch SERVE_BATCH,
+# max_len 2 048, two of model_serve's three buckets and 16 new tokens
+# (reductions of its traffic, for the script's budget).  The 1 536-token
+# bucket fills both ranks' chunks on (1, 2) (1 024 positions a rank) and
+# decodes on rank 1; the 128-token bucket leaves rank 1's chunk empty.
+MR_SERVE = ((1, 2), (2, 1))
+MR_SERVE_BUCKETS, MR_SERVE_MAX_LEN, MR_SERVE_MAX_NEW = ((128, 8), (1536, 4)), 2048, 16
+# Token checks, run on rank 0 alone after every mesh's run.  (a) Every
+# token of a mesh's bfloat16 run equals the one-rank no-cache forward's
+# argmax over the mesh's own sequence wherever that forward's top-2 margin
+# exceeds MR_SERVE_MARGIN, qwen2's model_serve margin (decode and forward
+# round bfloat16 in other places; the top logits lie in [2, 4), where a
+# bfloat16 ulp is 1/64: 4 ulps), at half the positions or more.  (b) A
+# float32 model of MR_CHECK_LAYERS layers at full width on the 1 536 x 4
+# bucket: each request's tokens equal the one-rank float32 run's up to the
+# first position where they differ, which must be a near tie, the one-rank
+# forward's top-2 margin there at most MR_SERVE_F32_MARGIN; later tokens
+# follow other prompts and are not compared; half the positions or more
+# must be.  In float32 the meshes differ from one rank only in summation
+# order (~1e-6 relative), which can round a K/V entry to the neighbouring
+# bfloat16 value in the cache (2^-8 relative): that moves a logit by far
+# less than 1/128.
+MR_SERVE_MARGIN, MR_SERVE_F32_MARGIN = 0.0625, 1 / 128
+MR_SERVE_F32_BUCKET = 1536
+MR_TIMEOUT_S = 420
 
 
 def carried_param_space_(opt, bundle, mesh, spec, seed) -> None:
@@ -3759,16 +3795,196 @@ def mr_timed_mesh(dev, data, model, zero1, seed) -> dict:
             "pbs_kernel_launches": platform.launch_counts()}
 
 
-def mr_rank(dev, checks, timed, seed, wait_for=None) -> dict:
-    """A rank of phase multirank: its checks, then its timed runs; with
-    ``wait_for``, only once that file exists (a group started early, its
-    start-up beside another group's work)."""
+def mr_serve_params(cfg, mesh, seed, float32=False):
+    """The global weights drawn from ``seed`` on this rank's device (bfloat16,
+    upcast with ``float32``), this rank's shards of them kept."""
+    spec = model_spec(cfg, mesh_ctx(mesh))
+    params = init_params(spec, torch.Generator(device=mesh.device).manual_seed(seed),
+                         mesh.device)
+    if float32:
+        upcast_(params)
+    return shard_params(params, spec, mesh) if mesh.world > 1 else params
+
+
+def mr_serve_requests(seed, buckets=MR_SERVE_BUCKETS) -> list:
+    """The serving traffic, the same on every rank: ``MR_SERVE_MAX_NEW`` new
+    tokens a prompt."""
+    rng = np.random.default_rng(seed)
+    vocab = get_config(TRAIN_ARCH).vocab
+    return [Request(rid, [int(x) for x in rng.integers(0, vocab, plen)], MR_SERVE_MAX_NEW)
+            for rid, plen in enumerate(p for p, n in buckets for _ in range(n))]
+
+
+def mr_serve_run(sched, params, requests, cfg) -> dict:
+    """``requests`` through ``sched``, one ``run`` a prompt length (as
+    model_serve's ``serve_run``), each completion checked: finished with
+    ``MR_SERVE_MAX_NEW`` in-vocab tokens.  Returns {rid: tokens}."""
+    out = {}
+    for plen in sorted({len(r.prompt) for r in requests}):
+        reqs = [r for r in requests if len(r.prompt) == plen]
+        got, stats = sched.run(params, reqs)
+        assert sorted(got) == [r.rid for r in reqs], got.keys()
+        for r in reqs:
+            c = got[r.rid]
+            assert len(c.tokens) == MR_SERVE_MAX_NEW and c.finished, (r.rid, c)
+            assert all(0 <= t < cfg.vocab for t in c.tokens), (r.rid, c.tokens)
+        assert stats.decode_steps == len(reqs) * (MR_SERVE_MAX_NEW - 1), stats
+        out.update({rid: c.tokens for rid, c in got.items()})
+    return out
+
+
+def timed_engine(sched, mesh, log) -> None:
+    """Swap ``sched``'s engine for one whose steps are timed (host clock
+    around the step and a synchronize; the scheduler reads every token to
+    the host anyway): each prefill's (prompt length, ms) and each decode
+    step's ms and collectives (the mesh's ledger over the step)."""
+    sv = sched._engine
+
+    def prefill(params, inputs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sv.prefill(params, inputs)
+        torch.cuda.synchronize()
+        log["prefill"].append((int(inputs["tokens"].shape[1]), (time.perf_counter() - t0) * 1e3))
+        return out
+
+    def decode(params, caches, tokens):
+        torch.cuda.synchronize()
+        mesh.ledger.clear()
+        t0 = time.perf_counter()
+        out = sv.decode(params, caches, tokens)
+        torch.cuda.synchronize()
+        log["decode"].append({"ms": (time.perf_counter() - t0) * 1e3,
+                              **{k: dict(v) for k, v in mesh.ledger.items()}})
+        return out
+
+    sched._engine = dataclasses.replace(sv, prefill=prefill, decode=decode)
+
+
+def mr_serve_mesh(dev, data, model, seed) -> dict:
+    """qwen2-1.5b served on this rank of a (data, model) mesh whose ranks
+    share the card: the bfloat16 run over ``MR_SERVE_BUCKETS`` through
+    ``BatchScheduler`` (its steps timed, ``timed_engine``), then the float32
+    ``MR_CHECK_LAYERS``-layer model's run on the ``MR_SERVE_F32_BUCKET`` bucket.  Every
+    rank returns the same (global) tokens."""
+    t0 = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mesh = make_local_mesh(data, model, device=dev)
+    params = mr_serve_params(cfg, mesh, seed)
+    torch.cuda.empty_cache()
+    requests = mr_serve_requests(seed)
+    sched = BatchScheduler(cfg, mesh, batch=SERVE_BATCH, max_len=MR_SERVE_MAX_LEN, eos_id=-1)
+    log = {"prefill": [], "decode": []}
+    timed_engine(sched, mesh, log)
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tokens = mr_serve_run(sched, params, requests, cfg)
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    del params, sched
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cfg32 = cfg.scaled(n_layers=MR_CHECK_LAYERS)
+    params = mr_serve_params(cfg32, mesh, seed, float32=True)
+    sched = BatchScheduler(cfg32, mesh, batch=SERVE_BATCH, max_len=MR_SERVE_MAX_LEN, eos_id=-1)
+    tokens32 = mr_serve_run(sched, params, [r for r in requests if len(r.prompt) == MR_SERVE_F32_BUCKET], cfg32)
+    f32_s = time.perf_counter() - t0
+    del params, sched
+    torch.cuda.empty_cache()
+    steps = log["decode"]
+    ops = sorted({k for st in steps for k in st if k != "ms"})
+    return {"mesh": [data, model], "rank": mesh.rank, "tokens": tokens, "tokens_f32": tokens32,
+            "prefill_ms": {plen: ms for plen, ms in log["prefill"]},
+            "decode_ms": [st["ms"] for st in steps],
+            "decode_ms_median": float(np.median([st["ms"] for st in steps])),
+            "collectives_a_step": {k: {
+                "calls": int(np.median([st.get(k, {}).get("calls", 0) for st in steps])),
+                "bytes": int(np.median([st.get(k, {}).get("bytes", 0) for st in steps])),
+                "host_ms_median": float(np.median([st.get(k, {}).get("seconds", 0.0) * 1e3
+                                                   for st in steps]))} for k in ops},
+            "collective_host_ms_a_step_median": float(np.median(
+                [sum(v["seconds"] for k, v in st.items() if k != "ms") * 1e3 for st in steps])),
+            "max_memory_allocated_gb": peak / 1e9,
+            "pbs_kernel_launches": platform.launch_counts(),
+            "seconds": {"setup": setup_s, "bf16_run": run_s, "f32_check_run": f32_s}}
+
+
+def mr_serve_one_rank(dev, seed, served) -> dict:
+    """On rank 0 alone, after every mesh's run: the one-rank bfloat16 run
+    and, for each mesh of ``served``, the token check (a) of MR_SERVE_MARGIN
+    (``forward_check`` over the mesh's own sequences) and its tokens'
+    agreement with the one-rank run's; then the one-rank float32 run and
+    check (b) of each mesh's float32 tokens."""
+    t0 = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    mesh = make_local_mesh(device=dev)
+    ctx = mesh_ctx(mesh)
+    params = mr_serve_params(cfg, mesh, seed)
+    requests = mr_serve_requests(seed)
+    sched = BatchScheduler(cfg, mesh, batch=SERVE_BATCH, max_len=MR_SERVE_MAX_LEN, eos_id=-1)
+    one = mr_serve_run(sched, params, requests, cfg)
+    out = {"meshes": []}
+    for s in served:
+        done = {rid: Completion(rid, toks, True) for rid, toks in s["tokens"].items()}
+        check = forward_check(params, cfg, ctx, done, requests, MR_SERVE_MARGIN)
+        pairs = [(a, b) for r in requests for a, b in zip(s["tokens"][r.rid], one[r.rid])]
+        first = [next((i for i, (a, b) in enumerate(zip(s["tokens"][r.rid], one[r.rid]))
+                       if a != b), MR_SERVE_MAX_NEW) for r in requests]
+        out["meshes"].append({"mesh": s["mesh"], "forward_check": check,
+                              "tokens_equal_one_rank": sum(a == b for a, b in pairs) / len(pairs),
+                              "first_difference_by_request": first})
+    del params, sched
+    torch.cuda.empty_cache()
+    cfg32 = cfg.scaled(n_layers=MR_CHECK_LAYERS)
+    params = mr_serve_params(cfg32, mesh, seed, float32=True)
+    reqs = [r for r in requests if len(r.prompt) == MR_SERVE_F32_BUCKET]
+    sched = BatchScheduler(cfg32, mesh, batch=SERVE_BATCH, max_len=MR_SERVE_MAX_LEN, eos_id=-1)
+    one32 = mr_serve_run(sched, params, reqs, cfg32)
+    seq = torch.tensor([r.prompt + one32[r.rid][:-1] for r in reqs], dtype=torch.int32,
+                       device=mesh.device)
+    x = forward(params, seq, ctx, cfg32)[:, MR_SERVE_F32_BUCKET - 1:]
+    logits = vocab_logits(params["embed"], x, ctx, cfg32)
+    top2 = logits.topk(2, dim=-1).values
+    margin = (top2[..., 0] - top2[..., 1]).cpu()
+    for s, res in zip(served, out["meshes"]):
+        compared, near = 0, []
+        for i, r in enumerate(reqs):
+            got, want = s["tokens_f32"][r.rid], one32[r.rid]
+            n = next((j for j, (a, b) in enumerate(zip(got, want)) if a != b), None)
+            if n is None:
+                compared += len(want)
+            else:
+                compared += n
+                near.append({"rid": r.rid, "position": n, "margin": float(margin[i, n])})
+        res["f32_check"] = {"n_layers": MR_CHECK_LAYERS, "positions": len(reqs) * MR_SERVE_MAX_NEW,
+                            "positions_compared": compared, "differences": near,
+                            "margin_tol": MR_SERVE_F32_MARGIN,
+                            "median_margin": float(margin.median())}
+    del params, sched, x, logits
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def mr_rank(dev, checks, timed, seed, wait_for=None, serve=()) -> dict:
+    """A rank of phase multirank: its checks, then its timed runs, then its
+    serving runs (``serve``: meshes), after which rank 0 alone runs the
+    one-rank serving and its token checks; with ``wait_for``, only once
+    that file exists (a group started early, its start-up beside another
+    group's work)."""
     platform.reset_launch_counts()
     started = time.time()
     while wait_for and not Path(wait_for).exists():
         time.sleep(0.05)
     out = {"started": started, "checks": [mr_check_mesh(dev, d, m, z, r, seed) for (d, m), z, r in checks],
-           "timed": [mr_timed_mesh(dev, d, m, z, seed) for (d, m), z in timed]}
+           "timed": [mr_timed_mesh(dev, d, m, z, seed) for (d, m), z in timed],
+           "serve": [mr_serve_mesh(dev, d, m, seed) for d, m in serve]}
+    if serve:
+        torch.distributed.barrier()
+        if torch.distributed.get_rank() == 0:
+            out["serve_one_rank"] = mr_serve_one_rank(dev, seed, out["serve"])
     return out
 
 
@@ -3786,9 +4002,10 @@ def multirank_phase(args, smi) -> None:
     def group(world, wait_for=None):
         checks = [c for c in MR_CHECKS if c[0][0] * c[0][1] == world]
         timed = [t for t in MR_TIMED if t[0][0] * t[0][1] == world]
+        serve = [m for m in MR_SERVE if m[0] * m[1] == world]
         t0 = time.perf_counter()
         res = run_ranks(mr_rank, world, root / f"w{world}", device=DEV.type,
-                        backend=MR_BACKEND, args=(checks, timed, args.seed, wait_for),
+                        backend=MR_BACKEND, args=(checks, timed, args.seed, wait_for, serve),
                         timeout=MR_TIMEOUT_S, threads=None)
         runs[world], wall[world] = res, time.perf_counter() - t0
         start_up[world] = min(r["started"] for r in res) - (time.time() - wall[world])
@@ -3824,7 +4041,7 @@ def multirank_phase(args, smi) -> None:
     pbs = {}
     for w in (2, 4):
         for r in runs[w]:
-            for c in r["checks"] + r["timed"]:
+            for c in r["checks"] + r["timed"] + r["serve"]:
                 for k, v in c["pbs_kernel_launches"].items():
                     pbs[k] = pbs.get(k, 0) + v
     assert not pbs, pbs                           # no PBS kernel on this path
@@ -3838,6 +4055,7 @@ def multirank_phase(args, smi) -> None:
                           "max_memory_allocated_gb", "losses")} for t in per],
                       "collective_ms_by_op_rank0": per[0]["collective_ms_by_op"],
                       "collective_bytes_a_step_rank0": per[0]["collective_bytes_a_step"]})
+    serve_report(smi, runs[2], pbs)
     emit({"phase": "multirank", "gpu": smi, "backend": MR_BACKEND, "cards": cards,
           "ranks_share_one_card": cards == 1,
           "worlds": {"2": [list(c[0]) for c in MR_CHECKS if c[0][0] * c[0][1] == 2],
@@ -3865,6 +4083,54 @@ def multirank_phase(args, smi) -> None:
           "ranks_s": wall, "start_up_s": start_up,
           "pbs_kernel_launches": pbs,
           "multirank_phase_s": time.perf_counter() - t_phase})
+
+
+def serve_report(smi, ranks, pbs) -> None:
+    """Phase multirank's serving line (an earlier line than the phase's
+    own), from the 2-rank group's results, with its assertions: every rank
+    of a mesh returned the same tokens, checks (a) and (b) of
+    ``MR_SERVE_MARGIN`` / ``MR_SERVE_F32_MARGIN`` hold, no PBS kernel."""
+    one = ranks[0]["serve_one_rank"]
+    meshes = []
+    for i, mesh_ in enumerate(MR_SERVE):
+        per = [r["serve"][i] for r in ranks]
+        for p in per[1:]:
+            assert p["tokens"] == per[0]["tokens"] and p["tokens_f32"] == per[0]["tokens_f32"]
+        check, f32 = one["meshes"][i]["forward_check"], one["meshes"][i]["f32_check"]
+        assert check["checked_mismatches"] == 0, check
+        assert check["positions_checked"] * 2 >= check["positions"], check
+        assert all(d["margin"] <= MR_SERVE_F32_MARGIN for d in f32["differences"]), f32
+        assert f32["positions_compared"] * 2 >= f32["positions"], f32
+        meshes.append({
+            "mesh": list(mesh_),
+            "prefill_ms_by_bucket": {str(p): [r["prefill_ms"][p] for r in per]
+                                     for p, _ in MR_SERVE_BUCKETS},
+            "decode_ms_a_step_median": [r["decode_ms_median"] for r in per],
+            "decode_steps": len(per[0]["decode_ms"]),
+            "collectives_a_step": [r["collectives_a_step"] for r in per],
+            "collective_host_ms_a_step_median": [r["collective_host_ms_a_step_median"]
+                                                 for r in per],
+            "max_memory_allocated_gb": [r["max_memory_allocated_gb"] for r in per],
+            "forward_check": check,
+            "tokens_equal_one_rank": one["meshes"][i]["tokens_equal_one_rank"],
+            "first_difference_by_request": one["meshes"][i]["first_difference_by_request"],
+            "f32_check": f32,
+            "seconds": [r["seconds"] for r in per]})
+    emit({"phase": "multirank", "step": "serve", "gpu": smi, "backend": MR_BACKEND,
+          "note": "ranks are processes sharing one card over gloo (host memory); no "
+                  "collective time here is an NVLink or NCCL figure",
+          "config": {"arch": TRAIN_ARCH, "n_layers": get_config(TRAIN_ARCH).n_layers,
+                     "d_model": get_config(TRAIN_ARCH).d_model, "dtype": "bfloat16",
+                     "weights": "torch.Generator seed --seed, every rank the same, sharded",
+                     "f32_check_layers": MR_CHECK_LAYERS},
+          "traffic": {"buckets": [{"prompt_tokens": p, "requests": n}
+                                  for p, n in MR_SERVE_BUCKETS],
+                      "max_new": MR_SERVE_MAX_NEW, "batch": SERVE_BATCH,
+                      "max_len": MR_SERVE_MAX_LEN,
+                      "reduced": "model_serve's 3 buckets and 32 new tokens -> 2 and 16"},
+          "tolerances": {"bf16_margin": MR_SERVE_MARGIN, "f32_margin": MR_SERVE_F32_MARGIN},
+          "meshes": meshes, "one_rank_s": one["seconds"],
+          "pbs_kernel_launches": pbs})
 
 
 TRAIN_SMOKE_ARCHS = ("qwen2-1.5b", "internlm2-1.8b", "qwen3-14b", "command-r-35b",

@@ -1,17 +1,23 @@
-"""GQA attention blocks on one card: prefill and one-token decode.
+"""GQA attention blocks: prefill and one-token decode, one process a rank.
 
-The reference (``repro.models.attention``) shards query/out projections over
-'model' and the KV cache along the sequence (context parallelism, partials
-LSE-combined across shards).  On one card the same functions run with one
-shard: ``kv_map`` / ``local_kv_map`` coincide, the combine is a division.
+As in the reference (``repro.models.attention``), query/out projections are
+sharded over 'model' (heads padded to a multiple of its size) and K/V
+projections replicated.  The GQA KV cache is sharded along the sequence
+(context parallelism): each of the M ranks of 'model' keeps ``max_len / M``
+positions, the decode's one token is replicated over 'model', every rank
+attends all heads over its own chunk, and the partials are LSE-combined
+across ranks (``combine_partials``).  On one rank ``kv_map`` /
+``local_kv_map`` coincide and the combine is a division.
 
 The KV cache is bfloat16, as in the reference.  Its position ``len`` is a
-host ``int``: the host always knows it, so decode reads nothing back from
-the device to place the new K/V, and it refuses a write past the cache's
-capacity where the reference writes at ``len`` modulo the capacity and
-silently overwrites its oldest positions.  Decode writes the new K/V into the
-cache tensors in place (the reference donates the cache): a caller must not
-reuse the cache it passed in.
+host ``int`` (the whole sequence's, the same on every rank): the host
+always knows it, so decode reads nothing back from the device to place the
+new K/V, and it refuses a write past the cache's capacity where the
+reference writes at ``len`` modulo the capacity and silently overwrites its
+oldest positions (across ranks, where no rank owns the position, drops
+it).  Decode writes the new K/V into the cache tensors in place (the
+reference donates the cache): a caller must not reuse the cache it passed
+in.
 
 Sliding-window attention decodes against a ring of ``window`` slots
 (``local_*``, slot = position % window), written in place the same way; a
@@ -46,6 +52,7 @@ from .layers import (
     einsum,
     matmul,
     pad_to,
+    psum_model,
     rms_head_norm,
     rope,
     rs_seq,
@@ -179,7 +186,10 @@ def gqa_apply(
 
 
 def gqa_init_cache(cfg: ModelConfig, ctx: MeshCtx, batch: int, max_len: int, device=None):
-    """A zeroed KV cache of ``max_len`` positions."""
+    """A zeroed KV cache of this rank's ``max_len // M`` positions.  Zeros,
+    never ``torch.empty``: a rank whose chunk holds no valid position still
+    enters ``combine_partials`` with the sum of its chunk's values, which
+    the combine multiplies by 0, so it must be finite."""
     dh = cfg.resolved_head_dim
     tc = max_len // ctx.model_size
     shape = (batch, cfg.n_kv_heads, tc, dh)
@@ -191,48 +201,62 @@ def gqa_init_cache(cfg: ModelConfig, ctx: MeshCtx, batch: int, max_len: int, dev
 
 
 def gqa_fill_cache(cache, k, v, ctx: MeshCtx):
-    """Write freshly computed prefill K/V into a zeroed cache, in place.
+    """Write this rank's chunk ``[midx·tc, (midx+1)·tc)`` of a prefill's
+    K/V (B, Hkv, T, Dh), over the whole prompt, into a zeroed cache, in
+    place; ``len`` is the whole prompt's length T.
 
-    Prompts shorter than the cache capacity are right-padded (decode masks
-    positions >= len)."""
+    Positions past the prompt stay zero (decode masks positions >= len)."""
     tc = cache["k"].shape[2]
     t = k.shape[2]
-    if t > tc:
-        raise ValueError(f"prefill of {t} positions into a cache of {tc}")
-    cache["k"][:, :, :t] = k.to(torch.bfloat16)
-    cache["v"][:, :, :t] = v.to(torch.bfloat16)
+    if t > tc * ctx.model_size:
+        raise ValueError(f"prefill of {t} positions into a cache of {tc * ctx.model_size}")
+    start = ctx.midx() * tc
+    n = min(max(t - start, 0), tc)
+    cache["k"][:, :, :n] = k[:, :, start:start + n].to(torch.bfloat16)
+    cache["v"][:, :, :n] = v[:, :, start:start + n].to(torch.bfloat16)
     return {"k": cache["k"], "v": cache["v"], "len": t}
 
 
 def gqa_decode(p, x, cache, ctx: MeshCtx, cfg: ModelConfig):
-    """One-token decode against the cache.  x: (B, 1, d).
+    """One-token decode against the sequence-sharded cache.  x: (B, 1, d),
+    replicated over 'model'.
 
-    The new K/V go into slot ``len`` of ``cache`` in place; attention reads
-    the whole cache with positions > len masked, as the reference does.
-    Raises ``ValueError`` when the cache is full."""
+    q is computed for this rank's heads and all-gathered to every head;
+    the new K/V are computed on every rank and written in place into slot
+    ``len`` only by the rank that owns that position.  Each rank attends
+    all heads over its chunk (positions > len masked, as the reference
+    does), the partials are LSE-combined across ranks, and each rank
+    multiplies its head slice of the output by its ``wo`` rows, psummed
+    over 'model'.  Raises ``ValueError`` when the cache is full."""
     B = x.shape[0]
     dh = cfg.resolved_head_dim
+    M, midx = ctx.model_size, ctx.midx()
     pos = cache["len"]
     tc = cache["k"].shape[2]
-    if pos >= tc:
-        raise ValueError(f"KV cache full: position {pos} of a {tc}-position cache")
+    if pos >= tc * M:
+        raise ValueError(f"KV cache full: position {pos} of a {tc * M}-position cache")
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     q, k_new, v_new = _qkv(p, x, cfg, ctx, positions)
+    if M > 1:       # every head everywhere: the head shards of one token
+        q = ctx.comm().all_gather(q, ctx.m, dim=1)
 
     k_c, v_c = cache["k"], cache["v"]
-    k_c[:, :, pos:pos + 1] = k_new.to(torch.bfloat16)
-    v_c[:, :, pos:pos + 1] = v_new.to(torch.bfloat16)
+    if pos // tc == midx:           # this rank owns the position
+        lp = pos - midx * tc
+        k_c[:, :, lp:lp + 1] = k_new.to(torch.bfloat16)
+        v_c[:, :, lp:lp + 1] = v_new.to(torch.bfloat16)
 
     kvm = kv_map(cfg, ctx, x.device)
     num, m, l = attention_partial_lse(
-        q, k_c, v_c, kvm, k_offset=0, kv_valid_len=pos + 1,
+        q, k_c, v_c, kvm, k_offset=midx * tc, kv_valid_len=pos + 1,
         q_pos=torch.full((1,), pos, device=x.device),
     )
     out = combine_partials(num, m, l, ctx)  # (B, Hq_pad, 1, dh)
     out = _mask_pad_heads(out, cfg, ctx, local=False)
-    hq = out.shape[1]
-    o = matmul(out.transpose(1, 2).reshape(B, 1, hq * dh), p["wo"])
-    return o, {"k": k_c, "v": v_c, "len": pos + 1}
+    qpr = out.shape[1] // M
+    o_loc = out[:, midx * qpr:(midx + 1) * qpr]
+    o = matmul(o_loc.transpose(1, 2).reshape(B, 1, qpr * dh), p["wo"])
+    return psum_model(o, ctx), {"k": k_c, "v": v_c, "len": pos + 1}
 
 
 # ---- local (sliding-window) attention decode: a ring cache ----------------

@@ -32,7 +32,10 @@ reference's does: the residual stream sequence-sharded over 'model'
 between blocks (``forward`` takes this rank's (B, T/M) tokens), the
 embedding and the logits vocab-sharded (``embed_tokens``, ``ce_loss``
 with ``pmax_const`` and scalar psums), Q/O head-sharded and the MLP split
-column / row.  Every other block kind, the frontends and the encoder
+column / row; and serves as the reference's decode does: the one-token
+stream replicated over 'model' (``embed_tokens(seq_sharded=False)``),
+the greedy token a distributed argmax over the vocab shards
+(``greedy_token``).  Every other block kind, the frontends and the encoder
 raise ``NotImplementedError`` above one rank, naming the later sub-item
 of ROADMAP Queue A item 15 that brings them.
 
@@ -69,8 +72,6 @@ from .ssm import ssm_apply, ssm_spec
 # what a mesh above one rank does not run yet, and the sub-item that brings it
 ACROSS_RANKS_TODO = ("{what} above one rank: ROADMAP Queue A item 15 sub-item 6c (expert "
                      "parallelism and the other families across ranks)")
-SERVE_ACROSS_RANKS_TODO = ("serving above one rank: ROADMAP Queue A item 15 sub-item 6b "
-                           "(the sequence-sharded KV cache, the distributed argmax)")
 
 
 def vocab_pad(cfg: ModelConfig) -> int:
@@ -90,25 +91,26 @@ def embed_spec(cfg: ModelConfig) -> dict:
     return spec
 
 
-def embed_tokens(p, tokens, ctx: MeshCtx, cfg: ModelConfig):
+def embed_tokens(p, tokens, ctx: MeshCtx, cfg: ModelConfig, *, seq_sharded: bool = True):
     """Vocab-parallel embedding lookup: ids outside this rank's vocab shard
     (and outside the padded vocab) embed to zeros.
 
-    Above one rank tokens (B, T/M) are this rank's sequence chunk (train):
-    the ids are all-gathered over 'model', looked up over the whole T, and
-    the partial embeddings reduce-scattered back to (B, T/M, d).  The
-    reference's replicated-token form (decode) belongs to serving across
-    ranks, sub-item 6b."""
+    ``seq_sharded=True`` (train, prefill): above one rank tokens (B, T/M)
+    are this rank's sequence chunk; the ids are all-gathered over 'model',
+    looked up over the whole T, and the partial embeddings reduce-scattered
+    back to (B, T/M, d).  ``seq_sharded=False`` (decode): tokens (B, 1) are
+    replicated over 'model', and the partial embeddings are psummed, so the
+    output is replicated too."""
     v = vocab_pad(cfg)
     vl = v // ctx.model_size
     v0 = ctx.midx() * vl
-    if ctx.model_size > 1:
+    if seq_sharded and ctx.model_size > 1:
         tokens = ctx.comm().all_gather(tokens, ctx.m, dim=1)       # (B, T)
     loc = tokens.long() - v0
     ok = (loc >= 0) & (loc < vl)
     emb = p["tok"][loc.clamp(0, vl - 1)]
     emb = torch.where(ok[..., None], emb, 0.0)
-    emb = rs_seq(emb, ctx)
+    emb = rs_seq(emb, ctx) if seq_sharded else psum_model(emb, ctx)
     return emb.to(p["tok"].dtype)  # activation dtype follows the params
 
 
@@ -142,15 +144,25 @@ def _mask_vocab_pad(logits, v0, cfg: ModelConfig):
     return torch.where(gcol < cfg.vocab, logits, -1e30)
 
 
-def vocab_logits(p, x, ctx: MeshCtx, cfg: ModelConfig):
-    """float32 logits of final-norm states x (..., d), padding columns
-    masked: what ``greedy_token`` takes the argmax of."""
-    if ctx.model_size > 1:
-        raise NotImplementedError(SERVE_ACROSS_RANKS_TODO)
+def _local_logits(p, x, ctx: MeshCtx, cfg: ModelConfig):
+    """float32 logits of x (..., d) over this rank's vocab shard (padding
+    columns masked), and the shard's first id."""
+    v0 = ctx.midx() * (vocab_pad(cfg) // ctx.model_size)
     logits = matmul(x, _unembed_weight(p, cfg)).float()
     if cfg.logit_softcap:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
-    return _mask_vocab_pad(logits, 0, cfg)
+    return _mask_vocab_pad(logits, v0, cfg), v0
+
+
+def vocab_logits(p, x, ctx: MeshCtx, cfg: ModelConfig):
+    """float32 logits of final-norm states x (..., d) over the whole padded
+    vocab, padding columns masked: what ``greedy_token`` takes the argmax
+    of.  Above one rank x is replicated over 'model' and each rank's shard
+    is all-gathered, so every rank returns the whole vocab's."""
+    logits, _ = _local_logits(p, x, ctx, cfg)
+    if ctx.model_size > 1:
+        logits = ctx.comm().all_gather(logits, ctx.m, dim=logits.dim() - 1)
+    return logits
 
 
 def _chunk_nll(xs, ys, w, cfg: ModelConfig, ctx: MeshCtx):
@@ -203,9 +215,23 @@ def ce_loss(p, x_sp, targets, ctx: MeshCtx, cfg: ModelConfig, t_chunk: int = 512
 
 
 def greedy_token(p, x, ctx: MeshCtx, cfg: ModelConfig):
-    """Argmax over the vocab; x (B, 1, d) -> (B,) int32.  Ties go to the
-    first maximum, as ``jnp.argmax``'s do."""
-    return vocab_logits(p, x[:, 0], ctx, cfg).argmax(-1).to(torch.int32)
+    """Argmax over the vocab; x (B, 1, d), replicated over 'model' -> (B,)
+    int32.  Ties go to the first maximum, as ``jnp.argmax``'s do.
+
+    Above one rank (the distributed argmax): each rank takes the maximum
+    and its first position over its vocab shard, the (M, B) maxima and ids
+    are all-gathered over 'model' in one collective (float64 holds both
+    exactly), and the first rank holding the maximum wins, so a tie goes
+    to the lower id, as over the whole vocab."""
+    logits, v0 = _local_logits(p, x[:, 0], ctx, cfg)            # (B, V/M)
+    idx = logits.argmax(-1)
+    if ctx.model_size == 1:
+        return idx.to(torch.int32)
+    val = logits.gather(-1, idx[:, None])[:, 0]
+    both = torch.stack([val.double(), (idx + v0).double()])[None]     # (1, 2, B)
+    both = ctx.comm().all_gather(both, ctx.m, dim=0)                  # (M, 2, B)
+    best = both[:, 0].argmax(0)                                       # first maximum
+    return both[:, 1].gather(0, best[None])[0].to(torch.int32)
 
 
 # --------------------------------------------------------------------------

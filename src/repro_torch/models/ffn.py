@@ -23,7 +23,7 @@ from __future__ import annotations
 import torch
 
 from .config import ModelConfig
-from .layers import MeshCtx, act_fn, ag_seq, matmul, pad_to, rs_seq
+from .layers import MeshCtx, act_fn, ag_seq, matmul, pad_to, psum_model, rs_seq
 from .spec import P
 
 EP_AXES = ("data", "model")  # the reference's expert-parallel world
@@ -51,8 +51,11 @@ def mlp_apply(p, x_sp, ctx: MeshCtx, cfg: ModelConfig):
 
 
 def mlp_decode(p, x, ctx: MeshCtx, cfg: ModelConfig):
-    """Decode-mode FFN: x (B, 1, d)."""
-    return matmul(act_fn(cfg, matmul(x, p["w_gate"]), matmul(x, p["w_up"])), p["w_down"])
+    """Decode-mode FFN: x (B, 1, d) replicated over 'model'; this rank's
+    columns of ``w_gate`` / ``w_up`` and rows of ``w_down``, the partial
+    products psummed over 'model'."""
+    h = matmul(act_fn(cfg, matmul(x, p["w_gate"]), matmul(x, p["w_up"])), p["w_down"])
+    return psum_model(h, ctx)
 
 
 # --------------------------------------------------------------------------

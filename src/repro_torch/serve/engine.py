@@ -1,10 +1,22 @@
-"""Serving engine: prefill and one-token decode step factories, on one card.
+"""Serving engine: prefill and one-token decode step factories, one
+process a rank.
 
 The reference (``repro.serve.engine``) builds ``shard_map`` + ``jit`` steps
 over a mesh: the decode's residual stream replicated over 'model', the KV
 caches sequence-sharded, partials LSE-combined.  The port's steps are plain
 functions on tensors over the same parameter tree, looping over each
 group's layers in Python where the reference runs ``lax.scan``.
+
+Above one rank (``launch.mesh.LocalMesh`` ranks started by
+``launch.ranks.run_ranks``) the dense family (a plan of ``attn`` blocks)
+is served as the reference's ``shard_map`` serves it: every rank calls the
+steps with its own parameter shards and the *global* inputs, keeps its rows
+(over ``batch_axes``) and, at prefill, its sequence chunk, and gets back its
+own caches (the blocks of the reference's global caches by ``cache_spec``)
+and the *global* token (B,), gathered over the batch axes, so every rank
+takes the same decisions on it.  ``max_len`` must divide by the 'model'
+size: the reference gives each rank ``max_len // M`` positions and drops
+the writes past them.
 
 Cache layout is declared as a ``P`` tree (``cache_spec``), as in the
 reference; ``abstract_cache`` gives it on the ``meta`` device.  A live
@@ -63,7 +75,7 @@ from repro_torch.models.attention import (
     mla_init_cache,
 )
 from repro_torch.models.backbone import (
-    SERVE_ACROSS_RANKS_TODO,
+    ACROSS_RANKS_TODO,
     embed_inputs,
     embed_tokens,
     encode,
@@ -79,7 +91,7 @@ from repro_torch.models.layers import MeshCtx, apply_norm
 from repro_torch.models.rglru import rglru_apply, rglru_decode
 from repro_torch.models.spec import P, abstract_params, stack_layers
 from repro_torch.models.ssm import ssm_apply, ssm_decode
-from repro_torch.train.step import batch_axes, mesh_ctx
+from repro_torch.train.step import batch_axes, local_batch, mesh_ctx
 
 
 # ---------------------------------------------------------------------------
@@ -170,15 +182,15 @@ def abstract_cache(cfg: ModelConfig, mesh, batch: int, max_len: int, enc_len: in
 # ---------------------------------------------------------------------------
 
 
-def _prefill_block(cfg, ctx, kind, batch, max_len, *, memory=None):
-    """f(params, x) -> (x, the block's filled cache); a ``dec`` block attends
-    to ``memory``, the encoder's output."""
+def _prefill_block(cfg, ctx, kind, max_len, *, memory=None):
+    """f(params, x) -> (x, the block's filled cache), for x's rows (this
+    rank's); a ``dec`` block attends to ``memory``, the encoder's output."""
     def attn(p, x):
         h, (k, v) = gqa_apply(p["attn"], apply_norm(p["ln1"], x, cfg), ctx, cfg,
                               causal=True, return_kv=True)
         x = x + h
         x = x + mlp_apply(p["mlp"], apply_norm(p["ln2"], x, cfg), ctx, cfg)
-        init = gqa_init_cache(cfg, ctx, batch, max_len, device=x.device)
+        init = gqa_init_cache(cfg, ctx, x.shape[0], max_len, device=x.device)
         return x, gqa_fill_cache(init, k, v, ctx)
 
     def attn_window(p, x):
@@ -193,7 +205,7 @@ def _prefill_block(cfg, ctx, kind, batch, max_len, *, memory=None):
                                       return_latent=True)
         x = x + h
         x = x + mlp_apply(p["mlp"], apply_norm(p["ln2"], x, cfg), ctx, cfg)
-        init = mla_init_cache(cfg, ctx, batch, max_len, device=x.device)
+        init = mla_init_cache(cfg, ctx, x.shape[0], max_len, device=x.device)
         return x, mla_fill_cache(init, c_kv, k_rope, ctx)
 
     def mla_moe(p, x):
@@ -201,7 +213,7 @@ def _prefill_block(cfg, ctx, kind, batch, max_len, *, memory=None):
                                       return_latent=True)
         x = x + h
         y, _ = moe_apply(p["moe"], apply_norm(p["ln2"], x, cfg), ctx, cfg, 1)
-        init = mla_init_cache(cfg, ctx, batch, max_len, device=x.device)
+        init = mla_init_cache(cfg, ctx, x.shape[0], max_len, device=x.device)
         return x + y, mla_fill_cache(init, c_kv, k_rope, ctx)
 
     def ssm(p, x):
@@ -223,12 +235,12 @@ def _prefill_block(cfg, ctx, kind, batch, max_len, *, memory=None):
         x = x + gqa_apply(p["cross"], apply_norm(p["lnx"], x, cfg), ctx, cfg,
                           causal=False, memory=memory)
         x = x + mlp_apply(p["mlp"], apply_norm(p["ln2"], x, cfg), ctx, cfg)
-        init = gqa_init_cache(cfg, ctx, batch, max_len, device=x.device)
+        init = gqa_init_cache(cfg, ctx, x.shape[0], max_len, device=x.device)
         return x, {"self": gqa_fill_cache(init, k, v, ctx),
                    "cross": cross_fill_cache(p["cross"], memory, cfg, ctx)}
 
     if kind == "hybrid_period":
-        fns = [_prefill_block(cfg, ctx, hybrid_kind(k), batch, max_len) for k in cfg.pattern]
+        fns = [_prefill_block(cfg, ctx, hybrid_kind(k), max_len) for k in cfg.pattern]
 
         def period(p, x):
             cc = {}
@@ -360,19 +372,48 @@ def make_serve_fns(cfg: ModelConfig, mesh, *, batch: int, max_len: int,
     ``inputs`` holds ``"tokens"`` (B, T) int, and ``"enc"`` (B, enc_len, d)
     for an encoder-decoder, and may hold ``"frontend"`` (B, T, d)
     (``backbone.embed_inputs``).  Prefill raises ``ValueError`` where
-    ``"enc"`` or ``"frontend"`` has another leading shape.  A mesh of more
-    than one rank raises ``NotImplementedError`` (sub-item 6b)."""
-    if mesh.world > 1:
-        raise NotImplementedError(SERVE_ACROSS_RANKS_TODO)
+    ``"enc"`` or ``"frontend"`` has another leading shape.
+
+    Above one rank ``params`` are this rank's shards
+    (``models.spec.shard_params``), ``inputs`` and ``tokens`` the global
+    batch, ``caches`` this rank's, and the token is global (see the module
+    docstring).  There only a plan of ``attn`` blocks without a frontend is
+    served (the other kinds and ``"frontend"`` raise
+    ``NotImplementedError``, sub-item 6c), T must divide by the 'model'
+    size, and a ``max_len`` that the 'model' size does not divide raises
+    ``ValueError``."""
     ctx = mesh_ctx(mesh)
-    spec = model_spec(cfg, ctx)
-    c_spec = cache_spec(cfg, mesh, batch, max_len, enc_len)
     groups = [(f"g{gi}", kind, count, scanned)
               for gi, (kind, count, scanned) in enumerate(layer_plan(cfg)) if count]
+    if mesh.world > 1:
+        for _, kind, _, _ in groups:
+            if kind != "attn":
+                raise NotImplementedError(
+                    ACROSS_RANKS_TODO.format(what=f"serving the {kind!r} block"))
+        if max_len % ctx.model_size:
+            raise ValueError(
+                f"max_len {max_len} does not divide over a 'model' axis of "
+                f"{ctx.model_size} ranks: each would keep {max_len // ctx.model_size} "
+                f"positions and {max_len % ctx.model_size} would have no owner")
+    spec = model_spec(cfg, ctx)
+    c_spec = cache_spec(cfg, mesh, batch, max_len, enc_len)
+    ba = batch_axes(mesh, batch)
     decode_fns = {name: _decode_block(cfg, ctx, kind) for name, kind, _, _ in groups}
 
+    def rows(x, *rest):
+        """This rank's part of a global (B, …) input: its rows over the
+        batch axes, then each later dimension over ``rest``'s axes."""
+        if mesh.world == 1:
+            return x
+        return local_batch({"x": x}, {"x": (ba,) + rest}, mesh)["x"]
+
+    def global_token(tok):
+        """(B_local,) -> (B,): this rank's rows' tokens gathered over the
+        batch axes (replicated rows: every rank has them all)."""
+        return tok if ba is None else mesh.all_gather(tok, ba, 0)
+
     def prefill(params, inputs):
-        tokens = inputs["tokens"]                       # (B, T)
+        tokens = rows(inputs["tokens"], "model")                # (B, T/M)
         x = embed_inputs(params["embed"], tokens, ctx, cfg, inputs.get("frontend"))
         memory = None
         if cfg.family == "encdec":
@@ -383,7 +424,7 @@ def make_serve_fns(cfg: ModelConfig, mesh, *, batch: int, max_len: int,
             memory = encode(params, enc, ctx, cfg)      # once, for every dec block
         caches = {}
         for name, kind, count, scanned in groups:
-            fn = _prefill_block(cfg, ctx, kind, batch, max_len, memory=memory)
+            fn = _prefill_block(cfg, ctx, kind, max_len, memory=memory)
             filled = []
             for j, p in enumerate(group_layers(params[name], count, scanned)):
                 x, c = fn(p, x)
@@ -396,10 +437,14 @@ def make_serve_fns(cfg: ModelConfig, mesh, *, batch: int, max_len: int,
             caches[name] = stacked if scanned else (
                 filled[0] if count == 1 else {f"l{j}": c for j, c in enumerate(filled)})
         x = apply_norm(params["final_norm"], x, cfg)
-        return caches, greedy_token(params["embed"], x[:, -1:], ctx, cfg)
+        last = x[:, -1:]
+        if ctx.model_size > 1:      # the last position lies on the last 'model' rank
+            last = mesh.all_gather(last, ctx.m, 1)[:, -1:]
+        return caches, global_token(greedy_token(params["embed"], last, ctx, cfg))
 
     def decode(params, caches, tokens):
-        x = embed_tokens(params["embed"], tokens, ctx, cfg)     # (B, 1, d)
+        x = embed_tokens(params["embed"], rows(tokens, None), ctx, cfg,
+                         seq_sharded=False)                     # (B, 1, d), replicated
         for name, _kind, count, scanned in groups:
             layers = group_layers(params[name], count, scanned)
             slots = _layer_slots(caches[name], count, scanned)
@@ -409,7 +454,7 @@ def make_serve_fns(cfg: ModelConfig, mesh, *, batch: int, max_len: int,
                 x, c2 = decode_fns[name](p, x, view)
                 _write(tree, c2, i)
         x = apply_norm(params["final_norm"], x, cfg)
-        return greedy_token(params["embed"], x, ctx, cfg), caches
+        return global_token(greedy_token(params["embed"], x, ctx, cfg)), caches
 
     return ServeBundle(prefill=prefill, decode=decode, param_spec=spec, cache_pspec=c_spec,
-                       batch_ax=batch_axes(mesh, batch), ctx=ctx)
+                       batch_ax=ba, ctx=ctx)

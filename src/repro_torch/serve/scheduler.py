@@ -22,6 +22,13 @@ recurrent and sliding-window blocks (``hybrid``, ``ssm``) keeps caches of a
 fixed size that ``max_len`` does not bound: a state, conv rings and KV
 rings of ``window`` slots.  There only the reference's check applies.
 
+Across ranks (a ``LocalMesh`` of several ranks, the dense family) every
+rank calls ``run`` with its own parameter shards and the same requests, and
+returns the same completions: each step's token is global (the engine
+gathers it over the batch axes), so every rank takes the same ``done`` and
+early-``break`` decisions.  A rank that broke alone would leave the others
+waiting in their next collective.
+
 Throughput accounting (prefill tokens, decode steps, wall time) is returned
 with the completions.
 """
@@ -85,7 +92,9 @@ class BatchScheduler:
 
     def run(self, params, requests: list[Request], *, extras=None) -> tuple[dict, ServeStats]:
         """Serve all requests; returns ({rid: Completion}, stats).  ``extras``
-        (numpy arrays or tensors) join every batch's prefill inputs."""
+        (numpy arrays or tensors) join every batch's prefill inputs.  Above
+        one rank ``params`` are this rank's shards, and every rank passes
+        the same ``requests``."""
         stats = ServeStats(requests=len(requests))
         t0 = time.perf_counter()
         extras = {k: torch.as_tensor(v, device=self.mesh.device)

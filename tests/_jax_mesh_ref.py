@@ -25,7 +25,14 @@ Tasks (``kind``):
   ``make_train_step`` step from the given state: parameters, state and
   metrics after it;
 * ``init``: ``init_train_state``'s parameters (seed 0) and the losses of
-  ``steps`` steps of ``make_train_step`` on a repeated batch.
+  ``steps`` steps of ``make_train_step`` on a repeated batch;
+* ``serve``: the reference's ``BatchScheduler`` on the given global
+  parameters and requests (each completion's tokens, ``finished`` and the
+  run's counts), then, where the task names a ``prefill`` bucket, that
+  bucket's first ``batch`` prompts (padded with copies of the first) through
+  the run's own ``make_serve_fns``
+  prefill: the global caches (a rank's are their blocks by
+  ``cache_spec``) and the token.
 """
 import json
 import os
@@ -44,6 +51,7 @@ from repro.models import attention, backbone, ffn, layers  # noqa: E402
 from repro.models.spec import pspecs  # noqa: E402
 from repro.optim import OptConfig, build_plan, sync_gradient  # noqa: E402
 from repro.optim.compression import CompressionConfig  # noqa: E402
+from repro.serve.scheduler import BatchScheduler, Request  # noqa: E402
 from repro.train import init_train_state, make_train_step  # noqa: E402
 from repro.train.step import mesh_ctx, mesh_sizes  # noqa: E402
 
@@ -222,11 +230,37 @@ def init(task, inp, out):
     out[f"{name}/losses"] = np.asarray(losses, np.float64)
 
 
+def serve(task, inp, out):
+    d, m = task["mesh"]
+    mesh = mesh_of(d, m)
+    cfg = config(task)
+    name = task["name"]
+    params = jax.tree.map(jnp.asarray, unflat(inp, f"{name}/params"))
+    sched = BatchScheduler(cfg, mesh, batch=task["batch"], max_len=task["max_len"],
+                           eos_id=task["eos_id"])
+    reqs = [Request(rid, prompt, max_new) for rid, prompt, max_new in task["requests"]]
+    done, stats = sched.run(params, reqs)
+    for rid, c in done.items():
+        out[f"{name}/tokens/{rid}"] = np.asarray(c.tokens, np.int32)
+        out[f"{name}/finished/{rid}"] = np.asarray(c.finished)
+    out[f"{name}/stats"] = np.asarray([stats.requests, stats.prefill_tokens,
+                                       stats.decode_steps, stats.batches])
+    plen = task.get("prefill")
+    if plen:
+        prompts = [r.prompt for r in reqs if len(r.prompt) == plen][:task["batch"]]
+        prompts += [prompts[0]] * (task["batch"] - len(prompts))     # pad with a copy
+        toks = jnp.asarray(np.asarray(prompts, np.int32))
+        caches, tok = sched._engine(plen).prefill(params, {"tokens": toks})
+        flat(caches, f"{name}/caches", out)
+        out[f"{name}/prefill_token"] = np.asarray(tok)
+
+
 def main():
     inp = dict(np.load(sys.argv[1]))
     out = {}
     for task in json.loads(str(inp.pop("job"))):
-        {"coll": coll, "layers": layer_fns, "step": step, "init": init}[task["kind"]](
+        {"coll": coll, "layers": layer_fns, "step": step, "init": init,
+         "serve": serve}[task["kind"]](
             task, inp, out)
     np.savez(sys.argv[2], **out)
 

@@ -14,15 +14,32 @@ import torch.distributed as dist
 from repro_torch.configs import get_smoke_config
 from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models import attention, backbone, ffn, layers
-from repro_torch.models.spec import gather_params, shard_params, tree_map
+from repro_torch.models.spec import gather_params, shard_params, tree_map, tree_map_p
 from repro_torch.optim import OptConfig, build_plan, sync_gradient
 from repro_torch.optim.compression import CompressionConfig
+from repro_torch.serve.scheduler import BatchScheduler, Request
 from repro_torch.train import make_train_step
 from repro_torch.train.step import mesh_ctx
 
 
 def config(arch, scale=None):
     return get_smoke_config(arch).scaled(**(scale or {}))
+
+
+def draw_tree(spec, rng):
+    """float32 parameters of a port spec: norms near 1, biases small,
+    weights at their init scale (as ``_torch_models.draw_tree`` draws a
+    reference spec's)."""
+    def draw(p):
+        if p.init == "ones":
+            return (1 + 0.1 * rng.standard_normal(p.shape)).astype(np.float32)
+        if p.init == "zeros":
+            return (0.1 * rng.standard_normal(p.shape)).astype(np.float32)
+        fan = p.shape[-2] if len(p.shape) >= 2 else p.shape[-1]
+        scale = p.scale if p.scale is not None else 1 / np.sqrt(fan)
+        return (scale * rng.standard_normal(p.shape)).astype(np.float32)
+
+    return tree_map_p(draw, spec)
 
 
 def block(arr, mesh, axes_by_dim):
@@ -63,6 +80,13 @@ def collectives(dev, n, cases):
         out[op] = {"y": y.detach().numpy(), "dx": dx.numpy()}
     c = {k: torch.from_numpy(v[r]) for k, v in cases["combine"].items()}
     out["combine"] = {"y": layers.combine_partials(c["num"], c["m"], c["l"], ctx).float().numpy()}
+    if "vocab" in cases:            # the serving side: whole-vocab logits, the distributed argmax
+        v = cases["vocab"]
+        cfg = config("qwen2-1.5b", {"vocab": int(v["vocab"])})
+        p = shard_params({"tok": v["tok"]}, backbone.embed_spec(cfg), mesh)
+        x = torch.from_numpy(v["x"])
+        out["vocab"] = {"logits": backbone.vocab_logits(p, x[:, 0], ctx, cfg).numpy(),
+                        "token": backbone.greedy_token(p, x, ctx, cfg).numpy()}
     out["ledger"] = {k: dict(v) for k, v in mesh.ledger.items()}
     return out
 
@@ -237,3 +261,44 @@ def twin(dev, d, m, arch, params, tokens, steps, runs, gs, errs, k):
     """``train_losses`` and ``sparse_sync`` in one group of ranks."""
     return {"losses": train_losses(dev, d, m, arch, params, tokens, steps, runs),
             "sync": sparse_sync(dev, d, m, gs, errs, k)}
+
+
+def serve(dev, tasks):
+    """Each task's ``BatchScheduler`` run on its (data, model) mesh, every
+    rank with its shards of the task's global float32 parameters and the
+    same requests: the completions, the run's counts and the collectives'
+    ledger; then, where the task names a ``prefill`` bucket, that bucket's
+    first ``batch`` prompts (padded with copies) through the run's own prefill (this rank's
+    caches and the token) and one decode step on them (the token and the
+    step's collectives)."""
+    results = {}
+    for t in tasks:
+        d, m = t["mesh"]
+        mesh = make_local_mesh(d, m, device=dev)
+        cfg = config(t["arch"], t.get("scale"))
+        sched = BatchScheduler(cfg, mesh, batch=t["batch"], max_len=t["max_len"],
+                               eos_id=t["eos_id"])
+        params = shard_params(t["params"], sched._engine.param_spec, mesh)
+        reqs = [Request(rid, prompt, max_new) for rid, prompt, max_new in t["requests"]]
+        with torch.no_grad():
+            done, stats = sched.run(params, reqs)
+        res = {"completions": {rid: (c.tokens, c.finished) for rid, c in done.items()},
+               "stats": (stats.requests, stats.prefill_tokens, stats.decode_steps,
+                         stats.batches),
+               "ledger": {k: dict(v) for k, v in mesh.ledger.items()}}
+        if t.get("prefill"):
+            prompts = [p for _, p, _ in t["requests"] if len(p) == t["prefill"]][:t["batch"]]
+            prompts += [prompts[0]] * (t["batch"] - len(prompts))       # pad with a copy
+            sv = sched._engine
+            with torch.no_grad():
+                caches, tok = sv.prefill(params, {"tokens": torch.tensor(prompts)})
+                res["caches"] = tree_map(
+                    lambda x: x if isinstance(x, int) else x.float().numpy(), caches)
+                res["prefill_token"] = tok.numpy()
+                mesh.ledger.clear()
+                tok2, _ = sv.decode(params, caches, tok[:, None])
+            res["decode_token"] = tok2.numpy()
+            res["decode_ledger"] = {k: v["calls"] for k, v in mesh.ledger.items()}
+        results[t["name"]] = res
+        dist.barrier()
+    return results

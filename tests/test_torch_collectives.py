@@ -2,8 +2,10 @@
 ``rs_seq``, ``psum_model``, ``pmax_const``, ``combine_partials``) against
 the reference's inside ``jax.shard_map(..., check_vma=False)`` on 2 and 4
 fake CPU devices (``tests/_jax_mesh_ref.py``), forward and backward; the
-rank launcher (``launch.ranks``) and the mesh (``launch.mesh``); and the
-paths outside this slice, which raise above one rank naming their
+serving side's whole-vocab logits (``backbone.vocab_logits``) and
+distributed argmax (``greedy_token``) on every rank against one rank's;
+the rank launcher (``launch.ranks``) and the mesh (``launch.mesh``); and
+the paths outside this slice, which raise above one rank naming their
 sub-item of ROADMAP Queue A item 15.
 
 The port's ranks run as gloo processes on the CPU, a group of 2 and one of
@@ -16,7 +18,8 @@ psum its own, pmax a constant).
 Tolerances, stated before the first run: outputs and gradients within
 1e-6 of their largest magnitude (float32 sums of up to 4 terms in another
 order); ``combine_partials`` returns bfloat16, within one bfloat16 step of
-its largest magnitude (2^-8).
+its largest magnitude (2^-8); the whole-vocab logits within 1e-6 of one
+rank's (the same float32 products, in shards), their argmax equal.
 """
 import json
 import os
@@ -41,6 +44,7 @@ from repro_torch.serve.engine import make_serve_fns
 ROOT = Path(__file__).resolve().parents[1]
 NS = (2, 4)
 OPS = ("ag", "rs", "psum", "pmax", "combine")
+VOCAB = 500
 
 
 def cases(n, rng):
@@ -52,6 +56,9 @@ def cases(n, rng):
         "pmax": {"x": f(n, 2, 5), "cot": f(n, 2, 5)},
         "combine": {"num": f(n, 2, 3, 1, 4), "m": f(n, 2, 3, 1),
                     "l": (1 + rng.random((n, 2, 3, 1))).astype(np.float32)},
+        # the serving side (port only): a vocab of 500 padded to 512, so the
+        # last rank's shard ends in padding columns
+        "vocab": {"vocab": np.int64(VOCAB), "tok": f(512, 128), "x": f(3, 1, 128)},
     }
 
 
@@ -61,7 +68,7 @@ def runs(tmp_path_factory):
     rng = np.random.default_rng(5)
     inputs = {n: cases(n, rng) for n in NS}
     arrays = {f"c{n}/{op}/{k}": v for n in NS for op, kv in inputs[n].items()
-              for k, v in kv.items()}
+              for k, v in kv.items() if op in OPS}
     job = [{"kind": "coll", "name": f"c{n}", "n": n} for n in NS]
     np.savez(tmp / "in.npz", job=json.dumps(job), **arrays)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
@@ -201,7 +208,11 @@ def test_other_block_kinds_raise_above_one_rank(kind, ctx):
     backbone.make_block_fn(cfg, ctx, "attn")           # the dense block runs
 
 
-def test_frontends_encoder_experts_and_serving_raise_above_one_rank():
+def test_frontends_encoder_experts_and_serving_raise_above_one_rank(runs):
+    """The frontends, the encoder and the experts raise above one rank
+    (sub-item 6c); the dense family's serving runs there: ``vocab_logits``
+    gives every rank the whole padded vocab's logits, ``greedy_token`` their
+    argmax, and ``make_serve_fns`` builds its steps on a 'model' axis of 2."""
     cfg = get_smoke_config("whisper-tiny")
     with pytest.raises(NotImplementedError, match="sub-item 6c"):
         backbone.encode({}, torch.zeros(1, 4, cfg.d_model), TWO, cfg)
@@ -211,9 +222,20 @@ def test_frontends_encoder_experts_and_serving_raise_above_one_rank():
     moe = get_smoke_config("deepseek-v2-236b")
     with pytest.raises(NotImplementedError, match="sub-item 6c"):
         ffn._moe_core({}, torch.zeros(4, moe.d_model), moe, TWO, 1)
-    with pytest.raises(NotImplementedError, match="sub-item 6b"):
-        backbone.vocab_logits({}, torch.zeros(1, 8), TWO, cfg)
+    dense = get_smoke_config("qwen2-1.5b").scaled(vocab=VOCAB)
+    rng = np.random.default_rng(5)          # the inputs the ranks saw
+    inputs = {k: cases(k, rng) for k in NS}
+    for n in NS:
+        v = inputs[n]["vocab"]
+        whole = backbone.vocab_logits({"tok": torch.from_numpy(v["tok"])},
+                                      torch.from_numpy(v["x"])[:, 0], MeshCtx(), dense)
+        assert torch.all(whole[:, VOCAB:] == -1e30)
+        for r in range(n):
+            got = runs["port"][n][r]["vocab"]
+            np.testing.assert_allclose(got["logits"], whole.numpy(), rtol=1e-6, atol=1e-6)
+            np.testing.assert_array_equal(got["token"], whole.argmax(-1).numpy())
     mesh = port_mesh.LocalMesh(("data", "model"), {"data": 1, "model": 2},
                                torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="sub-item 6b"):
-        make_serve_fns(get_smoke_config("qwen2-1.5b"), mesh, batch=2, max_len=16)
+    sv = make_serve_fns(dense, mesh, batch=2, max_len=16)
+    assert sv.ctx.model_size == 2 and sv.batch_ax == ("data",)
+    assert tuple(sv.cache_pspec["g0"]["k"].shape) == (2, 2, 2, 16, 32)

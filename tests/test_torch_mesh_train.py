@@ -38,12 +38,13 @@ import pytest
 import torch
 
 import _torch_ranks
+from _torch_ranks import draw_tree
 from repro_torch.configs import get_smoke_config
 from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.launch.ranks import run_ranks
 from repro_torch.models import attention, backbone, ffn
 from repro_torch.models.layers import MeshCtx
-from repro_torch.models.spec import params_from_numpy, tree_map_p
+from repro_torch.models.spec import params_from_numpy
 from repro_torch.optim import OptConfig, build_plan, init_opt_state, sync_gradient
 from repro_torch.optim.adamw import opt_state_spec
 from repro_torch.train import make_train_step
@@ -92,22 +93,6 @@ def unflat(d, prefix):
                 node = node.setdefault(p, {})
             node[parts[-1]] = v
     return out
-
-
-def draw_tree(spec, rng):
-    """float32 parameters of a port spec, as ``_torch_models.draw_tree``
-    draws a reference spec's: norms near 1, biases small, weights at their
-    init scale."""
-    def draw(p):
-        if p.init == "ones":
-            return (1 + 0.1 * rng.standard_normal(p.shape)).astype(np.float32)
-        if p.init == "zeros":
-            return (0.1 * rng.standard_normal(p.shape)).astype(np.float32)
-        fan = p.shape[-2] if len(p.shape) >= 2 else p.shape[-1]
-        scale = p.scale if p.scale is not None else 1 / np.sqrt(fan)
-        return (scale * rng.standard_normal(p.shape)).astype(np.float32)
-
-    return tree_map_p(draw, spec)
 
 
 def pad_to(a, shape):
