@@ -109,7 +109,16 @@ just before it and read just after:
   after them rank 0 alone runs one rank and checks every mesh's tokens
   against its no-cache forward (``MR_SERVE_MARGIN``) and a float32
   2-layer model's against its run (``MR_SERVE_F32_MARGIN``), on a line
-  ``"step": "serve"`` before the phase's own.
+  ``"step": "serve"`` before the phase's own.  The MoE family the same
+  way (``MR_MOE_ARCH``, deepseek-v2-236b): its training check at reduced
+  width on the same three meshes (the routed experts over the whole
+  world, their tokens dispatched by all-to-all, no pair dropped at
+  capacity), then served at full width and 7 layers in bfloat16 on
+  (1, 2) and (2, 1) with the same traffic, each rank drawing the weights
+  leaf by leaf and keeping its shard (``draw_shards``), and a float32
+  3-layer model's tokens checked by rank 0 against the one-rank forward
+  (``MR_MOE_MARGIN`` and the route rule) and the one-rank run (near ties
+  only), on a line ``"step": "serve_moe"``.
 * ``dryrun`` — ``launch.dryrun`` and ``roofline``, which launch no PBS
   kernel: the 40-cell grid counted on meta tensors by
   ``python -m repro_torch.launch.dryrun``, one process an arch, the card
@@ -263,6 +272,7 @@ from repro_torch.optim.compression import CompressionConfig, init_error_state  #
 from repro_torch.train import make_train_step  # noqa: E402
 from repro_torch.launch.ranks import run_ranks  # noqa: E402
 from repro_torch.models.spec import gather_params, shard_params  # noqa: E402
+import repro_torch.models.spec as pspec  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch.cells import ENC_LEN, SHAPES, all_cells, at_position, build_cell  # noqa: E402
 from repro_torch.roofline import (  # noqa: E402
@@ -3577,7 +3587,20 @@ MR_BACKEND = "gloo"
 # the step within 1e-6 absolute.  The compressed mesh's one-rank step is
 # AdamW on one rank from the mesh's own (gathered) compressed gradient.
 MR_CHECK_LAYERS, MR_CHECK_ROWS, MR_CHECK_SEQ = 2, 4, 512
-MR_CHECKS = (((1, 2), False, None), ((2, 1), True, None), ((2, 2), False, TRAIN_COMPRESSION))
+# the MoE family across ranks: deepseek-v2-236b (arXiv:2405.04434), its
+# routed experts spread over the whole ('data', 'model') world
+MR_MOE_ARCH = "deepseek-v2-236b"
+# the MoE check at reduced width: its 160 experts top-6, 2 shared, 128
+# heads, kv_lora 512 and vocab, with d_model 1 024, moe_d_ff 512 and 2
+# layers (1 dense + 1 MoE).  At full width one MoE layer's 3.78 B expert
+# parameters need ~60 GB of float32 weights, gradients and Adam moments
+MR_MOE_TRAIN = dict(d_model=1024, moe_d_ff=512, n_layers=2)
+MR_CHECK_CONFIG = {TRAIN_ARCH: dict(n_layers=MR_CHECK_LAYERS), MR_MOE_ARCH: MR_MOE_TRAIN}
+# (arch, mesh, ZeRO-1, compression ratio)
+MR_CHECKS = ((TRAIN_ARCH, (1, 2), False, None), (TRAIN_ARCH, (2, 1), True, None),
+             (TRAIN_ARCH, (2, 2), False, TRAIN_COMPRESSION),
+             (MR_MOE_ARCH, (1, 2), False, None), (MR_MOE_ARCH, (2, 1), True, None),
+             (MR_MOE_ARCH, (2, 2), False, None))
 MR_LOSS_RTOL, MR_GRAD_REL, MR_PARAM_ATOL = 1e-5, 1e-4, 1e-6
 # timed: bfloat16 weights, MR_TIMED_LAYERS layers, model_train's train_4k
 # rows (TRAIN_BATCH x TRAIN_SEQ, TRAIN_MICROBATCH microbatches), float32
@@ -3610,7 +3633,29 @@ MR_SERVE_BUCKETS, MR_SERVE_MAX_LEN, MR_SERVE_MAX_NEW = ((128, 8), (1536, 4)), 20
 # less than 1/128.
 MR_SERVE_MARGIN, MR_SERVE_F32_MARGIN = 0.0625, 1 / 128
 MR_SERVE_F32_BUCKET = 1536
-MR_TIMEOUT_S = 420
+# deepseek-v2-236b served on the same meshes after qwen2, at full width cut
+# to the one-card row's 7 of 60 layers (1 mla_dense + 6 mla_moe, bfloat16),
+# with qwen2's multirank traffic (MR_SERVE_BUCKETS, MR_SERVE_MAX_NEW): on
+# (1, 2) the 1 536 bucket decodes in rank 1's chunk, the 128 bucket leaves
+# that chunk empty.  Each rank draws the weights from --seed leaf by leaf and
+# keeps only its shard (``draw_shards``): the global tree is 50.45 GB, and
+# two ranks share the card.  Its token check (b) runs on the one-card row's
+# float32 check model (3 layers, 1 dense + 2 MoE, full width) over the
+# 128 x 8 bucket: every token of every rank equals the one-rank no-cache
+# forward's argmax wherever the forward's top-2 margin exceeds
+# MR_MOE_MARGIN (the one-card row's margin_tol) and no layer's route
+# flipped, a flip at a router gap past ROUTE_GAP_TOL failing (the one-card
+# row's rule, ``forward_check``), half the positions or more checked; and
+# each request's tokens equal the one-rank float32 run's up to the first
+# difference, which must be a near tie: the one-rank forward's top-2 margin
+# there at most MR_SERVE_F32_MARGIN, or its k-th and (k+1)-th router
+# probabilities within ROUTE_GAP_TOL in some layer.  The checked runs must
+# drop no (token, slot) pair at capacity.
+MR_MOE_LAYERS, MR_MOE_CHECK_LAYERS, MR_MOE_CHECK_BUCKET = 7, 3, 128
+MR_MOE_MARGIN = 0.125
+# the 2-rank group's join limit: its training checks and timed runs, then
+# both families' serving and rank 0's one-rank checks
+MR_TIMEOUT_S = 720
 
 
 def carried_param_space_(opt, bundle, mesh, spec, seed) -> None:
@@ -3659,16 +3704,17 @@ def mr_state(cfg, mesh, ocfg, ccfg, batch, seed):
     return bundle, params, opt
 
 
-def mr_check_mesh(dev, data, model, zero1, ratio, seed) -> dict:
+def mr_check_mesh(dev, arch, data, model, zero1, ratio, seed) -> dict:
     """One step of the f32 check on this rank of a (data, model) mesh, then
     the one-rank step on the card from the same weights and carried state
-    (every rank runs it, so nothing is gathered but a compressed
-    gradient): this rank's shards of the loss, the synced gradients and
+    (every rank runs it, at once on two ranks and in turns on four, so
+    nothing is gathered but a compressed gradient): this rank's shards of the loss, the synced gradients and
     the parameters after the step against the same shards of the one-rank
     step's (see MR_CHECKS).  The compressed mesh's one-rank step is AdamW
-    from the mesh's own compressed gradient, gathered."""
+    from the mesh's own compressed gradient, gathered.  An MoE config's
+    check counts the pairs its dispatch drops at capacity."""
     stamps = {"start": time.perf_counter()}
-    cfg = get_config(TRAIN_ARCH).scaled(n_layers=MR_CHECK_LAYERS)
+    cfg = get_config(arch).scaled(**MR_CHECK_CONFIG[arch])
     mesh = make_local_mesh(data, model, device=dev)
     ocfg = OptConfig(**TRAIN_OPT, zero1=zero1)
     ccfg = CompressionConfig(ratio=ratio, min_leaf_size=65_536, enabled=True) if ratio else None
@@ -3680,6 +3726,7 @@ def mr_check_mesh(dev, data, model, zero1, ratio, seed) -> dict:
     torch.cuda.synchronize()
     stamps["setup"] = time.perf_counter()
     grads, ce, aux = bundle.grads(params, batch)
+    dispatch = dict(mesh.dispatch)
     torch.cuda.synchronize()
     stamps["grads"] = time.perf_counter()
     plain = build_plan(spec, mesh.axis_names, mesh.shape, OptConfig(**TRAIN_OPT))
@@ -3702,34 +3749,50 @@ def mr_check_mesh(dev, data, model, zero1, ratio, seed) -> dict:
         c_all = gather_params(sent, spec, mesh, everywhere=True, axes=("model",))
     del grads, sent, bundle
     stamps["gather"] = time.perf_counter()
-    one = make_local_mesh(device=dev)
-    ocfg1 = OptConfig(**TRAIN_OPT)
-    b1, p1, o1 = mr_state(cfg, one, ocfg1, None, MR_CHECK_ROWS, seed)
-    g1, ce1, aux1 = b1.grads(p1, batch)
-    if ccfg:
-        _, _, met1 = apply_updates(c_all, p1, o1, b1.plan, ocfg1, presynced=True)
+
+    def one_rank():
+        """The one-rank step and this rank's shards against it."""
+        one = make_local_mesh(device=dev)
+        ocfg1 = OptConfig(**TRAIN_OPT)
+        b1, p1, o1 = mr_state(cfg, one, ocfg1, None, MR_CHECK_ROWS, seed)
+        g1, ce1, aux1 = b1.grads(p1, batch)
+        if ccfg:
+            _, _, met1 = apply_updates(c_all, p1, o1, b1.plan, ocfg1, presynced=True)
+        else:
+            _, _, met1 = b1.update(p1, o1, g1, ce1, aux1)
+        torch.cuda.synchronize()
+        with torch.no_grad():
+            g_err = {k: e / max(w, 1e-30)
+                     for k, (e, w) in local_errors(synced, g1, spec, mesh).items()}
+            p_err = max(e for e, _ in local_errors(params, p1, spec, mesh).values())
+        res = float(ce1), float(met1["grad_norm"]), g_err, p_err
+        del b1, p1, o1, g1
+        torch.cuda.empty_cache()
+        return res
+
+    # on two ranks at once; on four in turns: four one-rank training states
+    # of the MoE check do not fit the card together
+    if mesh.world > 2:
+        for turn in range(mesh.world):
+            torch.distributed.barrier()
+            if turn == mesh.rank:
+                loss1, norm1, g_err, p_err = one_rank()
     else:
-        _, _, met1 = b1.update(p1, o1, g1, ce1, aux1)
-    torch.cuda.synchronize()
+        loss1, norm1, g_err, p_err = one_rank()
     stamps["one_rank"] = time.perf_counter()
-    with torch.no_grad():
-        g_err = {k: e / max(w, 1e-30) for k, (e, w) in local_errors(synced, g1, spec, mesh).items()}
-        p_err = max(e for e, _ in local_errors(params, p1, spec, mesh).values())
     worst = max(g_err, key=g_err.get)
-    loss1 = float(ce1)
-    stamps["compare"] = time.perf_counter()
-    out = {"mesh": [data, model], "zero1": zero1, "compression": ratio, "rank": mesh.rank,
+    out = {"arch": arch, "mesh": [data, model], "zero1": zero1, "compression": ratio,
+           "rank": mesh.rank, "moe_dispatch": dispatch,
            "loss": loss, "loss_one_rank": loss1, "loss_rel_err": abs(loss - loss1) / abs(loss1),
            "grad_norm": float(met["grad_norm"]),
-           "grad_norm_rel_err": abs(float(met["grad_norm"]) - float(met1["grad_norm"]))
-           / float(met1["grad_norm"]),
+           "grad_norm_rel_err": abs(float(met["grad_norm"]) - norm1) / norm1,
            "worst_grad_leaf": worst, "worst_grad_rel_err": g_err[worst],
            "param_max_abs_err": p_err, "collectives": ledger,
            "seconds": {k: stamps[k] - prev for (k, prev) in
                        zip(list(stamps)[1:], list(stamps.values())[:-1])},
            "pbs_kernel_launches": platform.launch_counts(),
            "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
-    del params, opt, synced, b1, p1, o1, g1, c_all
+    del params, opt, synced, c_all
     torch.cuda.empty_cache()
     return out
 
@@ -3806,11 +3869,11 @@ def mr_serve_params(cfg, mesh, seed, float32=False):
     return shard_params(params, spec, mesh) if mesh.world > 1 else params
 
 
-def mr_serve_requests(seed, buckets=MR_SERVE_BUCKETS) -> list:
+def mr_serve_requests(seed, buckets=MR_SERVE_BUCKETS, arch=TRAIN_ARCH) -> list:
     """The serving traffic, the same on every rank: ``MR_SERVE_MAX_NEW`` new
-    tokens a prompt."""
+    tokens a prompt, ids in ``arch``'s vocab."""
     rng = np.random.default_rng(seed)
-    vocab = get_config(TRAIN_ARCH).vocab
+    vocab = get_config(arch).vocab
     return [Request(rid, [int(x) for x in rng.integers(0, vocab, plen)], MR_SERVE_MAX_NEW)
             for rid, plen in enumerate(p for p, n in buckets for _ in range(n))]
 
@@ -3968,7 +4031,186 @@ def mr_serve_one_rank(dev, seed, served) -> dict:
     return out
 
 
-def mr_rank(dev, checks, timed, seed, wait_for=None, serve=()) -> dict:
+def draw_shards(spec, seed, mesh, float32=False):
+    """``init_params(spec, torch.Generator(...).manual_seed(seed))`` on the
+    mesh's device, leaf by leaf in its order, keeping only this rank's shard
+    of each leaf (of a leaf drawn in slices, the parts of each slice that
+    fall in the shard): the values of drawing the global tree and sharding
+    it, without holding the global tree.  With ``float32`` each shard is
+    upcast as it is kept."""
+    gen = torch.Generator(device=mesh.device).manual_seed(seed)
+    at = dict(zip(mesh.axis_names, mesh.coords))
+
+    def leaf(p):
+        if p.init == "normal" and np.prod(p.logical or p.shape) > pspec.SLICE_ABOVE:
+            x = sliced_shard(p, gen, mesh, at)
+        else:
+            x = shard_params({"x": init_params({"x": p}, gen, mesh.device)["x"]}, {"x": p},
+                             mesh)["x"]
+        return x.float() if float32 else x
+
+    return tree_map_p(leaf, spec)
+
+
+def sliced_shard(p, gen, mesh, at) -> torch.Tensor:
+    """``init_params``' draw of a leaf above ``SLICE_ABOVE`` elements (the
+    same ``SLICE_ELEMS`` slices of the same stream, each scaled and cast),
+    kept only where it falls in this rank's block, which splits at most one
+    dimension (a routed expert leaf: its experts)."""
+    if p.logical not in (None, p.shape):
+        raise ValueError(f"a sliced draw of a padded leaf {p.shape} / {p.logical}")
+    blocks = pspec.dim_blocks(p.shape, p.axes, mesh.shape, at)
+    split = [i for i, (b, n) in enumerate(zip(blocks, p.shape)) if (b.start, b.stop) != (0, n)]
+    if len(split) > 1:
+        raise ValueError(f"a sliced draw split over {len(split)} dimensions")
+    k = split[0] if split else 0
+    a, b = blocks[k].start, blocks[k].stop
+    outer, K = int(np.prod(p.shape[:k])), p.shape[k]
+    inner = int(np.prod(p.shape[k + 1:]))
+    scale = p.scale if p.scale is not None else 1.0 / np.sqrt(max(1, p.shape[-2]))
+    local = torch.empty(tuple(x.stop - x.start for x in blocks), dtype=p.dtype,
+                        device=mesh.device)
+    rows = local.view(outer, (b - a) * inner)
+    total = outer * K * inner
+    for lo in range(0, total, pspec.SLICE_ELEMS):
+        hi = min(lo + pspec.SLICE_ELEMS, total)
+        part = torch.randn(hi - lo, generator=gen, dtype=torch.float32,
+                           device=mesh.device).mul_(scale)
+        for o in range(lo // (K * inner), (hi - 1) // (K * inner) + 1):
+            base = o * K * inner + a * inner          # the block's first element in row o
+            s0, s1 = max(lo, base), min(hi, base + (b - a) * inner)
+            if s0 < s1:
+                rows[o, s0 - base:s1 - base] = part[s0 - lo:s1 - lo]
+    return local
+
+
+def mr_moe_serve_mesh(dev, data, model, seed) -> dict:
+    """deepseek-v2 served on this rank of a (data, model) mesh whose ranks
+    share the card: the bfloat16 run of ``MR_MOE_LAYERS`` layers over
+    ``MR_SERVE_BUCKETS`` (steps timed, ``timed_engine``), then the float32
+    check model's run on the ``MR_MOE_CHECK_BUCKET`` bucket with its routes
+    recorded.  Every rank returns the same (global) tokens; the routes are
+    this rank's: its rows over 'data', and a prefill's last position only
+    on the last 'model' rank (``route_piece``, None elsewhere)."""
+    t0 = time.perf_counter()
+    cfg = get_config(MR_MOE_ARCH).scaled(n_layers=MR_MOE_LAYERS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mesh = make_local_mesh(data, model, device=dev)
+    ctx = mesh_ctx(mesh)
+    params = draw_shards(model_spec(cfg, ctx), seed, mesh)
+    torch.cuda.empty_cache()
+    requests = mr_serve_requests(seed, MR_SERVE_BUCKETS, MR_MOE_ARCH)
+    sched = BatchScheduler(cfg, mesh, batch=SERVE_BATCH, max_len=MR_SERVE_MAX_LEN, eos_id=-1)
+    log = {"prefill": [], "decode": []}
+    timed_engine(sched, mesh, log)
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tokens = mr_serve_run(sched, params, requests, cfg)
+    dispatch = dict(mesh.dispatch)
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    del params, sched
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cfg32 = cfg.scaled(n_layers=MR_MOE_CHECK_LAYERS)
+    params = draw_shards(model_spec(cfg32, ctx), seed, mesh, float32=True)
+    reqs = [r for r in requests if len(r.prompt) == MR_MOE_CHECK_BUCKET]
+    sched = BatchScheduler(cfg32, mesh, batch=SERVE_BATCH, max_len=MR_SERVE_MAX_LEN, eos_id=-1)
+    mesh.dispatch.clear()
+    with recorded_routes() as calls:
+        tokens32 = mr_serve_run(sched, params, reqs, cfg32)
+    dispatch32 = dict(mesh.dispatch)
+    piece = None
+    if ctx.midx() == ctx.model_size - 1:          # it holds every prefill's last position
+        routes = chunk_routes(calls, cfg32.n_layers - cfg32.n_dense_layers,
+                              MR_SERVE_MAX_NEW - 1).cpu()
+        lo = mesh.index("data") * routes.shape[0] if sched._engine.batch_ax else 0
+        piece = {"rows": [lo, lo + routes.shape[0]], "routes": routes}
+    f32_s = time.perf_counter() - t0
+    del params, sched, calls
+    torch.cuda.empty_cache()
+    steps = log["decode"]
+    ops = sorted({k for st in steps for k in st if k != "ms"})
+    return {"mesh": [data, model], "rank": mesh.rank, "tokens": tokens, "tokens_f32": tokens32,
+            "route_piece": piece, "dispatch": dispatch, "dispatch_f32": dispatch32,
+            "prefill_ms": {plen: ms for plen, ms in log["prefill"]},
+            "decode_ms": [st["ms"] for st in steps],
+            "decode_ms_median": float(np.median([st["ms"] for st in steps])),
+            "collectives_a_step": {k: {
+                "calls": int(np.median([st.get(k, {}).get("calls", 0) for st in steps])),
+                "bytes": int(np.median([st.get(k, {}).get("bytes", 0) for st in steps])),
+                "host_ms_median": float(np.median([st.get(k, {}).get("seconds", 0.0) * 1e3
+                                                   for st in steps]))} for k in ops},
+            "collective_host_ms_a_step_median": float(np.median(
+                [sum(v["seconds"] for k, v in st.items() if k != "ms") * 1e3 for st in steps])),
+            "max_memory_allocated_gb": peak / 1e9,
+            "pbs_kernel_launches": platform.launch_counts(),
+            "seconds": {"setup": setup_s, "bf16_run": run_s, "f32_check_run": f32_s}}
+
+
+def mr_moe_one_rank(dev, seed, served, pieces) -> dict:
+    """On rank 0 alone, after every mesh's run: the one-rank float32 check
+    model's run on the ``MR_MOE_CHECK_BUCKET`` bucket, then for each mesh of
+    ``served`` its float32 tokens against the one-rank forward
+    (``forward_check`` with the mesh's routes, put together from every
+    rank's ``pieces``) and against the one-rank run's up to their first
+    difference, with the forward's margin and smallest router gap there."""
+    t0 = time.perf_counter()
+    cfg = get_config(MR_MOE_ARCH).scaled(n_layers=MR_MOE_CHECK_LAYERS)
+    n_moe = cfg.n_layers - cfg.n_dense_layers
+    mesh = make_local_mesh(device=dev)
+    ctx = mesh_ctx(mesh)
+    params = init_params(model_spec(cfg, ctx), torch.Generator(device=DEV).manual_seed(seed),
+                         mesh.device)
+    upcast_(params)
+    reqs = [r for r in mr_serve_requests(seed, MR_SERVE_BUCKETS, MR_MOE_ARCH)
+            if len(r.prompt) == MR_MOE_CHECK_BUCKET]
+    sched = BatchScheduler(cfg, mesh, batch=SERVE_BATCH, max_len=MR_SERVE_MAX_LEN, eos_id=-1)
+    one = mr_serve_run(sched, params, reqs, cfg)
+    seq = torch.tensor([r.prompt + one[r.rid][:-1] for r in reqs], dtype=torch.int32,
+                       device=mesh.device)
+    with recorded_routes() as calls:
+        x = forward(params, seq, ctx, cfg)[:, MR_MOE_CHECK_BUCKET - 1:]
+    margin = vocab_logits(params["embed"], x, ctx, cfg).topk(2, dim=-1).values
+    margin = (margin[..., 0] - margin[..., 1]).cpu()
+    _, gaps = forward_routes(calls, len(reqs), MR_MOE_CHECK_BUCKET - 1, MR_SERVE_MAX_NEW)
+    gap = gaps.min(-1).values.cpu()                  # the smallest over the MoE layers
+    del calls, x
+    out = {"meshes": []}
+    for i, s in enumerate(served):
+        routes = torch.empty((SERVE_BATCH, MR_SERVE_MAX_NEW, n_moe, cfg.moe_top_k),
+                             dtype=torch.long)
+        for rank_pieces in pieces:
+            pc = rank_pieces[i]
+            if pc is not None:
+                routes[pc["rows"][0]:pc["rows"][1]] = pc["routes"]
+        done = {rid: Completion(rid, toks, True) for rid, toks in s["tokens_f32"].items()}
+        check = forward_check(params, cfg, ctx, done, reqs, MR_MOE_MARGIN,
+                              routes={r.rid: routes[b].to(DEV) for b, r in enumerate(reqs)})
+        compared, firsts = 0, []
+        for b, r in enumerate(reqs):
+            got, want = s["tokens_f32"][r.rid], one[r.rid]
+            n = next((j for j, (u, v) in enumerate(zip(got, want)) if u != v), None)
+            compared += len(want) if n is None else n
+            if n is not None:
+                firsts.append({"rid": r.rid, "position": n, "margin": float(margin[b, n]),
+                               "min_router_gap": float(gap[b, n]),
+                               "near_tie": bool(margin[b, n] <= MR_SERVE_F32_MARGIN
+                                                or gap[b, n] <= ROUTE_GAP_TOL)})
+        out["meshes"].append({"mesh": s["mesh"], "forward_check": check,
+                              "one_rank_compare": {
+                                  "positions": len(reqs) * MR_SERVE_MAX_NEW,
+                                  "positions_compared": compared, "differences": firsts,
+                                  "margin_tol": MR_SERVE_F32_MARGIN,
+                                  "route_gap_tol": ROUTE_GAP_TOL}})
+    del params, sched
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def mr_rank(dev, checks, timed, seed, wait_for=None, serve=(), moe_serve=()) -> dict:
     """A rank of phase multirank: its checks, then its timed runs, then its
     serving runs (``serve``: meshes), after which rank 0 alone runs the
     one-rank serving and its token checks; with ``wait_for``, only once
@@ -3978,34 +4220,52 @@ def mr_rank(dev, checks, timed, seed, wait_for=None, serve=()) -> dict:
     started = time.time()
     while wait_for and not Path(wait_for).exists():
         time.sleep(0.05)
-    out = {"started": started, "checks": [mr_check_mesh(dev, d, m, z, r, seed) for (d, m), z, r in checks],
+    out = {"started": started,
+           "checks": [mr_check_mesh(dev, a, d, m, z, r, seed) for a, (d, m), z, r in checks],
            "timed": [mr_timed_mesh(dev, d, m, z, seed) for (d, m), z in timed],
-           "serve": [mr_serve_mesh(dev, d, m, seed) for d, m in serve]}
-    if serve:
-        torch.distributed.barrier()
+           "serve": [mr_serve_mesh(dev, d, m, seed) for d, m in serve],
+           "moe_serve": [mr_moe_serve_mesh(dev, d, m, seed) for d, m in moe_serve]}
+    if serve or moe_serve:
+        # every rank's route pieces, so rank 0 can put each mesh's routes together
+        pieces = [None] * torch.distributed.get_world_size()
+        torch.distributed.all_gather_object(pieces, [s.pop("route_piece")
+                                                     for s in out["moe_serve"]])
         if torch.distributed.get_rank() == 0:
-            out["serve_one_rank"] = mr_serve_one_rank(dev, seed, out["serve"])
+            if serve:
+                out["serve_one_rank"] = mr_serve_one_rank(dev, seed, out["serve"])
+            if moe_serve:
+                out["moe_one_rank"] = mr_moe_one_rank(dev, seed, out["moe_serve"], pieces)
     return out
 
 
-def multirank_phase(args, smi) -> None:
-    """Training across ranks (``launch.ranks``, ``launch.mesh``, the
-    sequence-parallel layers, ZeRO-1, compression), the ranks processes
-    sharing the one card over gloo: two ranks for the (1, 2) and (2, 1)
-    checks and timed runs, four for the (2, 2) check."""
+MR_FAMILIES = {"dense": TRAIN_ARCH, "moe": MR_MOE_ARCH}
+
+
+def multirank_phase(args, smi, families=tuple(MR_FAMILIES)) -> None:
+    """Training and serving across ranks (``launch.ranks``, ``launch.mesh``,
+    the sequence-parallel layers, ZeRO-1, compression, the experts'
+    all-to-all), the ranks processes sharing the one card over gloo: two
+    ranks for the (1, 2) and (2, 1) checks, timed and serving runs, four for
+    the (2, 2) checks.  ``families`` (of ``MR_FAMILIES``) limits the phase
+    to the dense or the MoE family's runs."""
     t_phase = time.perf_counter()
     cards = torch.cuda.device_count()
     root = Path(tempfile.mkdtemp(prefix="multirank_"))
     torch.cuda.empty_cache()
     runs, wall, start_up = {}, {}, {}
 
+    archs = [MR_FAMILIES[f] for f in families]
+    dense = TRAIN_ARCH in archs
+
     def group(world, wait_for=None):
-        checks = [c for c in MR_CHECKS if c[0][0] * c[0][1] == world]
-        timed = [t for t in MR_TIMED if t[0][0] * t[0][1] == world]
-        serve = [m for m in MR_SERVE if m[0] * m[1] == world]
+        checks = [c for c in MR_CHECKS if c[1][0] * c[1][1] == world and c[0] in archs]
+        timed = [t for t in MR_TIMED if t[0][0] * t[0][1] == world and dense]
+        serve = [m for m in MR_SERVE if m[0] * m[1] == world and dense]
+        moe_serve = [m for m in MR_SERVE if m[0] * m[1] == world and MR_MOE_ARCH in archs]
         t0 = time.perf_counter()
         res = run_ranks(mr_rank, world, root / f"w{world}", device=DEV.type,
-                        backend=MR_BACKEND, args=(checks, timed, args.seed, wait_for, serve),
+                        backend=MR_BACKEND,
+                        args=(checks, timed, args.seed, wait_for, serve, moe_serve),
                         timeout=MR_TIMEOUT_S, threads=None)
         runs[world], wall[world] = res, time.perf_counter() - t0
         start_up[world] = min(r["started"] for r in res) - (time.time() - wall[world])
@@ -4025,7 +4285,8 @@ def multirank_phase(args, smi) -> None:
     worst = {}
     for per_rank in checks:
         for c in per_rank:
-            w = worst.setdefault(tuple(c["mesh"]), dict(c, ranks=0))
+            w = worst.setdefault((c["arch"], tuple(c["mesh"])), dict(c, ranks=0, dropped=0))
+            w["dropped"] += c["moe_dispatch"].get("dropped", 0)
             w["ranks"] += 1
             for k in ("loss_rel_err", "grad_norm_rel_err", "param_max_abs_err"):
                 w[k] = max(w[k], c[k])
@@ -4034,6 +4295,7 @@ def multirank_phase(args, smi) -> None:
                          worst_grad_leaf=c["worst_grad_leaf"])
     lead = list(worst.values())
     for c in lead:
+        assert c["dropped"] == 0, f"{c['arch']} {c['mesh']} dropped {c['dropped']} pairs"
         assert c["loss_rel_err"] <= MR_LOSS_RTOL, c
         assert c["grad_norm_rel_err"] <= MR_LOSS_RTOL, c
         assert c["worst_grad_rel_err"] <= MR_GRAD_REL, c
@@ -4041,12 +4303,12 @@ def multirank_phase(args, smi) -> None:
     pbs = {}
     for w in (2, 4):
         for r in runs[w]:
-            for c in r["checks"] + r["timed"] + r["serve"]:
+            for c in r["checks"] + r["timed"] + r["serve"] + r["moe_serve"]:
                 for k, v in c["pbs_kernel_launches"].items():
                     pbs[k] = pbs.get(k, 0) + v
     assert not pbs, pbs                           # no PBS kernel on this path
     timed = []
-    for i, (mesh_, zero1) in enumerate(MR_TIMED):     # every timed mesh has two ranks
+    for i, (mesh_, zero1) in enumerate(MR_TIMED if dense else ()):   # two ranks each
         per = [r["timed"][i] for r in runs[2]]
         timed.append({"mesh": list(mesh_), "zero1": zero1,
                       "per_rank": [{k: t[k] for k in (
@@ -4055,26 +4317,36 @@ def multirank_phase(args, smi) -> None:
                           "max_memory_allocated_gb", "losses")} for t in per],
                       "collective_ms_by_op_rank0": per[0]["collective_ms_by_op"],
                       "collective_bytes_a_step_rank0": per[0]["collective_bytes_a_step"]})
-    serve_report(smi, runs[2], pbs)
+    if dense:
+        serve_report(smi, runs[2], pbs)
+    if MR_MOE_ARCH in archs:
+        moe_serve_report(smi, runs[2], pbs)
     emit({"phase": "multirank", "gpu": smi, "backend": MR_BACKEND, "cards": cards,
           "ranks_share_one_card": cards == 1,
-          "worlds": {"2": [list(c[0]) for c in MR_CHECKS if c[0][0] * c[0][1] == 2],
-                     "4": [list(c[0]) for c in MR_CHECKS if c[0][0] * c[0][1] == 4]},
+          "worlds": {str(w): [[c[0], list(c[1])] for c in MR_CHECKS
+                             if c[1][0] * c[1][1] == w and c[0] in archs]
+                     for w in (2, 4)},
           "note": "ranks are processes sharing one card over gloo (host memory); no "
                   "collective time here is an NVLink or NCCL figure, no step a scaling one",
-          "check": {"config": f"{TRAIN_ARCH} d {get_config(TRAIN_ARCH).d_model}, "
-                              f"{MR_CHECK_LAYERS} layers, float32, {MR_CHECK_ROWS} x "
-                              f"{MR_CHECK_SEQ} tokens, carried state",
+          "check": {"configs": {a: dict(MR_CHECK_CONFIG[a], d_model=get_config(a).scaled(
+                        **MR_CHECK_CONFIG[a]).d_model) for a in archs},
+                    "reduced": {MR_MOE_ARCH: "d_model 5120 -> 1024, moe_d_ff 1536 -> 512, "
+                                             "60 -> 2 layers (the float32 training state of "
+                                             "one full-width MoE layer is ~60 GB)",
+                                TRAIN_ARCH: f"28 -> {MR_CHECK_LAYERS} layers"},
+                    "rows_x_seq": [MR_CHECK_ROWS, MR_CHECK_SEQ], "dtype": "float32",
+                    "state": "carried",
                     "tolerances": {"loss_rel": MR_LOSS_RTOL, "grad_rel_to_leaf_max": MR_GRAD_REL,
                                    "params_abs": MR_PARAM_ATOL},
                     "meshes": [{k: c[k] for k in (
-                        "mesh", "zero1", "compression", "ranks", "loss", "loss_one_rank",
+                        "arch", "mesh", "zero1", "compression", "ranks", "loss", "loss_one_rank",
                         "loss_rel_err", "grad_norm_rel_err", "worst_grad_leaf",
-                        "worst_grad_rel_err", "param_max_abs_err", "seconds",
+                        "worst_grad_rel_err", "param_max_abs_err", "dropped", "seconds",
                         "collectives")} for c in lead],
                     "max_memory_allocated_gb": {
-                        str(c["mesh"]): [cc["max_memory_allocated_gb"] for per in checks
-                                         for cc in per if cc["mesh"] == c["mesh"]]
+                        f"{c['arch']} {c['mesh']}": [
+                            cc["max_memory_allocated_gb"] for per in checks for cc in per
+                            if (cc["arch"], cc["mesh"]) == (c["arch"], c["mesh"])]
                         for c in lead}},
           "timed": {"config": f"{TRAIN_ARCH} {MR_TIMED_LAYERS} layers, bfloat16, "
                               f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens, microbatch "
@@ -4083,6 +4355,69 @@ def multirank_phase(args, smi) -> None:
           "ranks_s": wall, "start_up_s": start_up,
           "pbs_kernel_launches": pbs,
           "multirank_phase_s": time.perf_counter() - t_phase})
+
+
+def moe_serve_report(smi, ranks, pbs) -> None:
+    """Phase multirank's MoE serving line, from the 2-rank group's results,
+    with its assertions: every rank of a mesh returned the same tokens, the
+    float32 runs dropped no pair, check (b) holds (``MR_MOE_MARGIN``, the
+    route rule, half the positions; first differences from the one-rank run
+    near ties)."""
+    one = ranks[0]["moe_one_rank"]
+    meshes = []
+    for i, mesh_ in enumerate(MR_SERVE):
+        per = [r["moe_serve"][i] for r in ranks]
+        for p in per[1:]:
+            assert p["tokens"] == per[0]["tokens"] and p["tokens_f32"] == per[0]["tokens_f32"]
+        dropped32 = sum(p["dispatch_f32"]["dropped"] for p in per)
+        assert dropped32 == 0, f"the checked runs dropped {dropped32} pairs at capacity"
+        check, cmp = one["meshes"][i]["forward_check"], one["meshes"][i]["one_rank_compare"]
+        assert check["checked_mismatches"] == 0, check
+        assert check["positions_checked"] * 2 >= check["positions"], check
+        assert check["route_flips_at_clear_gap"] == 0, check
+        assert max(check["route_flip_share_by_moe_layer"]) <= ROUTE_FLIP_CEILING, check
+        assert all(d["near_tie"] for d in cmp["differences"]), cmp
+        meshes.append({
+            "mesh": list(mesh_),
+            "prefill_ms_by_bucket": {str(p): [r["prefill_ms"][p] for r in per]
+                                     for p, _ in MR_SERVE_BUCKETS},
+            "decode_ms_a_step_median": [r["decode_ms_median"] for r in per],
+            "decode_steps": len(per[0]["decode_ms"]),
+            "collectives_a_step": [r["collectives_a_step"] for r in per],
+            "collective_host_ms_a_step_median": [r["collective_host_ms_a_step_median"]
+                                                 for r in per],
+            "dispatch_bf16_run": [r["dispatch"] for r in per],
+            "dispatch_f32_check": [r["dispatch_f32"] for r in per],
+            "max_memory_allocated_gb": [r["max_memory_allocated_gb"] for r in per],
+            "forward_check": check, "one_rank_compare": cmp,
+            "seconds": [r["seconds"] for r in per]})
+    bf16 = [m["tokens"] for m in ranks[0]["moe_serve"]]          # (1, 2)'s, (2, 1)'s
+    pairs = [(a, b) for rid in bf16[0] for a, b in zip(bf16[0][rid], bf16[1][rid])]
+    full = get_config(MR_MOE_ARCH)
+    emit({"phase": "multirank", "step": "serve_moe", "gpu": smi, "backend": MR_BACKEND,
+          "note": "ranks are processes sharing one card over gloo (host memory); no "
+                  "collective time here is an NVLink or NCCL figure",
+          "config": {"arch": MR_MOE_ARCH, "n_layers": MR_MOE_LAYERS, "d_model": full.d_model,
+                     "n_experts": full.n_experts, "top_k": full.moe_top_k,
+                     "n_shared_experts": full.n_shared_experts, "dtype": "bfloat16",
+                     "capacity_factor": full.capacity_factor,
+                     "weights": "torch.Generator seed --seed, drawn leaf by leaf, each rank "
+                                "keeping its shard",
+                     "reduced": f"n_layers {full.n_layers} -> {MR_MOE_LAYERS} (the one-card "
+                                "row's depth)",
+                     "f32_check_layers": MR_MOE_CHECK_LAYERS,
+                     "f32_check_bucket": MR_MOE_CHECK_BUCKET},
+          "traffic": {"buckets": [{"prompt_tokens": p, "requests": n}
+                                  for p, n in MR_SERVE_BUCKETS],
+                      "max_new": MR_SERVE_MAX_NEW, "batch": SERVE_BATCH,
+                      "max_len": MR_SERVE_MAX_LEN,
+                      "reduced": "model_serve's 3 buckets and 32 new tokens -> 2 and 16"},
+          "tolerances": {"f32_margin": MR_MOE_MARGIN, "route_gap": ROUTE_GAP_TOL,
+                         "route_flip_ceiling": ROUTE_FLIP_CEILING,
+                         "near_tie_margin": MR_SERVE_F32_MARGIN},
+          "bf16_tokens_equal_across_meshes": sum(a == b for a, b in pairs) / len(pairs),
+          "meshes": meshes, "one_rank_s": one["seconds"],
+          "pbs_kernel_launches": pbs})
 
 
 def serve_report(smi, ranks, pbs) -> None:

@@ -13,15 +13,19 @@ rank needs no process group.
 The record carries one process group an axis — ``"model"``: the ranks that
 share this rank's data coordinate; ``"data"``: those that share its model
 coordinate — and the collectives over any set of its axes
-(``all_gather``, ``reduce_scatter``, ``all_reduce``): tiled along a
-dimension, as ``jax.lax.all_gather(..., tiled=True)`` and
-``psum_scatter(..., tiled=True)``; axes of size 1 are left out, and a
-collective over none is the identity.
+(``all_gather``, ``reduce_scatter``, ``all_reduce``, ``all_to_all``):
+tiled along a dimension, as ``jax.lax.all_gather(..., tiled=True)``,
+``psum_scatter(..., tiled=True)`` and ``all_to_all(..., tiled=True)``;
+axes of size 1 are left out, and a collective over none is the identity.
+Over several axes the ranks are ordered as the reference orders them,
+``d · M + m``: the world group's own order.
 
 The gloo backend takes every one of these collectives on CUDA tensors
 (the card's torch 2.11, ``tools/multirank_probe.py``; gloo copies through
 host memory itself), so ranks that share a card run them as they are.
-``ledger`` counts each collective's calls, bytes in and host wall seconds.
+``ledger`` counts each collective's calls, bytes in and host wall seconds;
+``dispatch`` counts the MoE dispatches over the mesh (``models.ffn``): calls,
+routed (token, slot) pairs and pairs dropped at capacity.
 """
 from __future__ import annotations
 
@@ -47,6 +51,7 @@ class LocalMesh:
     groups: dict = field(default_factory=dict, repr=False, compare=False)
     backend: str | None = None             # None: one rank, no process group
     ledger: dict = field(default_factory=dict, repr=False, compare=False)
+    dispatch: dict = field(default_factory=dict, repr=False, compare=False)
 
     @property
     def world(self) -> int:
@@ -119,6 +124,19 @@ class LocalMesh:
             dist.all_reduce(o, op=red, group=g)
 
         return self._run("all_reduce", run, x.contiguous(), tuple(x.shape))
+
+    def all_to_all(self, x: torch.Tensor, axes) -> torch.Tensor:
+        """Block ``j`` of ``x``'s dimension 0 goes to the ``j``-th rank over
+        ``axes`` and this rank's block of every rank comes back in rank
+        order (``jax.lax.all_to_all(x, axes, 0, 0, tiled=True)``).  Raises
+        ``ValueError`` where the ranks do not divide dimension 0."""
+        g, n = self.group(axes), self.size(axes)
+        if g is None:
+            return x
+        if x.shape[0] % n:
+            raise ValueError(f"all_to_all of {x.shape[0]} rows over {n} ranks")
+        return self._run("all_to_all", lambda o, i: dist.all_to_all_single(o, i, group=g),
+                         x.contiguous(), tuple(x.shape))
 
 
 def _all_gather(out, inp, group) -> None:

@@ -26,7 +26,9 @@ ring never fills, so ``local_decode`` has no capacity to refuse.
 MLA (deepseek's multi-head latent attention, ``mla_*``) caches only the
 latent ``c_kv`` and the shared rotary key ``k_rope`` and decodes in absorbed
 form, in the latent space; its cache takes the same ``len``, in-place
-writes and full-cache refusal as the GQA cache.
+writes and full-cache refusal as the GQA cache, and across ranks the same
+sequence split: ``max_len / M`` positions a rank, every head attended over
+the rank's chunk, the partials LSE-combined.
 
 Cross attention (the encoder-decoder's ``cross`` blocks) reads an encoder
 memory without rope: ``gqa_apply(memory=)`` for prefill, and at decode
@@ -433,7 +435,9 @@ def mla_apply(p, x_sp, ctx: MeshCtx, cfg: ModelConfig, *, return_latent=False):
 
 
 def mla_init_cache(cfg: ModelConfig, ctx: MeshCtx, batch: int, max_len: int, device=None):
-    """A zeroed latent cache of ``max_len`` positions."""
+    """A zeroed latent cache of this rank's ``max_len // M`` positions
+    (zeros, never ``torch.empty``: an empty chunk still enters
+    ``combine_partials``, which multiplies it by 0)."""
     tc = max_len // ctx.model_size
     return {
         "c_kv": torch.zeros((batch, tc, cfg.kv_lora), dtype=torch.bfloat16, device=device),
@@ -444,48 +448,63 @@ def mla_init_cache(cfg: ModelConfig, ctx: MeshCtx, batch: int, max_len: int, dev
 
 
 def mla_fill_cache(cache, c_kv, k_rope, ctx: MeshCtx):
-    """Write a prefill's latents into a zeroed cache, in place; positions
-    past the prompt stay zero (decode masks them)."""
+    """Write this rank's chunk ``[midx·tc, (midx+1)·tc)`` of a prefill's
+    latents (B, T, ·), over the whole prompt, into a zeroed cache, in place;
+    ``len`` is the whole prompt's length T.  Positions past the prompt stay
+    zero (decode masks them)."""
     tc = cache["c_kv"].shape[1]
     t = c_kv.shape[1]
-    if t > tc:
-        raise ValueError(f"prefill of {t} positions into a cache of {tc}")
-    cache["c_kv"][:, :t] = c_kv.to(torch.bfloat16)
-    cache["k_rope"][:, :t] = k_rope.to(torch.bfloat16)
+    if t > tc * ctx.model_size:
+        raise ValueError(f"prefill of {t} positions into a cache of {tc * ctx.model_size}")
+    start = ctx.midx() * tc
+    n = min(max(t - start, 0), tc)
+    cache["c_kv"][:, :n] = c_kv[:, start:start + n].to(torch.bfloat16)
+    cache["k_rope"][:, :n] = k_rope[:, start:start + n].to(torch.bfloat16)
     return {"c_kv": cache["c_kv"], "k_rope": cache["k_rope"], "len": t}
 
 
 def mla_decode(p, x, cache, ctx: MeshCtx, cfg: ModelConfig):
-    """Absorbed one-token decode against the latent cache.  x: (B, 1, d).
+    """Absorbed one-token decode against the latent cache.  x: (B, 1, d),
+    replicated over 'model'.
 
-    ``q_nope`` is absorbed into the latent through ``wkv_b[..., :nope]``;
-    scores are taken against ``c_kv`` and ``k_rope``, and the attended
-    latent is expanded through ``wkv_b[..., nope:]`` before ``wo``.  The
-    new latents go into slot ``len`` of ``cache`` in place.  Raises
-    ``ValueError`` when the cache is full, where the reference writes at
-    ``len`` modulo the cache's length, over its oldest position."""
+    ``q_nope`` of this rank's heads is absorbed into the latent through
+    ``wkv_b[..., :nope]``; the absorbed queries and ``q_rope`` are
+    all-gathered to every head.  The new latents are computed on every rank
+    and written in place into slot ``len`` only by the rank whose chunk
+    holds that position.  Each rank scores every head against ``c_kv`` and
+    ``k_rope`` over its chunk, the partials are LSE-combined across ranks,
+    and each rank expands its head slice of the attended latent through its
+    ``wkv_b[..., nope:]`` columns and ``wo`` rows, psummed over 'model'.
+    Raises ``ValueError`` when the cache is full, where the reference writes
+    at ``len`` modulo the cache's length, over its oldest position."""
     B = x.shape[0]
     nope, rpe, vd, lora = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim, cfg.kv_lora
+    M, midx = ctx.model_size, ctx.midx()
     pos = cache["len"]
     tc = cache["c_kv"].shape[1]
-    if pos >= tc:
-        raise ValueError(f"latent cache full: position {pos} of a {tc}-position cache")
+    if pos >= tc * M:
+        raise ValueError(f"latent cache full: position {pos} of a {tc * M}-position cache")
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
-    q_nope, q_rope = _mla_q(p, x, cfg, positions)             # (B, H, 1, ·)
+    q_nope, q_rope = _mla_q(p, x, cfg, positions)             # (B, Hl, 1, ·)
     c_new, kr_new = _mla_latent(p, x, cfg, positions)
 
     kvb = p["wkv_b"].reshape(lora, -1, nope + vd)
-    wb_k, wb_v = kvb[..., :nope], kvb[..., nope:]              # (lora, H, ·)
-    q_lat = einsum("bhqe,lhe->bhql", q_nope, wb_k)             # (B, H, 1, lora)
+    wb_k, wb_v = kvb[..., :nope], kvb[..., nope:]              # (lora, Hl, ·)
+    q_lat = einsum("bhqe,lhe->bhql", q_nope, wb_k)             # (B, Hl, 1, lora)
+    if M > 1:       # every head everywhere: the head shards of one token
+        q_lat = ctx.comm().all_gather(q_lat, ctx.m, dim=1)
+        q_rope = ctx.comm().all_gather(q_rope, ctx.m, dim=1)
 
     c_c, r_c = cache["c_kv"], cache["k_rope"]
-    c_c[:, pos:pos + 1] = c_new.to(torch.bfloat16)
-    r_c[:, pos:pos + 1] = kr_new.to(torch.bfloat16)
+    if pos // tc == midx:           # this rank owns the position
+        lp = pos - midx * tc
+        c_c[:, lp:lp + 1] = c_new.to(torch.bfloat16)
+        r_c[:, lp:lp + 1] = kr_new.to(torch.bfloat16)
 
     scale = 1.0 / np.sqrt(nope + rpe)
     s = (einsum("bhql,btl->bhqt", q_lat, c_c)
          + einsum("bhqr,btr->bhqt", q_rope, r_c)).float() * scale
-    mask = torch.arange(tc, device=x.device) <= pos
+    mask = midx * tc + torch.arange(tc, device=x.device) <= pos
     s = torch.where(mask[None, None, None], s, -1e30)
     m = s.amax(-1)
     pw = torch.exp(s - m[..., None])
@@ -493,7 +512,8 @@ def mla_decode(p, x, cache, ctx: MeshCtx, cfg: ModelConfig):
     num = einsum("bhqt,btl->bhql", pw.to(c_c.dtype), c_c).float()
     out_lat = combine_partials(num, m, l, ctx)                 # (B, H, 1, lora)
 
-    H = out_lat.shape[1]
-    v_out = einsum("bhql,lhe->bhqe", out_lat, wb_v)            # (B, H, 1, vd)
-    o = matmul(v_out.transpose(1, 2).reshape(B, 1, H * vd), p["wo"])
-    return o, {"c_kv": c_c, "k_rope": r_c, "len": pos + 1}
+    hpr = out_lat.shape[1] // M
+    ol = out_lat[:, midx * hpr:(midx + 1) * hpr]
+    v_out = einsum("bhql,lhe->bhqe", ol, wb_v)                 # (B, Hl, 1, vd)
+    o = matmul(v_out.transpose(1, 2).reshape(B, 1, hpr * vd), p["wo"])
+    return psum_model(o, ctx), {"c_kv": c_c, "k_rope": r_c, "len": pos + 1}

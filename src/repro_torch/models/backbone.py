@@ -27,17 +27,21 @@ reference's ``(x, aux)``.  With ``remat`` (the default, as the reference's
 under ``torch.utils.checkpoint`` and is recomputed in the backward
 (serving records nothing, so it runs the layers as they are).
 
-Across ranks (a ``MeshCtx`` above one rank) the dense family trains as the
-reference's does: the residual stream sequence-sharded over 'model'
-between blocks (``forward`` takes this rank's (B, T/M) tokens), the
-embedding and the logits vocab-sharded (``embed_tokens``, ``ce_loss``
-with ``pmax_const`` and scalar psums), Q/O head-sharded and the MLP split
-column / row; and serves as the reference's decode does: the one-token
-stream replicated over 'model' (``embed_tokens(seq_sharded=False)``),
-the greedy token a distributed argmax over the vocab shards
-(``greedy_token``).  Every other block kind, the frontends and the encoder
-raise ``NotImplementedError`` above one rank, naming the later sub-item
-of ROADMAP Queue A item 15 that brings them.
+Across ranks (a ``MeshCtx`` above one rank) the dense and MoE families
+train as the reference's do: the residual stream sequence-sharded over
+'model' between blocks (``forward`` takes this rank's (B, T/M) tokens),
+the embedding and the logits vocab-sharded (``embed_tokens``, ``ce_loss``
+with ``pmax_const`` and scalar psums), Q/O (and MLA's ``wq_b`` /
+``wkv_b`` / ``wo``) head-sharded, the MLP split column / row, and the
+routed experts spread over the whole ('data', 'model') world with their
+tokens dispatched by all-to-all (``ffn.moe_apply``, the mesh's 'data'
+size its ``ep_data_size``); and serve as the reference's decode does: the
+one-token stream replicated over 'model'
+(``embed_tokens(seq_sharded=False)``), the greedy token a distributed
+argmax over the vocab shards (``greedy_token``).  The recurrent block
+kinds, the encoder-decoder and the frontends raise
+``NotImplementedError`` above one rank, naming the later sub-item of
+ROADMAP Queue A item 15 that brings them.
 
 ``ce_loss`` is the reference's chunked cross-entropy with one deliberate
 difference: the reference scans ``T // t_chunk`` whole chunks and so
@@ -70,8 +74,12 @@ from .ssm import ssm_apply, ssm_spec
 
 
 # what a mesh above one rank does not run yet, and the sub-item that brings it
-ACROSS_RANKS_TODO = ("{what} above one rank: ROADMAP Queue A item 15 sub-item 6c (expert "
-                     "parallelism and the other families across ranks)")
+ACROSS_RANKS_TODO = ("{what} above one rank: ROADMAP Queue A item 15 sub-item 6c.{part} "
+                     "(the other families across ranks)")
+# the block kinds that run above one rank, and the sub-item of the others
+ACROSS_RANKS_KINDS = ("attn", "mla_dense", "mla_moe")
+TODO_PART = {"attn_window": "ii", "rglru": "ii", "ssm": "ii", "dec": "iii",
+             "hybrid_period": "ii"}
 
 
 def vocab_pad(cfg: ModelConfig) -> int:
@@ -121,7 +129,8 @@ def embed_inputs(p, tokens, ctx: MeshCtx, cfg: ModelConfig, frontend=None):
     replace them where the token is below 0.  Raises ``ValueError`` where
     ``frontend``'s leading shape is not the tokens'."""
     if frontend is not None and ctx.world > 1:
-        raise NotImplementedError(ACROSS_RANKS_TODO.format(what="the patch frontend"))
+        raise NotImplementedError(ACROSS_RANKS_TODO.format(what="the patch frontend",
+                                                           part="iii"))
     x = embed_tokens(p, tokens.clamp(min=0), ctx, cfg)
     if frontend is None:
         return x
@@ -265,10 +274,11 @@ def make_block_fn(cfg: ModelConfig, ctx: MeshCtx, kind: str, *, memory=None,
     """Returns f(params, x) -> x for train / prefill; with ``with_aux``
     f(params, x) -> (x, aux), aux the MoE block's aux loss and ``None`` for
     every other kind.  A ``dec`` block attends to ``memory`` (B, Tm, d), the
-    encoder's output.  Above one rank only the dense ``attn`` block runs
-    (the others raise ``NotImplementedError``)."""
-    if ctx.world > 1 and kind != "attn":
-        raise NotImplementedError(ACROSS_RANKS_TODO.format(what=f"the {kind!r} block"))
+    encoder's output.  Above one rank the ``attn``, ``mla_dense`` and
+    ``mla_moe`` blocks run (the others raise ``NotImplementedError``)."""
+    if ctx.world > 1 and kind not in ACROSS_RANKS_KINDS:
+        raise NotImplementedError(ACROSS_RANKS_TODO.format(what=f"the {kind!r} block",
+                                                           part=TODO_PART[kind]))
 
     def attn_block(p, x):
         w = cfg.window if kind == "attn_window" else None
@@ -288,7 +298,7 @@ def make_block_fn(cfg: ModelConfig, ctx: MeshCtx, kind: str, *, memory=None,
 
     def mla_moe_block(p, x):
         x = x + mla_apply(p["attn"], apply_norm(p["ln1"], x, cfg), ctx, cfg)
-        y, aux = moe_apply(p["moe"], apply_norm(p["ln2"], x, cfg), ctx, cfg, 1)
+        y, aux = moe_apply(p["moe"], apply_norm(p["ln2"], x, cfg), ctx, cfg, ctx.data_size)
         return x + y, aux
 
     def ssm_block(p, x):
@@ -412,7 +422,7 @@ def encode(params, enc_embeds, ctx: MeshCtx, cfg: ModelConfig, remat: bool = Tru
     the frames cast to the parameters' dtype, non-causal ``attn`` blocks
     (rope over the frame positions), then the encoder's own norm."""
     if ctx.world > 1:
-        raise NotImplementedError(ACROSS_RANKS_TODO.format(what="the encoder"))
+        raise NotImplementedError(ACROSS_RANKS_TODO.format(what="the encoder", part="iii"))
     fn = make_block_fn(cfg, ctx, "attn", causal=False, with_aux=True)
     x = enc_embeds.to(params["enc"]["norm"]["scale"].dtype)
     x, _ = _run_layers(fn, group_layers(params["enc"]["layers"], cfg.n_enc_layers, True), x,

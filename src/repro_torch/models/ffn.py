@@ -7,26 +7,63 @@ all-gather / reduce-scatter pair.
 MoE: the reference (``repro.models.ffn``) shards experts over the combined
 ('data', 'model') axis and routes tokens with a capacity-bounded
 ``all_to_all``; every local expert then runs its three GEMMs over all
-``world · cap`` slots and masks the result.  On one card the expert-parallel
-world is 1 and ``cap = ceil(1.25 · N · k) + 4 >= N · k``, so no slot is
-dropped, and the port gathers each expert's routed rows instead: the N · k
-(token, slot) pairs are stable-sorted by expert, the per-expert counts are
-read to the host once a call (one sync), each expert with rows runs its
-three GEMMs on its own rows only, the outputs go back through the inverse
-permutation into (N, k, d), and the top-k weights combine them in the
-reference's order, ``(y · topw).sum(1)``.  The router runs in float32
-(softmax, top-k, renormalisation by ``max(sum, 1e-9)``) and the switch-style
-aux loss is returned, equal to the reference's.
+``world · cap`` slots and masks the result.  The router runs in float32
+(softmax, top-k, renormalisation by ``max(sum, 1e-9)``) and the
+switch-style aux loss is returned, equal to the reference's.
+
+On one card the expert-parallel world is 1 and ``cap = ceil(1.25 · N · k)
++ 4 >= N · k``, so no slot is dropped, and the port gathers each expert's
+routed rows instead: the N · k (token, slot) pairs are stable-sorted by
+expert, the per-expert counts are read to the host once a call (one
+sync), each expert with rows runs its three GEMMs on its own rows only,
+the outputs go back through the inverse permutation into (N, k, d), and
+the top-k weights combine them in the reference's order,
+``(y · topw).sum(1)``.
+
+Above one rank (``_moe_dispatch``) the reference's dispatch is kept pair
+for pair: the aux loss's counts psummed over the world, ``cap = ceil(Nt ·
+k / world · capacity_factor) + 4`` with Nt the local rows, each owned
+(token, slot) pair's place in its destination by a running count in
+(token, slot) order, pairs past ``cap`` dropped (they add zero), the
+``(world, cap, d)`` send buffer and its expert ids out by one tiled
+all-to-all each, the outputs home by the inverse one.  Two deliberate
+differences:
+
+* expert ``e`` runs on rank ``e // n_local`` as its local expert ``e %
+  n_local``, where ``moe_spec``'s contiguous ('data', 'model') blocks put
+  its weights.  The reference sends it to rank ``e % world`` and runs it
+  there as local expert ``e // world``: whenever ``n_local > 1`` expert
+  ``e`` computes with another expert's weights (a pad row, where the
+  experts are padded), so a mesh computes another function than one rank
+  (Queue C);
+* on the receiving rank each local expert runs its three GEMMs on its own
+  received rows only (sorted by local expert, the counts read to the host
+  once a call, as on one card), not over all ``world · cap`` slots masked.
+
+The mesh's ``dispatch`` ledger (``launch.mesh.LocalMesh``) counts the calls
+above one rank, the owned pairs they routed and those dropped at capacity
+(a layer recomputed under remat counts again).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from .config import ModelConfig
-from .layers import MeshCtx, act_fn, ag_seq, matmul, pad_to, psum_model, rs_seq
+from .layers import (
+    EP_AXES,
+    MeshCtx,
+    act_fn,
+    ag_seq,
+    all_to_all_ep,
+    matmul,
+    pad_to,
+    psum_ep,
+    psum_model,
+    rs_seq,
+)
 from .spec import P
-
-EP_AXES = ("data", "model")  # the reference's expert-parallel world
 
 
 # --------------------------------------------------------------------------
@@ -74,13 +111,22 @@ def padded_experts(cfg: ModelConfig, ctx: MeshCtx) -> int:
 
 
 def moe_spec(cfg: ModelConfig, ctx: MeshCtx) -> dict:
+    """The reference's spec.  Where the experts are padded, their leaves
+    are drawn at ``n_experts`` rows and zero-padded (``logical``), so the pad
+    rows are zero and one seed gives one model on every mesh; the reference
+    draws its pad rows at random."""
     d, ffm = cfg.d_model, cfg.moe_d_ff
-    e_pad = padded_experts(cfg, ctx)
+    E, e_pad = cfg.n_experts, padded_experts(cfg, ctx)
+
+    def expert(shape):
+        return P((e_pad,) + shape, (EP_AXES, None, None),
+                 logical=(E,) + shape if e_pad != E else None)
+
     spec = {
         "router": P((d, cfg.n_experts), (None, None), dtype=torch.float32),
-        "we_gate": P((e_pad, d, ffm), (EP_AXES, None, None)),
-        "we_up": P((e_pad, d, ffm), (EP_AXES, None, None)),
-        "we_down": P((e_pad, ffm, d), (EP_AXES, None, None)),
+        "we_gate": expert((d, ffm)),
+        "we_up": expert((d, ffm)),
+        "we_down": expert((ffm, d)),
     }
     if cfg.n_shared_experts:
         spec.update({
@@ -107,10 +153,11 @@ def balanced_routes(rows: int, n_experts: int) -> list:
     return [q + (e < r) for e in range(n_experts)]
 
 
-def _moe_core(p, x, cfg: ModelConfig, ctx: MeshCtx, ep_data_size: int):
-    """Route every token of x (N, d) through its experts (on one card each
-    token is this rank's: the reference's ``owned`` mask is all true).
-    Returns (y (N, d), aux loss).
+def _moe_core(p, x, owned, cfg: ModelConfig, ctx: MeshCtx, ep_data_size: int):
+    """Route the owned tokens of x (N, d) through their experts; ``owned``
+    (N,) bool marks the rows this rank owns (on one rank every row).
+    Returns (y (N, d), valid where owned, aux loss).  Above one rank see
+    ``_moe_dispatch``.
 
     On ``meta`` tensors (the dry run, ``repro_torch.launch.cells``), which
     hold no values to count, the experts take ``balanced_routes`` of the
@@ -119,8 +166,7 @@ def _moe_core(p, x, cfg: ModelConfig, ctx: MeshCtx, ep_data_size: int):
     its capacity-padded dispatch instead (every local expert over
     ``world · cap`` masked slots), so the two counts differ by design."""
     if ep_data_size * ctx.model_size != 1:
-        raise NotImplementedError("expert parallelism above one rank: ROADMAP Queue A item "
-                                  "15 sub-item 6c (the all_to_all over ('data', 'model'))")
+        return _moe_dispatch(p, x, owned, cfg, ctx, ep_data_size)
     N, d = x.shape
     E, k = cfg.n_experts, cfg.moe_top_k
     probs, topw, topi = _route(p, x, cfg)
@@ -149,10 +195,88 @@ def _moe_core(p, x, cfg: ModelConfig, ctx: MeshCtx, ep_data_size: int):
     return y, aux
 
 
+def _moe_dispatch(p, x, owned, cfg: ModelConfig, ctx: MeshCtx, ep_data_size: int):
+    """``_moe_core`` above one rank: the reference's capacity-bounded
+    dispatch over the ('data', 'model') world with the port's expert
+    placement (module docstring).  x (Nt, d) this rank's rows, ``owned``
+    (Nt,) bool: every logical token is owned by exactly one rank."""
+    world = ep_data_size * ctx.model_size
+    if ep_data_size != ctx.data_size:
+        raise ValueError(f"ep_data_size {ep_data_size} on a mesh of 'data' {ctx.data_size}: "
+                         "the expert-parallel world is the whole mesh")
+    if x.device.type == "meta":
+        raise NotImplementedError("the MoE dispatch on meta tensors above one rank: ROADMAP "
+                                  "Queue A item 15 sub-item 6d (the dry run across cards)")
+    Nt, d = x.shape
+    E, k = cfg.n_experts, cfg.moe_top_k
+    n_local = p["we_gate"].shape[0]
+    dev = x.device
+    probs, topw, topi = _route(p, x, cfg)
+    flat_e = topi.reshape(-1)
+    ownf = owned.float()
+    valid = owned.repeat_interleave(k)
+
+    # the aux loss's owned counts, expert loads and mean probabilities, summed
+    # over the world in one all-reduce (only the probabilities carry gradient)
+    load = torch.zeros(E, dtype=torch.float32, device=dev).index_add_(0, flat_e, valid.float())
+    summed = psum_ep(torch.cat([ownf.sum()[None], load, (probs * ownf[:, None]).sum(0)]), ctx)
+    n_owned = torch.clamp(summed[0], min=1.0)
+    frac = summed[1:1 + E] / (n_owned * k)
+    pbar = summed[1 + E:] / n_owned
+    aux = E * torch.sum(frac * pbar)
+
+    # each pair's slot in its destination: a running count in (token, slot) order
+    cap = int(np.ceil(Nt * k / world * cfg.capacity_factor)) + 4
+    dest = flat_e // n_local
+    onehot = F.one_hot(dest, world) * valid[:, None]
+    pos = ((onehot.cumsum(0) - 1) * onehot).sum(-1)
+    keep = valid & (pos < cap)
+    slot = torch.where(keep, dest * cap + pos, world * cap)     # world · cap: a dump row
+    tok = torch.arange(Nt * k, device=dev) // k
+    send = x.new_zeros(world * cap + 1, d).index_add(0, slot, x[tok])[:-1]
+    ids = torch.full((world * cap + 1,), -1, dtype=torch.int32, device=dev).scatter(
+        0, slot, flat_e.to(torch.int32))[:-1]
+
+    recv = all_to_all_ep(send, ctx)                              # (world · cap, d)
+    recv_e = ctx.comm().all_to_all(ids, EP_AXES)
+    rk = ctx.comm().index("data") * ctx.model_size + ctx.midx()
+    lidx = torch.where(recv_e >= 0, recv_e.long() - rk * n_local, n_local)
+    order = torch.argsort(lidx, stable=True)
+    counts = torch.bincount(lidx, minlength=n_local + 1)
+    tally = torch.stack([valid.sum(), (valid & ~keep).sum()])
+    *counts, _, n_pairs, n_dropped = torch.cat([counts, tally]).tolist()   # the one host sync
+    led = ctx.comm().dispatch
+    for key, n in (("calls", 1), ("pairs", n_pairs), ("dropped", n_dropped)):
+        led[key] = led.get(key, 0) + n
+
+    # each local expert's three GEMMs on its own received rows.  ``rows[:0]``
+    # keeps the received rows in the autograd graph where no expert of this
+    # rank got a row: every rank must record (and so run backward) the same
+    # collectives, in the same order
+    n_valid = sum(counts)
+    rows = recv[order[:n_valid]]
+    parts, start = [rows[:0]], 0
+    for e, n in enumerate(counts):
+        if n:
+            xe = rows[start:start + n]
+            h = act_fn(cfg, matmul(xe, p["we_gate"][e]), matmul(xe, p["we_up"][e]))
+            parts.append(matmul(h, p["we_down"][e]).to(rows.dtype))
+        start += n
+    out = recv.new_zeros(world * cap, d).index_copy(0, order[:n_valid], torch.cat(parts))
+
+    back = all_to_all_ep(out, ctx)
+    y_flat = torch.cat([back, back.new_zeros(1, d)])[slot]      # dropped pairs: zero
+    y = (y_flat.reshape(Nt, k, d) * topw[..., None].to(x.dtype)).sum(1)
+    return y, aux
+
+
 def moe_apply(p, x_sp, ctx: MeshCtx, cfg: ModelConfig, ep_data_size: int):
-    """Train / prefill: x_sp (B, T, d) -> (y (B, T, d), aux loss)."""
+    """Train / prefill: x_sp (B, T/M, d), this rank's sequence chunk (every
+    row owned) -> (y (B, T/M, d), aux loss).  The shared experts run on the
+    dense tensor-parallel path."""
     B, Ts, d = x_sp.shape
-    y, aux = _moe_core(p, x_sp.reshape(B * Ts, d), cfg, ctx, ep_data_size)
+    owned = torch.ones(B * Ts, dtype=torch.bool, device=x_sp.device)
+    y, aux = _moe_core(p, x_sp.reshape(B * Ts, d), owned, cfg, ctx, ep_data_size)
     y = y.reshape(B, Ts, d)
     if cfg.n_shared_experts:
         xg = ag_seq(x_sp, ctx)
@@ -162,11 +286,18 @@ def moe_apply(p, x_sp, ctx: MeshCtx, cfg: ModelConfig, ep_data_size: int):
 
 
 def moe_decode(p, x, ctx: MeshCtx, cfg: ModelConfig, ep_data_size: int):
-    """Decode: x (B, 1, d) -> (y (B, 1, d), aux loss)."""
+    """Decode: x (B, 1, d), replicated over 'model' -> (y (B, 1, d), aux
+    loss).  Batch row ``b`` is owned by 'model' rank ``b % M``; each rank's
+    ``y`` is zero off its rows and psummed over 'model', as are the shared
+    experts' partial products."""
     B, _, d = x.shape
-    y, aux = _moe_core(p, x.reshape(B, d), cfg, ctx, ep_data_size)
+    M = ctx.model_size
+    owned = torch.arange(B, device=x.device) % M == ctx.midx()
+    y, aux = _moe_core(p, x.reshape(B, d), owned, cfg, ctx, ep_data_size)
+    if M > 1:
+        y = psum_model(torch.where(owned[:, None], y, 0.0), ctx)
     y = y.reshape(B, 1, d)
     if cfg.n_shared_experts:
         hs = act_fn(cfg, matmul(x, p["ws_gate"]), matmul(x, p["ws_up"]))
-        y = y + matmul(hs, p["ws_down"])
+        y = y + psum_model(matmul(hs, p["ws_down"]), ctx)
     return y, aux

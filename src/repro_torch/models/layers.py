@@ -13,7 +13,10 @@ check_vma=False)``: the gradient a rank gets is that of the sum of every
 rank's objective.  So ``ag_seq`` (all-gather) and ``rs_seq``
 (reduce-scatter) are each other's transpose, ``psum_model``'s transpose is
 itself (a psum of the cotangents, not the identity), and ``pmax_const`` is
-a constant (a zero gradient), as the reference's ``custom_jvp``.
+a constant (a zero gradient), as the reference's ``custom_jvp``.  The
+expert-parallel pair, over the combined ('data', 'model') world:
+``all_to_all_ep`` (the tiled all-to-all, its own transpose) and
+``psum_ep``.
 
 ``blockwise_attention`` is the reference's own online-softmax attention
 over a static list of (q-chunk, k-chunk) pairs, in plain torch ops: the
@@ -133,6 +136,22 @@ class _Psum(torch.autograd.Function):
         return mesh.all_reduce(g, axes), None, None
 
 
+class _AllToAll(torch.autograd.Function):
+    """Tiled all-to-all over ``axes`` along dimension 0; its transpose is
+    the same all-to-all of the cotangents (block ``j`` came from rank
+    ``j``, so its cotangent goes back there)."""
+
+    @staticmethod
+    def forward(fctx, x, mesh, axes):
+        fctx.args = (mesh, axes)
+        return mesh.all_to_all(x, axes)
+
+    @staticmethod
+    def backward(fctx, g):
+        mesh, axes = fctx.args
+        return mesh.all_to_all(g, axes), None, None
+
+
 class _PmaxConst(torch.autograd.Function):
     """Max over ``axes``, a constant under differentiation."""
 
@@ -163,6 +182,25 @@ def psum_model(x: torch.Tensor, ctx: MeshCtx) -> torch.Tensor:
     if ctx.model_size == 1:
         return x
     return _Psum.apply(x, ctx.comm(), ctx.m)
+
+
+# the expert-parallel world: every rank of the mesh (never a 'pod' axis)
+EP_AXES = ("data", "model")
+
+
+def all_to_all_ep(x: torch.Tensor, ctx: MeshCtx) -> torch.Tensor:
+    """(world · c, …) -> (world · c, …): block ``j`` to expert-parallel rank
+    ``j`` (rank ``d · M + m``), every rank's block for this one back."""
+    if ctx.world == 1:
+        return x
+    return _AllToAll.apply(x, ctx.comm(), EP_AXES)
+
+
+def psum_ep(x: torch.Tensor, ctx: MeshCtx) -> torch.Tensor:
+    """Sum over the expert-parallel world; its transpose is itself."""
+    if ctx.world == 1:
+        return x
+    return _Psum.apply(x, ctx.comm(), EP_AXES)
 
 
 def pmax_const(x: torch.Tensor, ctx: MeshCtx) -> torch.Tensor:

@@ -9,7 +9,10 @@ group's layers in Python where the reference runs ``lax.scan``.
 
 Above one rank (``launch.mesh.LocalMesh`` ranks started by
 ``launch.ranks.run_ranks``) the dense family (a plan of ``attn`` blocks)
-is served as the reference's ``shard_map`` serves it: every rank calls the
+and the MoE family (``mla_dense`` and ``mla_moe`` blocks: the latent cache
+sequence-sharded as the KV cache is, the routed experts over the whole
+('data', 'model') world, the mesh's 'data' size their ``ep_data_size``)
+are served as the reference's ``shard_map`` serves them: every rank calls the
 steps with its own parameter shards and the *global* inputs, keeps its rows
 (over ``batch_axes``) and, at prefill, its sequence chunk, and gets back its
 own caches (the blocks of the reference's global caches by ``cache_spec``)
@@ -75,7 +78,9 @@ from repro_torch.models.attention import (
     mla_init_cache,
 )
 from repro_torch.models.backbone import (
+    ACROSS_RANKS_KINDS,
     ACROSS_RANKS_TODO,
+    TODO_PART,
     embed_inputs,
     embed_tokens,
     encode,
@@ -182,9 +187,10 @@ def abstract_cache(cfg: ModelConfig, mesh, batch: int, max_len: int, enc_len: in
 # ---------------------------------------------------------------------------
 
 
-def _prefill_block(cfg, ctx, kind, max_len, *, memory=None):
+def _prefill_block(cfg, ctx, kind, ep_data, max_len, *, memory=None):
     """f(params, x) -> (x, the block's filled cache), for x's rows (this
-    rank's); a ``dec`` block attends to ``memory``, the encoder's output."""
+    rank's); a ``dec`` block attends to ``memory``, the encoder's output;
+    ``ep_data`` is the MoE blocks' ``ep_data_size``."""
     def attn(p, x):
         h, (k, v) = gqa_apply(p["attn"], apply_norm(p["ln1"], x, cfg), ctx, cfg,
                               causal=True, return_kv=True)
@@ -212,7 +218,7 @@ def _prefill_block(cfg, ctx, kind, max_len, *, memory=None):
         h, (c_kv, k_rope) = mla_apply(p["attn"], apply_norm(p["ln1"], x, cfg), ctx, cfg,
                                       return_latent=True)
         x = x + h
-        y, _ = moe_apply(p["moe"], apply_norm(p["ln2"], x, cfg), ctx, cfg, 1)
+        y, _ = moe_apply(p["moe"], apply_norm(p["ln2"], x, cfg), ctx, cfg, ep_data)
         init = mla_init_cache(cfg, ctx, x.shape[0], max_len, device=x.device)
         return x + y, mla_fill_cache(init, c_kv, k_rope, ctx)
 
@@ -240,7 +246,8 @@ def _prefill_block(cfg, ctx, kind, max_len, *, memory=None):
                    "cross": cross_fill_cache(p["cross"], memory, cfg, ctx)}
 
     if kind == "hybrid_period":
-        fns = [_prefill_block(cfg, ctx, hybrid_kind(k), max_len) for k in cfg.pattern]
+        fns = [_prefill_block(cfg, ctx, hybrid_kind(k), ep_data, max_len)
+               for k in cfg.pattern]
 
         def period(p, x):
             cc = {}
@@ -253,8 +260,9 @@ def _prefill_block(cfg, ctx, kind, max_len, *, memory=None):
             "mla_moe": mla_moe, "ssm": ssm, "rglru": rglru, "dec": dec}[kind]
 
 
-def _decode_block(cfg, ctx, kind):
-    """f(params, x, cache) -> (x, the block's next cache)."""
+def _decode_block(cfg, ctx, kind, ep_data):
+    """f(params, x, cache) -> (x, the block's next cache); ``ep_data`` is
+    the MoE blocks' ``ep_data_size``."""
     def attn(p, x, c):
         h, c2 = gqa_decode(p["attn"], apply_norm(p["ln1"], x, cfg), c, ctx, cfg)
         x = x + h
@@ -276,7 +284,7 @@ def _decode_block(cfg, ctx, kind):
     def mla_moe(p, x, c):
         h, c2 = mla_decode(p["attn"], apply_norm(p["ln1"], x, cfg), c, ctx, cfg)
         x = x + h
-        y, _ = moe_decode(p["moe"], apply_norm(p["ln2"], x, cfg), ctx, cfg, 1)
+        y, _ = moe_decode(p["moe"], apply_norm(p["ln2"], x, cfg), ctx, cfg, ep_data)
         return x + y, c2
 
     def ssm(p, x, c):
@@ -297,7 +305,7 @@ def _decode_block(cfg, ctx, kind):
         return x, {"self": c2self, "cross": c["cross"]}     # the cross cache as it was
 
     if kind == "hybrid_period":
-        fns = [_decode_block(cfg, ctx, hybrid_kind(k)) for k in cfg.pattern]
+        fns = [_decode_block(cfg, ctx, hybrid_kind(k), ep_data) for k in cfg.pattern]
 
         def period(p, x, c):
             cc = {}
@@ -377,19 +385,19 @@ def make_serve_fns(cfg: ModelConfig, mesh, *, batch: int, max_len: int,
     Above one rank ``params`` are this rank's shards
     (``models.spec.shard_params``), ``inputs`` and ``tokens`` the global
     batch, ``caches`` this rank's, and the token is global (see the module
-    docstring).  There only a plan of ``attn`` blocks without a frontend is
-    served (the other kinds and ``"frontend"`` raise
-    ``NotImplementedError``, sub-item 6c), T must divide by the 'model'
-    size, and a ``max_len`` that the 'model' size does not divide raises
-    ``ValueError``."""
+    docstring).  There only a plan of ``attn``, ``mla_dense`` and
+    ``mla_moe`` blocks without a frontend is served (the other kinds and
+    ``"frontend"`` raise ``NotImplementedError``, sub-item 6c.ii / 6c.iii),
+    T must divide by the 'model' size, and a ``max_len`` that the 'model'
+    size does not divide raises ``ValueError``."""
     ctx = mesh_ctx(mesh)
     groups = [(f"g{gi}", kind, count, scanned)
               for gi, (kind, count, scanned) in enumerate(layer_plan(cfg)) if count]
     if mesh.world > 1:
         for _, kind, _, _ in groups:
-            if kind != "attn":
-                raise NotImplementedError(
-                    ACROSS_RANKS_TODO.format(what=f"serving the {kind!r} block"))
+            if kind not in ACROSS_RANKS_KINDS:
+                raise NotImplementedError(ACROSS_RANKS_TODO.format(
+                    what=f"serving the {kind!r} block", part=TODO_PART[kind]))
         if max_len % ctx.model_size:
             raise ValueError(
                 f"max_len {max_len} does not divide over a 'model' axis of "
@@ -398,7 +406,8 @@ def make_serve_fns(cfg: ModelConfig, mesh, *, batch: int, max_len: int,
     spec = model_spec(cfg, ctx)
     c_spec = cache_spec(cfg, mesh, batch, max_len, enc_len)
     ba = batch_axes(mesh, batch)
-    decode_fns = {name: _decode_block(cfg, ctx, kind) for name, kind, _, _ in groups}
+    ep_data = ctx.data_size
+    decode_fns = {name: _decode_block(cfg, ctx, kind, ep_data) for name, kind, _, _ in groups}
 
     def rows(x, *rest):
         """This rank's part of a global (B, …) input: its rows over the
@@ -424,7 +433,7 @@ def make_serve_fns(cfg: ModelConfig, mesh, *, batch: int, max_len: int,
             memory = encode(params, enc, ctx, cfg)      # once, for every dec block
         caches = {}
         for name, kind, count, scanned in groups:
-            fn = _prefill_block(cfg, ctx, kind, max_len, memory=memory)
+            fn = _prefill_block(cfg, ctx, kind, ep_data, max_len, memory=memory)
             filled = []
             for j, p in enumerate(group_layers(params[name], count, scanned)):
                 x, c = fn(p, x)

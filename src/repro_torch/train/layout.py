@@ -10,7 +10,11 @@ each block this holder's flat shard or slice, zero past its end.  On one
 rank both are the plain, unpadded layout.  ``to_one_rank`` and
 ``from_one_rank`` carry the parameters and the float states (m, v,
 master, step) between the two, exactly: a checkpoint written on a 2 × 2
-mesh resumes on one rank and the other way round.  int8 states do not
+mesh resumes on one rank and the other way round.  A routed expert's rows
+lie at its own index in both (``models.ffn``'s placement); where the
+expert-parallel world does not divide ``n_experts`` the mesh layout pads
+them with zero rows, which no token reaches and which are dropped on the
+way to one rank.  int8 states do not
 carry (their 256-entry blocks and scales lie over each holder's slice)
 and neither do error-feedback buffers (which leaves are compressed
 depends on the local sizes): both raise ``NotImplementedError`` where

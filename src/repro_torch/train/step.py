@@ -15,8 +15,9 @@ over 'model', labels whole over 'model').  The reference donates
 and returns the same trees (at qwen2-1.5b's full width a second copy of
 the state would be ~50 GB), and frees each microbatch's gradients once
 they are accumulated.  Metrics are 0-d float32 tensors on the device:
-``loss`` and ``aux`` summed over every rank (each rank's ``ce / world``),
-``grad_norm``, ``lr``.
+``loss`` and ``aux`` summed over every rank (each rank's ``ce / world``
+and ``aux / world``: the MoE aux loss is psummed over the expert-parallel
+world, the same on every rank, as ``ce`` is), ``grad_norm``, ``lr``.
 
 ``init_train_state`` draws the global parameters from a seed on every
 rank and keeps this rank's shards; the optimizer state is built on each

@@ -15,8 +15,10 @@ against row ``r``.
 Tasks (``kind``):
 
 * ``coll``: ``ag_seq``, ``rs_seq``, ``psum_model``, ``pmax_const`` (as
-  ``x * pmax_const(x)``) and ``combine_partials`` on a (1, n) mesh: each
-  rank's output and ``jax.grad`` of ``Σ out · cot`` (cotangents per rank);
+  ``x * pmax_const(x)``) and ``combine_partials`` on a (1, n) mesh, and
+  the tiled ``all_to_all`` over ('data', 'model') on the task's ``a2a``
+  mesh: each rank's output and ``jax.grad`` of ``Σ out · cot``
+  (cotangents per rank);
 * ``layers``: ``embed_tokens``, ``ce_loss``, ``gqa_apply`` and
   ``mlp_apply``, each rank's output and gradients of ``Σ out · cot``
   (``ce_loss``: of the loss);
@@ -26,6 +28,13 @@ Tasks (``kind``):
   metrics after it;
 * ``init``: ``init_train_state``'s parameters (seed 0) and the losses of
   ``steps`` steps of ``make_train_step`` on a repeated batch;
+* ``moe_layers``: ``moe_apply`` and ``moe_decode`` (each rank's output,
+  aux loss and ``jax.vjp`` of ``Σ y · cot + aux · cot_aux``, and the
+  pairs its dispatch drops at capacity, counted by the reference's own
+  formula), ``mla_apply`` with its latents (output and gradients), and
+  where the task names ``max_len``, ``mla_fill_cache`` then one
+  ``mla_decode`` a ``xsteps`` entry (outputs and each rank's cache); the
+  weights are given in the reference's placement;
 * ``serve``: the reference's ``BatchScheduler`` on the given global
   parameters and requests (each completion's tokens, ``finished`` and the
   run's counts), then, where the task names a ``prefill`` bucket, that
@@ -116,6 +125,12 @@ def coll(task, inp, out):
         y, g = per_rank(mesh, grad_of(f), (RANKS, RANKS), inp[f"{name}/{op}/x"],
                         inp[f"{name}/{op}/cot"])
         out[f"{name}/{op}/y"], out[f"{name}/{op}/dx"] = np.asarray(y), np.asarray(g)
+
+    a2a_mesh = mesh_of(*task["a2a"])
+    y, g = per_rank(a2a_mesh, grad_of(lambda x: jax.lax.all_to_all(
+        x, ("data", "model"), 0, 0, tiled=True)), (RANKS, RANKS), inp[f"{name}/a2a/x"],
+        inp[f"{name}/a2a/cot"])
+    out[f"{name}/a2a/y"], out[f"{name}/a2a/dx"] = np.asarray(y), np.asarray(g)
 
     def comb(num, m, l):
         return layers.combine_partials(num[0], m[0], l[0], ctx).astype(jnp.float32)[None]
@@ -230,6 +245,102 @@ def init(task, inp, out):
     out[f"{name}/losses"] = np.asarray(losses, np.float64)
 
 
+def dropped_pairs(p, x, owned, cfg, ctx, ep_data_size):
+    """The (token, slot) pairs ``ffn._moe_core`` drops at capacity on this
+    rank: its router, ``cap`` and running count (``ffn.py:107-127``)."""
+    Nt = x.shape[0]
+    k = cfg.moe_top_k
+    world = ep_data_size * ctx.model_size
+    probs = jax.nn.softmax(x.astype(jnp.float32) @ p["router"], axis=-1)
+    _, topi = jax.lax.top_k(probs, k)
+    cap = int(np.ceil(Nt * k / world * cfg.capacity_factor)) + 4
+    valid = jnp.repeat(owned, k)
+    dest = topi.reshape(-1) % world
+    onehot = jax.nn.one_hot(dest, world, dtype=jnp.int32) * valid[:, None].astype(jnp.int32)
+    pos = ((jnp.cumsum(onehot, axis=0) - 1) * onehot).sum(-1)
+    return (valid & (pos >= cap)).sum()
+
+
+def moe_layers(task, inp, out):
+    d, m = task["mesh"]
+    mesh = mesh_of(d, m)
+    ctx = mesh_ctx(mesh)
+    cfg = config(task)
+    name = task["name"]
+    seq, rows = JP("data", "model", None), JP("data", None, None)
+
+    def vjp_body(f):
+        def body(params, xs, cots, cot_aux):
+            outs, pull = jax.vjp(f, params, xs)
+            cot = tuple(c[0] for c in cots) + ((cot_aux,) if len(outs) > len(cots) else ())
+            gp, gx = pull(cot)
+            return (tuple(o[None] for o in outs), jax.tree.map(lambda g: g[None], gp),
+                    gx[None])
+        return body
+
+    def run(key, f, params, x_in, x_spec, cots, p_spec):
+        body = jax.shard_map(vjp_body(f), mesh=mesh,
+                             in_specs=(p_spec, x_spec, (RANKS,) * len(cots), JP()),
+                             out_specs=RANKS, check_vma=False)
+        outs, gp, gx = jax.jit(body)(params, x_in, cots, jnp.float32(task.get("cot_aux", 0.0)))
+        for i, o in enumerate(outs):
+            out[f"{name}/{key}/out{i}"] = np.asarray(o)
+        out[f"{name}/{key}/dx"] = np.asarray(gx)
+        flat(gp, f"{name}/{key}/dp", out)
+
+    if f"{name}/params/moe/router" in inp:
+        p = unflat(inp, f"{name}/params/moe")
+        p_spec = pspecs(ffn.moe_spec(cfg, ctx))
+        for key, x_spec, owned_of in (
+                ("apply", seq, lambda n: jnp.ones(n, bool)),
+                ("decode", rows, lambda n: (jnp.arange(n) % m) == (ctx.midx() if m > 1 else 0))):
+            if f"{name}/x{'' if key == 'apply' else 'dec'}" not in inp:
+                continue
+            xg = inp[f"{name}/x" if key == "apply" else f"{name}/xdec"]
+            fn = ffn.moe_apply if key == "apply" else ffn.moe_decode
+            run(key, lambda pp, xx, fn=fn: fn(pp, xx, ctx, cfg, d), p, xg, x_spec,
+                (inp[f"{name}/cot/{key}"],), p_spec)
+
+            def drops(pp, xx, owned_of=owned_of):
+                xf = xx.reshape(-1, xx.shape[-1])
+                return dropped_pairs(pp, xf, owned_of(xf.shape[0]), cfg, ctx, d)[None]
+
+            out[f"{name}/{key}/dropped"] = np.asarray(per_rank(mesh, drops, (p_spec, x_spec),
+                                                               p, xg))
+    if f"{name}/params/mla/wkv_a" in inp:
+        p = unflat(inp, f"{name}/params/mla")
+        p_spec = pspecs(attention.mla_spec(cfg, ctx))
+        xg = inp[f"{name}/x"]
+
+        def mla(pp, xx):
+            o, (c, kr) = attention.mla_apply(pp, xx, ctx, cfg, return_latent=True)
+            return o, c, kr
+
+        run("mla", mla, p, xg, seq, tuple(inp[f"{name}/cot/{k}"] for k in ("mla", "c_kv",
+                                                                          "k_rope")), p_spec)
+        if "max_len" in task:
+            steps = [inp[f"{name}/xstep{i}"] for i in range(task["n_steps"])]
+
+            def dec(pp, xx, *xs):
+                _, (c, kr) = attention.mla_apply(pp, xx, ctx, cfg, return_latent=True)
+                cache = attention.mla_init_cache(cfg, ctx, c.shape[0], task["max_len"])
+                cache = attention.mla_fill_cache(cache, c, kr, ctx)
+                outs = []
+                for xd in xs:
+                    o, cache = attention.mla_decode(pp, xd, cache, ctx, cfg)
+                    outs.append(o[None])
+                return (tuple(outs), cache["c_kv"].astype(jnp.float32)[None],
+                        cache["k_rope"].astype(jnp.float32)[None])
+
+            body = jax.shard_map(dec, mesh=mesh, in_specs=(p_spec, seq) + (rows,) * len(steps),
+                                 out_specs=RANKS, check_vma=False)
+            outs, c, kr = jax.jit(body)(p, xg, *steps)
+            for i, o in enumerate(outs):
+                out[f"{name}/mla_decode/y{i}"] = np.asarray(o)
+            out[f"{name}/mla_decode/c_kv"] = np.asarray(c)
+            out[f"{name}/mla_decode/k_rope"] = np.asarray(kr)
+
+
 def serve(task, inp, out):
     d, m = task["mesh"]
     mesh = mesh_of(d, m)
@@ -260,7 +371,7 @@ def main():
     out = {}
     for task in json.loads(str(inp.pop("job"))):
         {"coll": coll, "layers": layer_fns, "step": step, "init": init,
-         "serve": serve}[task["kind"]](
+         "serve": serve, "moe_layers": moe_layers}[task["kind"]](
             task, inp, out)
     np.savez(sys.argv[2], **out)
 

@@ -61,8 +61,10 @@ def _grads(out, leaves_, cot):
 
 
 def collectives(dev, n, cases):
-    """Each collective of ``layers`` on a (1, n) mesh: this rank's output
-    and the gradient of ``Σ out · cot`` (its cotangent row)."""
+    """Each collective of ``layers`` on a (1, n) mesh, and the tiled
+    all-to-all on the mesh ``cases["a2a_mesh"]``: this rank's output and
+    the gradient of ``Σ out · cot`` (its cotangent row); with
+    ``cases["moe"]``, ``ffn._moe_core`` over that mesh on this rank's rows."""
     mesh = make_local_mesh(1, n, device=dev)
     ctx = mesh_ctx(mesh)
     r = mesh.rank
@@ -78,6 +80,20 @@ def collectives(dev, n, cases):
         y = f(x)
         (dx,) = _grads(y, [x], torch.from_numpy(cases[op]["cot"][r]))
         out[op] = {"y": y.detach().numpy(), "dx": dx.numpy()}
+    # the tiled all-to-all over the whole world, on a (1, n) or (2, n / 2) mesh
+    a2a_mesh = make_local_mesh(*cases["a2a_mesh"], device=dev)
+    a2a_ctx = mesh_ctx(a2a_mesh)
+    x = torch.from_numpy(cases["a2a"]["x"][r]).requires_grad_(True)
+    y = layers.all_to_all_ep(x, a2a_ctx)
+    (dx,) = _grads(y, [x], torch.from_numpy(cases["a2a"]["cot"][r]))
+    out["a2a"] = {"y": y.detach().numpy(), "dx": dx.numpy()}
+    if "moe" in cases:             # the routed experts over the same world
+        cfg = config("deepseek-v2-236b", {"capacity_factor": 4.0})
+        p = shard_params(cases["moe"]["params"], ffn.moe_spec(cfg, a2a_ctx), a2a_mesh)
+        xs = torch.from_numpy(cases["moe"]["x"][r])
+        y, aux = ffn._moe_core(p, xs, torch.ones(xs.shape[0], dtype=torch.bool), cfg, a2a_ctx,
+                               a2a_mesh.shape["data"])
+        out["moe"] = {"y": y.numpy(), "aux": float(aux)}
     c = {k: torch.from_numpy(v[r]) for k, v in cases["combine"].items()}
     out["combine"] = {"y": layers.combine_partials(c["num"], c["m"], c["l"], ctx).float().numpy()}
     if "vocab" in cases:            # the serving side: whole-vocab logits, the distributed argmax
@@ -162,8 +178,11 @@ def train_steps(dev, tasks):
             synced = _zip_plan(lambda g, pl: sync_gradient(g, pl, mesh), grads, plain)
         loss = mesh.all_reduce(ce / mesh.world, mesh.axis_names)
         # the synced gradients are the same on every data rank: gathered over
-        # 'model' alone, every rank holds them whole
-        over_model = tree_map(lambda x: x.numpy(), gather_params(
+        # 'model' alone, every rank holds them whole (where no leaf is sharded
+        # over 'data', as routed experts are)
+        over_data = []
+        tree_map_p(lambda p: over_data.append("data" in str(p.axes)), bundle.param_spec)
+        over_model = None if any(over_data) else tree_map(lambda x: x.numpy(), gather_params(
             synced, bundle.param_spec, mesh, everywhere=True, axes=("model",)))
         params, opt, metrics = bundle.update(params, opt, grads, ce, aux)
         out = {"loss": float(loss),
@@ -172,9 +191,11 @@ def train_steps(dev, tasks):
                "opt": gather_params(opt, bundle.opt_spec, mesh),
                "metrics": {k: float(v) for k, v in metrics.items()},
                "round_trip": round_trip,
-               "ledger": {k: dict(v) for k, v in mesh.ledger.items()}}
+               "ledger": {k: dict(v) for k, v in mesh.ledger.items()},
+               "dispatch": dict(mesh.dispatch)}
         results[t["name"]] = (dict(out, over_model=over_model) if mesh.rank == 0
-                              else {"ledger": out["ledger"], "over_model": over_model})
+                              else {"ledger": out["ledger"], "over_model": over_model,
+                                    "dispatch": out["dispatch"]})
         dist.barrier()
     return results
 
@@ -282,10 +303,11 @@ def serve(dev, tasks):
         reqs = [Request(rid, prompt, max_new) for rid, prompt, max_new in t["requests"]]
         with torch.no_grad():
             done, stats = sched.run(params, reqs)
+        dispatch = dict(mesh.dispatch)
         res = {"completions": {rid: (c.tokens, c.finished) for rid, c in done.items()},
                "stats": (stats.requests, stats.prefill_tokens, stats.decode_steps,
                          stats.batches),
-               "ledger": {k: dict(v) for k, v in mesh.ledger.items()}}
+               "ledger": {k: dict(v) for k, v in mesh.ledger.items()}, "dispatch": dispatch}
         if t.get("prefill"):
             prompts = [p for _, p, _ in t["requests"] if len(p) == t["prefill"]][:t["batch"]]
             prompts += [prompts[0]] * (t["batch"] - len(prompts))       # pad with a copy
@@ -299,6 +321,84 @@ def serve(dev, tasks):
                 tok2, _ = sv.decode(params, caches, tok[:, None])
             res["decode_token"] = tok2.numpy()
             res["decode_ledger"] = {k: v["calls"] for k, v in mesh.ledger.items()}
+        results[t["name"]] = res
+        dist.barrier()
+    return results
+
+
+EXPERT_LEAVES = ("we_gate", "we_up", "we_down")
+
+
+def _vjp(fn, params, xs, cots):
+    """``fn(params, xs)`` -> outputs; this rank's outputs and the gradients
+    of ``Σ out · cot`` over every output, wrt the parameter leaves and xs."""
+    flat = [(k, v.requires_grad_(True)) for k, v in _leaves(params)]
+    xs = xs.clone().requires_grad_(True)
+    outs = fn(params, xs)
+    wrt = [v for _, v in flat] + [xs]
+    gs = torch.autograd.grad(outs, wrt, allow_unused=True,     # a rank's experts may get no row
+                             grad_outputs=[torch.as_tensor(c, dtype=o.dtype)
+                                           for o, c in zip(outs, cots)])
+    gs = [torch.zeros_like(w) if g is None else g.detach() for g, w in zip(gs, wrt)]
+    return ([o.detach().numpy() for o in outs],
+            {k: g.numpy() for (k, _), g in zip(flat, gs)}, gs[-1].numpy())
+
+
+def moe_layers(dev, tasks):
+    """Each task's MoE and MLA layers on its (data, model) mesh, this rank's
+    shards of the task's global float32 weights (experts in the port's
+    placement): ``moe_apply`` and ``moe_decode`` (outputs, aux, gradients of
+    ``Σ y · cot + aux · cot_aux``, the dispatch counts), ``mla_apply``
+    (output, latents, gradients) and, where the task names ``max_len``,
+    ``mla_fill_cache`` then two ``mla_decode`` steps (outputs and this
+    rank's cache)."""
+    results = {}
+    for t in tasks:
+        d, m = t["mesh"]
+        mesh = make_local_mesh(d, m, device=dev)
+        ctx = mesh_ctx(mesh)
+        cfg = config(t["arch"], t.get("scale"))
+        r = mesh.rank
+        res = {}
+        seq, rows = ("data", "model", None), ("data", None, None)
+        if "moe" in t["params"]:
+            p = shard_params(t["params"]["moe"], ffn.moe_spec(cfg, ctx), mesh)
+            for key, fn, x, spec in (
+                    ("apply", ffn.moe_apply, t["x"], seq),
+                    ("decode", ffn.moe_decode, t.get("xdec"), rows)):
+                if x is None:
+                    continue
+                xs = torch.from_numpy(np.ascontiguousarray(block(x, mesh, spec)))
+                mesh.dispatch.clear()
+                (y, aux), dp, dx = _vjp(lambda pp, xx: fn(pp, xx, ctx, cfg, d), p, xs,
+                                        (t["cot"][key][r], t["cot_aux"]))
+                res[key] = {"y": y, "aux": float(aux), "dp": dp, "dx": dx,
+                            "dispatch": dict(mesh.dispatch)}
+        if "mla" in t["params"]:
+            p = shard_params(t["params"]["mla"], attention.mla_spec(cfg, ctx), mesh)
+            xs = torch.from_numpy(np.ascontiguousarray(block(t["x"], mesh, seq)))
+
+            def mla(pp, xx):
+                o, (c, kr) = attention.mla_apply(pp, xx, ctx, cfg, return_latent=True)
+                return o, c, kr
+
+            (o, c, kr), dp, dx = _vjp(mla, p, xs, (t["cot"]["mla"][r], t["cot"]["c_kv"][r],
+                                                   t["cot"]["k_rope"][r]))
+            res["mla"] = {"y": o, "c_kv": c, "k_rope": kr, "dp": dp, "dx": dx}
+            if t.get("max_len"):
+                with torch.no_grad():
+                    xp = torch.from_numpy(np.ascontiguousarray(block(t["x"], mesh, seq)))
+                    _, (c, kr) = attention.mla_apply(p, xp, ctx, cfg, return_latent=True)
+                    cache = attention.mla_init_cache(cfg, ctx, c.shape[0], t["max_len"])
+                    cache = attention.mla_fill_cache(cache, c, kr, ctx)
+                    outs = []
+                    for xd in t["xsteps"]:
+                        xd = torch.from_numpy(np.ascontiguousarray(block(xd, mesh, rows)))
+                        o, cache = attention.mla_decode(p, xd, cache, ctx, cfg)
+                        outs.append(o.numpy())
+                res["mla_decode"] = {"y": outs, "c_kv": cache["c_kv"].float().numpy(),
+                                     "k_rope": cache["k_rope"].float().numpy(),
+                                     "len": cache["len"]}
         results[t["name"]] = res
         dist.barrier()
     return results

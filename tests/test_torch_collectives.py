@@ -1,12 +1,15 @@
 """The collectives across ranks (``repro_torch.models.layers``: ``ag_seq``,
-``rs_seq``, ``psum_model``, ``pmax_const``, ``combine_partials``) against
-the reference's inside ``jax.shard_map(..., check_vma=False)`` on 2 and 4
-fake CPU devices (``tests/_jax_mesh_ref.py``), forward and backward; the
-serving side's whole-vocab logits (``backbone.vocab_logits``) and
-distributed argmax (``greedy_token``) on every rank against one rank's;
-the rank launcher (``launch.ranks``) and the mesh (``launch.mesh``); and
-the paths outside this slice, which raise above one rank naming their
-sub-item of ROADMAP Queue A item 15.
+``rs_seq``, ``psum_model``, ``pmax_const``, ``combine_partials``, and the
+expert-parallel ``all_to_all_ep`` over ('data', 'model') on (1, 2) and
+(2, 2)) against the reference's inside ``jax.shard_map(...,
+check_vma=False)`` on 2 and 4 fake CPU devices
+(``tests/_jax_mesh_ref.py``), forward and backward; the serving side's
+whole-vocab logits (``backbone.vocab_logits``) and distributed argmax
+(``greedy_token``) on every rank against one rank's; the routed experts'
+dispatch (``ffn._moe_core``) on those meshes against one rank's; the rank
+launcher (``launch.ranks``) and the mesh (``launch.mesh``); and the paths
+outside the ported ones, which raise above one rank naming their sub-item
+of ROADMAP Queue A item 15.
 
 The port's ranks run as gloo processes on the CPU, a group of 2 and one of
 4 for the module.  Each rank's output and its gradient of
@@ -19,7 +22,10 @@ Tolerances, stated before the first run: outputs and gradients within
 1e-6 of their largest magnitude (float32 sums of up to 4 terms in another
 order); ``combine_partials`` returns bfloat16, within one bfloat16 step of
 its largest magnitude (2^-8); the whole-vocab logits within 1e-6 of one
-rank's (the same float32 products, in shards), their argmax equal.
+rank's (the same float32 products, in shards), their argmax equal; the
+experts' outputs within 1e-5 of their largest magnitude of one rank's
+(at a capacity factor of 4, which no destination can overflow), the aux
+loss within 1e-5 relative.
 """
 import json
 import os
@@ -43,7 +49,8 @@ from repro_torch.serve.engine import make_serve_fns
 
 ROOT = Path(__file__).resolve().parents[1]
 NS = (2, 4)
-OPS = ("ag", "rs", "psum", "pmax", "combine")
+OPS = ("ag", "rs", "psum", "pmax", "combine", "a2a")
+A2A_MESH = {2: (1, 2), 4: (2, 2)}
 VOCAB = 500
 
 
@@ -59,7 +66,21 @@ def cases(n, rng):
         # the serving side (port only): a vocab of 500 padded to 512, so the
         # last rank's shard ends in padding columns
         "vocab": {"vocab": np.int64(VOCAB), "tok": f(512, 128), "x": f(3, 1, 128)},
+        "a2a": {"x": f(n, 3 * n, 4), "cot": f(n, 3 * n, 4)},
+        "a2a_mesh": A2A_MESH[n],
+        # the routed experts (port only): deepseek-v2's smoke experts, 8 rows a rank
+        "moe": {"params": moe_params(rng), "x": f(n, 8, MOE.d_model)},
     }
+
+
+MOE = get_smoke_config("deepseek-v2-236b").scaled(capacity_factor=4.0)
+
+
+def moe_params(rng):
+    spec = ffn.moe_spec(MOE, MeshCtx())
+    return {k: (rng.standard_normal(p.shape) / np.sqrt(p.shape[-2] if len(p.shape) > 1
+                                                      else 1)).astype(np.float32)
+            for k, p in spec.items()}
 
 
 @pytest.fixture(scope="module")
@@ -67,9 +88,9 @@ def runs(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("collectives")
     rng = np.random.default_rng(5)
     inputs = {n: cases(n, rng) for n in NS}
-    arrays = {f"c{n}/{op}/{k}": v for n in NS for op, kv in inputs[n].items()
-              for k, v in kv.items() if op in OPS}
-    job = [{"kind": "coll", "name": f"c{n}", "n": n} for n in NS]
+    arrays = {f"c{n}/{op}/{k}": v for n in NS for op, kv in inputs[n].items() if op in OPS
+              for k, v in kv.items()}
+    job = [{"kind": "coll", "name": f"c{n}", "n": n, "a2a": A2A_MESH[n]} for n in NS]
     np.savez(tmp / "in.npz", job=json.dumps(job), **arrays)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
     ref = subprocess.Popen([sys.executable, str(ROOT / "tests" / "_jax_mesh_ref.py"),
@@ -202,29 +223,45 @@ DP = MeshCtx(data_size=2)
 @pytest.mark.parametrize("kind", ["attn_window", "mla_dense", "mla_moe", "ssm", "rglru", "dec"])
 @pytest.mark.parametrize("ctx", [TWO, DP], ids=["model2", "data2"])
 def test_other_block_kinds_raise_above_one_rank(kind, ctx):
-    cfg = get_smoke_config("qwen2-1.5b")
-    with pytest.raises(NotImplementedError, match="sub-item 6c"):
-        backbone.make_block_fn(cfg, ctx, kind)
+    """The recurrent and encoder-decoder kinds raise above one rank, naming
+    6c.ii / 6c.iii; the dense block and, since 6c.i, the MLA blocks build
+    there (``tests/test_torch_moe_multirank.py`` runs them)."""
+    cfg = get_smoke_config("deepseek-v2-236b" if kind.startswith("mla") else "qwen2-1.5b")
+    if kind.startswith("mla"):
+        assert callable(backbone.make_block_fn(cfg, ctx, kind, with_aux=True))
+    else:
+        part = "iii" if kind == "dec" else "ii"
+        with pytest.raises(NotImplementedError, match=f"sub-item 6c.{part} "):
+            backbone.make_block_fn(cfg, ctx, kind)
     backbone.make_block_fn(cfg, ctx, "attn")           # the dense block runs
 
 
 def test_frontends_encoder_experts_and_serving_raise_above_one_rank(runs):
-    """The frontends, the encoder and the experts raise above one rank
-    (sub-item 6c); the dense family's serving runs there: ``vocab_logits``
-    gives every rank the whole padded vocab's logits, ``greedy_token`` their
-    argmax, and ``make_serve_fns`` builds its steps on a 'model' axis of 2."""
+    """The frontends and the encoder raise above one rank (sub-item
+    6c.iii); the experts run there (6c.i): ``_moe_core`` on every rank of
+    (1, 2) and (2, 2) equals one rank's on the same rows; the dense
+    family's serving runs there: ``vocab_logits`` gives every rank the
+    whole padded vocab's logits, ``greedy_token`` their argmax, and
+    ``make_serve_fns`` builds its steps on a 'model' axis of 2."""
     cfg = get_smoke_config("whisper-tiny")
-    with pytest.raises(NotImplementedError, match="sub-item 6c"):
+    with pytest.raises(NotImplementedError, match="sub-item 6c.iii"):
         backbone.encode({}, torch.zeros(1, 4, cfg.d_model), TWO, cfg)
-    with pytest.raises(NotImplementedError, match="sub-item 6c"):
+    with pytest.raises(NotImplementedError, match="sub-item 6c.iii"):
         backbone.embed_inputs({}, torch.zeros(1, 4, dtype=torch.int32), DP, cfg,
                               frontend=torch.zeros(1, 4, cfg.d_model))
-    moe = get_smoke_config("deepseek-v2-236b")
-    with pytest.raises(NotImplementedError, match="sub-item 6c"):
-        ffn._moe_core({}, torch.zeros(4, moe.d_model), moe, TWO, 1)
-    dense = get_smoke_config("qwen2-1.5b").scaled(vocab=VOCAB)
     rng = np.random.default_rng(5)          # the inputs the ranks saw
     inputs = {k: cases(k, rng) for k in NS}
+    for n in NS:
+        mo = inputs[n]["moe"]
+        p = {k: torch.from_numpy(v) for k, v in mo["params"].items()}
+        x = torch.from_numpy(mo["x"].reshape(-1, MOE.d_model))
+        y, aux = ffn._moe_core(p, x, torch.ones(x.shape[0], dtype=torch.bool), MOE, MeshCtx(), 1)
+        for r in range(n):
+            got = runs["port"][n][r]["moe"]
+            np.testing.assert_allclose(got["y"], y[8 * r:8 * (r + 1)].numpy(),
+                                       atol=1e-5 * float(y.abs().max()), rtol=0)
+            assert got["aux"] == pytest.approx(float(aux), rel=1e-5)
+    dense = get_smoke_config("qwen2-1.5b").scaled(vocab=VOCAB)
     for n in NS:
         v = inputs[n]["vocab"]
         whole = backbone.vocab_logits({"tok": torch.from_numpy(v["tok"])},

@@ -357,10 +357,18 @@ def test_max_len_not_divisible_by_model_where_the_reference_drops_positions(runs
 
 
 def test_other_kinds_and_frontends_still_raise_above_one_rank():
+    """The recurrent and encoder-decoder families and the patch frontend
+    raise above one rank (6c.ii, 6c.iii); the MoE family's steps build
+    there (6c.i; ``tests/test_torch_moe_multirank.py`` serves it), its
+    latent cache split over 'model'."""
     mesh = LocalMesh(("data", "model"), {"data": 1, "model": 2}, torch.device("cpu"))
-    for arch in ("recurrentgemma-2b", "mamba2-780m", "deepseek-v2-236b", "whisper-tiny"):
-        with pytest.raises(NotImplementedError, match="sub-item 6c"):
+    for arch, part in (("recurrentgemma-2b", "ii"), ("mamba2-780m", "ii"),
+                       ("whisper-tiny", "iii")):
+        with pytest.raises(NotImplementedError, match=f"sub-item 6c.{part} "):
             make_serve_fns(get_smoke_config(arch), mesh, batch=2, max_len=16)
+    sv = make_serve_fns(get_smoke_config("deepseek-v2-236b"), mesh, batch=2, max_len=16)
+    assert sv.ctx.model_size == 2
+    assert sv.cache_pspec["g1"]["c_kv"].axes == (None, ("data",), "model", None)
     cfg = get_smoke_config("pixtral-12b")
     with pytest.raises(NotImplementedError, match="sub-item 6c"):
         backbone.embed_inputs({}, torch.zeros(2, 4, dtype=torch.int32),

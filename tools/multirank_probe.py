@@ -1,7 +1,7 @@
 """Which collectives a process group runs on CUDA tensors when its ranks
 share one card.
 
-    python3 tools/multirank_probe.py [--out PATH] [--mib N] [--phase]
+    python3 tools/multirank_probe.py [--out PATH] [--mib N] [--phase [dense] [moe]]
 
 Starts two ranks on ``cuda:0`` (``repro_torch.launch.ranks.run_ranks``,
 ``backend="gloo"``) and tries each collective the multi-rank training path
@@ -12,8 +12,10 @@ result checked against what it must be.  Then times an all-gather of
 through pinned host memory (copy out, gloo on CPU tensors, copy back).
 Last, asks NCCL for two ranks on the one card, under a 90 s limit, and
 records whether it refuses.  Prints one JSON line; with ``--phase`` then
-runs phase ``multirank`` of ``chip_smoke.py`` alone (no kernel build);
-last the card's name and power limit.
+runs phase ``multirank`` of ``chip_smoke.py`` alone (no kernel build),
+``--phase moe`` only its MoE family's checks and serving (deepseek-v2),
+``--phase dense`` only the dense family's; last the card's name and power
+limit.
 """
 import argparse
 import json
@@ -127,14 +129,33 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None)
     ap.add_argument("--mib", type=int, default=96)
-    ap.add_argument("--phase", action="store_true",
-                    help="then run phase multirank of chip_smoke.py")
+    ap.add_argument("--phase", nargs="*", choices=("dense", "moe"), default=None,
+                    help="then run phase multirank of chip_smoke.py (given families only)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--no-probe", action="store_true",
+                    help="skip the probe itself (with --phase: the phase alone)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("multirank_probe: no CUDA device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+    if not args.no_probe:
+        probe(args, smi)
+    if args.phase is not None:
+        sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+        import chip_smoke as cs
+
+        if args.out:
+            cs._OUT.append(open(args.out, "a"))
+        cs.multirank_phase(args, smi, tuple(args.phase or cs.MR_FAMILIES))
+    print(smi, flush=True)
+
+
+def probe(args, smi) -> None:
+    """The gloo collectives on CUDA tensors, the all-gather's two routes
+    and NCCL's answer for two ranks on one card: one JSON line."""
     t0 = time.perf_counter()
     gloo = run_ranks(gloo_rank, 2, tempfile.mkdtemp(), device="cuda", backend="gloo",
                      args=(args.mib,), timeout=240, threads=None)
@@ -157,16 +178,7 @@ def main() -> None:
     text = json.dumps(line)
     print(text, flush=True)
     if args.out:
-        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(text + "\n")
-    if args.phase:
-        sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-        import chip_smoke as cs
-
-        if args.out:
-            cs._OUT.append(open(args.out, "a"))
-        cs.multirank_phase(args, smi)
-    print(smi, flush=True)
 
 
 if __name__ == "__main__":
