@@ -42,15 +42,14 @@ just before it and read just after:
   kernel (the launch counts must read 0), for each row of ``MODEL_ROWS``:
   qwen2-1.5b (dense GQA), recurrentgemma-2b (RG-LRU with sliding-window
   attention), mamba2-780m (SSD), deepseek-v2-236b (MLA with absorbed
-  decode over a latent cache, routed experts gathered per expert; 7 of
-  its 60 layers, the most one card holds beside the traffic),
+  decode over a latent cache, routed experts gathered per expert),
   whisper-tiny (encoder-decoder: 1 500 stub frames encoded once a
-  prefill, cross attention over their cached K/V) and pixtral-12b (40
-  layers; a 1 024-position stub image patch frontend).  First the
+  prefill, cross attention over their cached K/V) and pixtral-12b (a
+  1 024-position stub image patch frontend).  First the
   model at smoke width served through ``serve.scheduler.BatchScheduler``
   on the CPU and on the card from one float32 weight set (equal
   completions, last-position logits within ``SMOKE_LOGIT_ATOL``); then at
-  full width and depth (deepseek-v2's cut) in bfloat16,
+  full width and about half their depth (``MODEL_ROWS``) in bfloat16,
   weights from a seeded ``torch.Generator``, serving 20 requests in three
   prompt-length buckets, one ``run`` a bucket with that bucket's frames or
   patches (``run(extras=)``; 32 new tokens each, batch 8; qwen2 8 x 128,
@@ -97,11 +96,11 @@ just before it and read just after:
   2 layers in float32, 4 x 512 tokens, one step from one carried state on
   (1, 2), (2, 1) with ZeRO-1 and (2, 2) with 1 % compression, every rank's
   shards of the loss, synced gradients and updated parameters against the
-  one-rank step on the card; then (1, 2) and (2, 1) with ZeRO-1 timed at 4
+  one-rank step on the card; then (1, 2) and (2, 1) with ZeRO-1 timed at 2
   layers in bfloat16 on ``model_train``'s 8 x 4 096 rows: step wall, the
   host wall inside the collectives and each rank's peak memory — figures
   of ranks sharing a card, not of NVLink or of scaling.  Then the 2-rank
-  group serves qwen2-1.5b at full width and all 28 layers in bfloat16
+  group serves qwen2-1.5b at full width and 14 of its 28 layers in bfloat16
   (``BatchScheduler`` over each rank's shards, the sequence-sharded KV
   cache, the distributed argmax) on (1, 2) and (2, 1), buckets 128 x 8
   and 1 536 x 4, 16 new tokens: prefill ms a bucket, decode ms a step,
@@ -113,12 +112,19 @@ just before it and read just after:
   way (``MR_MOE_ARCH``, deepseek-v2-236b): its training check at reduced
   width on the same three meshes (the routed experts over the whole
   world, their tokens dispatched by all-to-all, no pair dropped at
-  capacity), then served at full width and 7 layers in bfloat16 on
+  capacity), then served at full width and 4 layers in bfloat16 on
   (1, 2) and (2, 1) with the same traffic, each rank drawing the weights
   leaf by leaf and keeping its shard (``draw_shards``), and a float32
   3-layer model's tokens checked by rank 0 against the one-rank forward
   (``MR_MOE_MARGIN`` and the route rule) and the one-rank run (near ties
-  only), on a line ``"step": "serve_moe"``.
+  only), on a line ``"step": "serve_moe"``.  The recurrent families
+  (``MR_REC_ARCHS``, recurrentgemma-2b and mamba2-780m) the same way: the
+  training check at full width and reduced depth on (1, 2) and (2, 1)
+  with ZeRO-1 (the RG-LRU's gathered tails and summaries, the SSD's
+  head-sharded norm), then served at full width and all their layers in
+  bfloat16 on (1, 2) and (2, 1) with the same traffic, and the tokens
+  checked by rank 0 (``MR_REC_CHECK``), on a line ``"step":
+  "serve_recurrent"``.
 * ``dryrun`` — ``launch.dryrun`` and ``roofline``, which launch no PBS
   kernel: the 40-cell grid counted on meta tensors by
   ``python -m repro_torch.launch.dryrun``, one process an arch, the card
@@ -260,6 +266,7 @@ from repro_torch.models.spec import (  # noqa: E402
     tree_map_p,
 )
 from repro_torch.serve.engine import make_serve_fns  # noqa: E402
+import repro_torch.serve.engine as serve_engine  # noqa: E402
 from repro_torch.serve.scheduler import BatchScheduler, Completion, Request  # noqa: E402
 from repro_torch.train.step import mesh_ctx  # noqa: E402
 from repro_torch.checkpoint import restore_checkpoint  # noqa: E402
@@ -2509,6 +2516,11 @@ class ModelRow:
     enc_len: int = 32
 
 
+# Every row but whisper's runs cut to about half its full-width depth
+# (``layers``) for the script's budget: qwen2 14 of 28, recurrentgemma 13 of
+# 26 (four periods and an rglru), mamba2 24 of 48, deepseek-v2 4 of 60,
+# pixtral 20 of 40.  The calibrations below were taken at the depths they
+# name; fewer layers part decode from forward by less.
 MODEL_ROWS = (
     # the two paths round bfloat16 activations in other places (blockwise
     # attention against one-query attention over a bfloat16 cache; other
@@ -2517,7 +2529,7 @@ MODEL_ROWS = (
     # 4 ulps.  Traffic: two full batches, one of 4 requests padded with
     # copies whose 1 536 tokens span two ragged query chunks.
     ModelRow("qwen2-1.5b", None, (8, 8, 12, 12, 12, 5), 64,
-             ((128, 8), (512, 8), (1536, 4)), 2048, 0.0625, 512),
+             ((128, 8), (512, 8), (1536, 4)), 2048, 0.0625, 512, layers=14),
     # 8 layers: two stacked periods and the unscanned rglru groups; a 70
     # token prompt rolls the 64-slot ring at the fill and wraps it at
     # decode, a 62 token one crosses its last slot while decoding.  At full
@@ -2526,7 +2538,7 @@ MODEL_ROWS = (
     # and forward logits part by up to 0.133 and the top one by up to 0.061
     # (calibration on an H100): the margin is qwen2's.
     ModelRow("recurrentgemma-2b", 8, (70, 62, 12, 12, 12, 5), 96,
-             ((128, 8), (512, 8), (3000, 4)), 4096, 0.0625, 512),
+             ((128, 8), (512, 8), (3000, 4)), 4096, 0.0625, 512, layers=13),
     # 40 tokens: one chunk of 32 and a ragged one.  At full width 1 000 is
     # a ragged SSD tail (chunk 256), 2 048 eight whole chunks.  In bfloat16
     # its 48 layers at these random weights carry rounding far: decode and
@@ -2537,24 +2549,24 @@ MODEL_ROWS = (
     # off) on the same weights, all 48 layers, where decode and forward
     # logits part by at most 0.0029: the margin is 2.7 times that.
     ModelRow("mamba2-780m", None, (40, 40, 12, 12, 12, 5), 96,
-             ((128, 8), (1000, 8), (2048, 4)), 4096, 0.0078125, 1000,
-             check_float32_layers=48),
-    # 7 of 60 layers at full width (1 mla_dense + 6 mla_moe, 50.45 GB in
-    # bfloat16: the most one card holds beside the 8 x 1 536 prefill), with
-    # qwen2's traffic.  The latent cache is bfloat16 whatever the weights,
-    # so a decode step's router sees other roundings than the forward's and
-    # flips a near tie of the 6th and 7th expert: in bfloat16 on 5-35 % of
-    # steps a layer, rising with depth (calibration on an H100), which
-    # moves logits by up to 2.25; half the positions keep every layer's
-    # route, and among them decode and forward logits part by up to 0.195,
-    # so no fair margin checks half the tokens.  The check runs on a float32
-    # model of 3 layers at full width (1 dense + 2 MoE, the bfloat16 one
-    # freed first): 4-9 % route flips a layer; where no layer's route
-    # flipped, decode and forward logits part by at most 0.054, so tokens
-    # there can part only below a margin of 0.108: the margin is 0.125.
-    # Route flips: see ROUTE_GAP_TOL below.
+             ((128, 8), (1000, 8), (2048, 4)), 4096, 0.0078125, 1000, layers=24,
+             check_float32_layers=24),
+    # calibrated at 7 of 60 layers at full width (1 mla_dense + 6 mla_moe,
+    # 50.45 GB in bfloat16, the most one card holds beside the 8 x 1 536
+    # prefill), with qwen2's traffic.  The latent cache is bfloat16 whatever
+    # the weights, so a decode step's router sees other roundings than the
+    # forward's and flips a near tie of the 6th and 7th expert: in bfloat16 on
+    # 5-35 % of steps a layer, rising with depth (calibration on an H100),
+    # which moves logits by up to 2.25; half the positions keep every layer's
+    # route, and among them decode and forward logits part by up to 0.195, so
+    # no fair margin checks half the tokens.  The check runs on a float32
+    # model of 3 layers at full width (1 dense + 2 MoE, the bfloat16 one freed
+    # first): 4-9 % route flips a layer; where no layer's route flipped,
+    # decode and forward logits part by at most 0.054, so tokens there can
+    # part only below a margin of 0.108: the margin is 0.125.  Route flips:
+    # see ROUTE_GAP_TOL below.
     ModelRow("deepseek-v2-236b", None, (8, 8, 12, 12, 12, 5), 64,
-             ((128, 8), (512, 8), (1536, 4)), 2048, 0.125, 512, layers=7,
+             ((128, 8), (512, 8), (1536, 4)), 2048, 0.125, 512, layers=4,
              check_float32_layers=3),
     # whisper-tiny, all of it (4 encoder and 4 decoder layers, d 384): a 30 s
     # window's 1 500 frames (standard normal at the encoder's input) and
@@ -2570,19 +2582,18 @@ MODEL_ROWS = (
     ModelRow("whisper-tiny", None, (8, 8, 12, 12, 12, 5), 64,
              ((4, 8), (132, 8), (224, 4)), 448, 0.03125, 132, enc_len=1500,
              check_float32_layers=4),
-    # pixtral-12b, all 40 layers: text-only turns, then one 512 x 512 image
-    # (1 024 patch positions, -1 at the prompt's start, their embeddings
-    # drawn at the token table's scale, 0.02) with a 32- or 1 024-token
-    # question; at smoke width 8 patch positions lead the 12- and
-    # 20-token prompts.  In bfloat16 decode and forward logits part by up
-    # to 0.164 over 40 layers (calibration on an H100), so a fair margin
-    # (0.375) checks under half the positions.  Its check runs in float32
-    # at all 40 layers on the same weights (49 GB, the bfloat16 ones freed
-    # first), where they part by at most 0.0446 and tokens only below
-    # 0.089: the margin is 0.125, which checks 68-85 %.
+    # pixtral-12b: text-only turns, then one 512 x 512 image (1 024 patch
+    # positions, -1 at the prompt's start, their embeddings drawn at the token
+    # table's scale, 0.02) with a 32- or 1 024-token question; at smoke width
+    # 8 patch positions lead the 12- and 20-token prompts.  In bfloat16 decode
+    # and forward logits part by up to 0.164 over 40 layers (calibration on an
+    # H100), so a fair margin (0.375) checks under half the positions.  Its
+    # check runs in float32 at all 40 layers on the same weights (49 GB, the
+    # bfloat16 ones freed first), where they part by at most 0.0446 and tokens
+    # only below 0.089: the margin is 0.125, which checks 68-85 %.
     ModelRow("pixtral-12b", None, (12, 12, 20, 20, 20, 5), 64,
-             ((128, 8), (1056, 8), (2048, 4)), 3072, 0.125, 1056,
-             check_float32_layers=40),
+             ((128, 8), (1056, 8), (2048, 4)), 3072, 0.125, 1056, layers=20,
+             check_float32_layers=20),
 )
 # MoE rows: a position is left out of the token check where a layer's
 # decode routed it to another top-k expert set than the forward did and, in
@@ -2692,6 +2703,24 @@ def recorded_routes():
         yield routes
     finally:
         ffn._route = route
+
+
+@contextlib.contextmanager
+def recorded_hidden():
+    """Wrap the serving engine's ``greedy_token``: each call's final-norm
+    states x (B, 1, d) of this rank's rows (a prefill's last position, a
+    decode step's token), on the card, in call order."""
+    states, greedy = [], serve_engine.greedy_token
+
+    def recording(p, x, ctx, cfg):
+        states.append(x.detach())
+        return greedy(p, x, ctx, cfg)
+
+    serve_engine.greedy_token = recording
+    try:
+        yield states
+    finally:
+        serve_engine.greedy_token = greedy
 
 
 def moe_bytes(cfg, param_bytes: int) -> tuple:
@@ -3595,27 +3624,40 @@ MR_MOE_ARCH = "deepseek-v2-236b"
 # layers (1 dense + 1 MoE).  At full width one MoE layer's 3.78 B expert
 # parameters need ~60 GB of float32 weights, gradients and Adam moments
 MR_MOE_TRAIN = dict(d_model=1024, moe_d_ff=512, n_layers=2)
-MR_CHECK_CONFIG = {TRAIN_ARCH: dict(n_layers=MR_CHECK_LAYERS), MR_MOE_ARCH: MR_MOE_TRAIN}
-# (arch, mesh, ZeRO-1, compression ratio)
+# the recurrent families across ranks: recurrentgemma-2b (arXiv:2402.19427;
+# the RG-LRU scans each rank's chunk at full width, composed from gathered
+# summaries, local attention's ring replicated) and mamba2-780m
+# (arXiv:2405.21060; the SSD's heads split over 'model').  Their training
+# check runs at full width, reduced depth: one period of recurrentgemma
+# (rglru, rglru, attn), two mamba2 layers
+MR_REC_ARCHS = ("recurrentgemma-2b", "mamba2-780m")
+MR_CHECK_CONFIG = {TRAIN_ARCH: dict(n_layers=MR_CHECK_LAYERS), MR_MOE_ARCH: MR_MOE_TRAIN,
+                   "recurrentgemma-2b": dict(n_layers=3), "mamba2-780m": dict(n_layers=2)}
+# (arch, mesh, ZeRO-1, compression ratio); the recurrent families leave
+# (2, 2) to the CPU tests (tests/test_torch_recurrent_multirank.py)
 MR_CHECKS = ((TRAIN_ARCH, (1, 2), False, None), (TRAIN_ARCH, (2, 1), True, None),
              (TRAIN_ARCH, (2, 2), False, TRAIN_COMPRESSION),
              (MR_MOE_ARCH, (1, 2), False, None), (MR_MOE_ARCH, (2, 1), True, None),
-             (MR_MOE_ARCH, (2, 2), False, None))
+             (MR_MOE_ARCH, (2, 2), False, None)) + tuple(
+                 (a, mesh, zero1, None) for a in MR_REC_ARCHS
+                 for mesh, zero1 in (((1, 2), False), ((2, 1), True)))
 MR_LOSS_RTOL, MR_GRAD_REL, MR_PARAM_ATOL = 1e-5, 1e-4, 1e-6
 # timed: bfloat16 weights, MR_TIMED_LAYERS layers, model_train's train_4k
 # rows (TRAIN_BATCH x TRAIN_SEQ, TRAIN_MICROBATCH microbatches), float32
-# states, one cold step then MR_TIMED_STEPS warm ones
-MR_TIMED_LAYERS, MR_TIMED_STEPS = 4, 3
+# states, one cold step then MR_TIMED_STEPS warm ones (cut from 4 layers
+# and 3 warm steps for the script's budget)
+MR_TIMED_LAYERS, MR_TIMED_STEPS = 2, 1
 MR_TIMED = (((1, 2), False), ((2, 1), True))
 # serving across ranks, in the 2-rank group after its training work:
-# qwen2-1.5b at full width and all its 28 layers, bfloat16 weights drawn
-# from --seed on every rank (each keeps its shards), batch SERVE_BATCH,
-# max_len 2 048, two of model_serve's three buckets and 16 new tokens
-# (reductions of its traffic, for the script's budget).  The 1 536-token
+# qwen2-1.5b at full width and MR_SERVE_LAYERS of its 28 layers, bfloat16
+# weights drawn from --seed on every rank (each keeps its shards), batch
+# SERVE_BATCH, max_len 2 048, two of model_serve's three buckets and 16 new
+# tokens (reductions of its depth and traffic, for the script's budget).  The 1 536-token
 # bucket fills both ranks' chunks on (1, 2) (1 024 positions a rank) and
 # decodes on rank 1; the 128-token bucket leaves rank 1's chunk empty.
 MR_SERVE = ((1, 2), (2, 1))
 MR_SERVE_BUCKETS, MR_SERVE_MAX_LEN, MR_SERVE_MAX_NEW = ((128, 8), (1536, 4)), 2048, 16
+MR_SERVE_LAYERS = 14
 # Token checks, run on rank 0 alone after every mesh's run.  (a) Every
 # token of a mesh's bfloat16 run equals the one-rank no-cache forward's
 # argmax over the mesh's own sequence wherever that forward's top-2 margin
@@ -3633,26 +3675,50 @@ MR_SERVE_BUCKETS, MR_SERVE_MAX_LEN, MR_SERVE_MAX_NEW = ((128, 8), (1536, 4)), 20
 # less than 1/128.
 MR_SERVE_MARGIN, MR_SERVE_F32_MARGIN = 0.0625, 1 / 128
 MR_SERVE_F32_BUCKET = 1536
-# deepseek-v2-236b served on the same meshes after qwen2, at full width cut
-# to the one-card row's 7 of 60 layers (1 mla_dense + 6 mla_moe, bfloat16),
-# with qwen2's multirank traffic (MR_SERVE_BUCKETS, MR_SERVE_MAX_NEW): on
-# (1, 2) the 1 536 bucket decodes in rank 1's chunk, the 128 bucket leaves
-# that chunk empty.  Each rank draws the weights from --seed leaf by leaf and
-# keeps only its shard (``draw_shards``): the global tree is 50.45 GB, and
+# deepseek-v2-236b served on the same meshes after qwen2, at full width cut to
+# MR_MOE_LAYERS of 60 layers (1 mla_dense + 3 mla_moe, bfloat16; the one-card
+# row's depth, both cut for the script's budget), with qwen2's multirank traffic
+# (MR_SERVE_BUCKETS, MR_SERVE_MAX_NEW): on (1, 2) the 1 536 bucket decodes in
+# rank 1's chunk, the 128 bucket leaves that chunk empty.  Each rank draws the
+# weights from --seed leaf by leaf and keeps only its shard (``draw_shards``):
 # two ranks share the card.  Its token check (b) runs on the one-card row's
-# float32 check model (3 layers, 1 dense + 2 MoE, full width) over the
-# 128 x 8 bucket: every token of every rank equals the one-rank no-cache
-# forward's argmax wherever the forward's top-2 margin exceeds
-# MR_MOE_MARGIN (the one-card row's margin_tol) and no layer's route
-# flipped, a flip at a router gap past ROUTE_GAP_TOL failing (the one-card
-# row's rule, ``forward_check``), half the positions or more checked; and
-# each request's tokens equal the one-rank float32 run's up to the first
-# difference, which must be a near tie: the one-rank forward's top-2 margin
-# there at most MR_SERVE_F32_MARGIN, or its k-th and (k+1)-th router
-# probabilities within ROUTE_GAP_TOL in some layer.  The checked runs must
-# drop no (token, slot) pair at capacity.
-MR_MOE_LAYERS, MR_MOE_CHECK_LAYERS, MR_MOE_CHECK_BUCKET = 7, 3, 128
+# float32 check model (3 layers, 1 dense + 2 MoE, full width) over the 128 x 8
+# bucket: every token of every rank equals the one-rank no-cache forward's
+# argmax wherever the forward's top-2 margin exceeds MR_MOE_MARGIN (the
+# one-card row's margin_tol) and no layer's route flipped, a flip at a router
+# gap past ROUTE_GAP_TOL failing (the one-card row's rule, ``forward_check``),
+# half the positions or more checked; and each request's tokens equal the
+# one-rank float32 run's up to the first difference, which must be a near tie:
+# the one-rank forward's top-2 margin there at most MR_SERVE_F32_MARGIN, or
+# its k-th and (k+1)-th router probabilities within ROUTE_GAP_TOL in some
+# layer.  The checked runs must drop no (token, slot) pair at capacity.
+MR_MOE_LAYERS, MR_MOE_CHECK_LAYERS, MR_MOE_CHECK_BUCKET = 4, 3, 128
 MR_MOE_MARGIN = 0.125
+# recurrentgemma-2b and mamba2-780m served on the same meshes after the MoE
+# family, at full width and all their layers (26, 48) in bfloat16, each rank
+# drawing the weights leaf by leaf and keeping its shard, with qwen2's
+# multirank traffic.  Their tokens are checked by rank 0 after every mesh's
+# run on a float32 model of all their layers (TF32 off), weights drawn from
+# the same seed, on the 128 x 8 bucket (arch: (layers, buckets, margin)):
+# (a) every token equals the one-rank no-cache forward's argmax wherever the
+# forward's top-2 margin exceeds the margin, half the positions or more
+# checked; (b) each request's tokens equal the one-rank float32 run's up to
+# the first difference, which must be a near tie (the one-rank forward's
+# top-2 margin there at most MR_SERVE_F32_MARGIN), at half the positions or
+# more.  In bfloat16 no fair margin checks half the positions: on (1, 2)
+# and (2, 1) recurrentgemma's decode and forward logits part by up to 0.129
+# (the top one by 0.061, as on one card), so tokens part below 0.258, which
+# checks 35-40 % (calibration on an H100); mamba2's part by up to 2.9 (its
+# row).  In
+# float32 the margin is at least twice the largest decode-to-forward logit
+# difference a run measures (``decode_logit_errors``, in the line):
+# mamba2's 1/128 (its row's; 0.0028-0.0031 on the meshes), recurrentgemma's
+# 1/64 (0.0050-0.0051 on the meshes, calibration on an H100), which checks
+# 94 % of the positions.
+MR_REC_CHECK = {"recurrentgemma-2b": (26, (128,), 1 / 64),
+                "mamba2-780m": (48, (128,), 1 / 128)}
+# the margins whose share of checked positions the calibration reports
+MR_REC_MARGINS = (1 / 128, 1 / 64, 1 / 32, 1 / 16)
 # the 2-rank group's join limit: its training checks and timed runs, then
 # both families' serving and rank 0's one-rank checks
 MR_TIMEOUT_S = 720
@@ -3707,8 +3773,8 @@ def mr_state(cfg, mesh, ocfg, ccfg, batch, seed):
 def mr_check_mesh(dev, arch, data, model, zero1, ratio, seed) -> dict:
     """One step of the f32 check on this rank of a (data, model) mesh, then
     the one-rank step on the card from the same weights and carried state
-    (every rank runs it, at once on two ranks and in turns on four, so
-    nothing is gathered but a compressed gradient): this rank's shards of the loss, the synced gradients and
+    (every rank runs it, in turns, so nothing is gathered but a compressed
+    gradient): this rank's shards of the loss, the synced gradients and
     the parameters after the step against the same shards of the one-rank
     step's (see MR_CHECKS).  The compressed mesh's one-rank step is AdamW
     from the mesh's own compressed gradient, gathered.  An MoE config's
@@ -3770,15 +3836,13 @@ def mr_check_mesh(dev, arch, data, model, zero1, ratio, seed) -> dict:
         torch.cuda.empty_cache()
         return res
 
-    # on two ranks at once; on four in turns: four one-rank training states
-    # of the MoE check do not fit the card together
-    if mesh.world > 2:
-        for turn in range(mesh.world):
-            torch.distributed.barrier()
-            if turn == mesh.rank:
-                loss1, norm1, g_err, p_err = one_rank()
-    else:
-        loss1, norm1, g_err, p_err = one_rank()
+    # in turns: four one-rank training states of the MoE check do not fit
+    # the card together, nor do two of recurrentgemma's (36-38 GB a rank
+    # with its mesh state: its 256 000-wide float32 logits)
+    for turn in range(mesh.world):
+        torch.distributed.barrier()
+        if turn == mesh.rank:
+            loss1, norm1, g_err, p_err = one_rank()
     stamps["one_rank"] = time.perf_counter()
     worst = max(g_err, key=g_err.get)
     out = {"arch": arch, "mesh": [data, model], "zero1": zero1, "compression": ratio,
@@ -3924,6 +3988,39 @@ def timed_engine(sched, mesh, log) -> None:
     sched._engine = dataclasses.replace(sv, prefill=prefill, decode=decode)
 
 
+def serve_log_stats(log) -> dict:
+    """A timed run's figures from ``timed_engine``'s log: each prefill's ms
+    by prompt length, each decode step's ms and their median, and a step's
+    collectives (median calls, bytes and host ms of each, and of them all)."""
+    steps = log["decode"]
+    ops = sorted({k for st in steps for k in st if k != "ms"})
+    return {
+        "prefill_ms": {plen: ms for plen, ms in log["prefill"]},
+        "decode_ms": [st["ms"] for st in steps],
+        "decode_ms_median": float(np.median([st["ms"] for st in steps])),
+        "collectives_a_step": {k: {
+            "calls": int(np.median([st.get(k, {}).get("calls", 0) for st in steps])),
+            "bytes": int(np.median([st.get(k, {}).get("bytes", 0) for st in steps])),
+            "host_ms_median": float(np.median([st.get(k, {}).get("seconds", 0.0) * 1e3
+                                               for st in steps]))} for k in ops},
+        "collective_host_ms_a_step_median": float(np.median(
+            [sum(v["seconds"] for k, v in st.items() if k != "ms") * 1e3 for st in steps]))}
+
+
+def rank_timings(per) -> dict:
+    """A serving line's timings of one mesh and model, one entry a rank of
+    ``per`` (each rank's ``serve_log_stats``, peak and seconds)."""
+    return {"prefill_ms_by_bucket": {str(p): [r["prefill_ms"][p] for r in per]
+                                     for p, _ in MR_SERVE_BUCKETS},
+            "decode_ms_a_step_median": [r["decode_ms_median"] for r in per],
+            "decode_steps": len(per[0]["decode_ms"]),
+            "collectives_a_step": [r["collectives_a_step"] for r in per],
+            "collective_host_ms_a_step_median": [r["collective_host_ms_a_step_median"]
+                                                 for r in per],
+            "max_memory_allocated_gb": [r["max_memory_allocated_gb"] for r in per],
+            "seconds": [r["seconds"] for r in per]}
+
+
 def mr_serve_mesh(dev, data, model, seed) -> dict:
     """qwen2-1.5b served on this rank of a (data, model) mesh whose ranks
     share the card: the bfloat16 run over ``MR_SERVE_BUCKETS`` through
@@ -3931,7 +4028,7 @@ def mr_serve_mesh(dev, data, model, seed) -> dict:
     ``MR_CHECK_LAYERS``-layer model's run on the ``MR_SERVE_F32_BUCKET`` bucket.  Every
     rank returns the same (global) tokens."""
     t0 = time.perf_counter()
-    cfg = get_config(TRAIN_ARCH)
+    cfg = get_config(TRAIN_ARCH).scaled(n_layers=MR_SERVE_LAYERS)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     mesh = make_local_mesh(data, model, device=dev)
@@ -3956,19 +4053,8 @@ def mr_serve_mesh(dev, data, model, seed) -> dict:
     f32_s = time.perf_counter() - t0
     del params, sched
     torch.cuda.empty_cache()
-    steps = log["decode"]
-    ops = sorted({k for st in steps for k in st if k != "ms"})
     return {"mesh": [data, model], "rank": mesh.rank, "tokens": tokens, "tokens_f32": tokens32,
-            "prefill_ms": {plen: ms for plen, ms in log["prefill"]},
-            "decode_ms": [st["ms"] for st in steps],
-            "decode_ms_median": float(np.median([st["ms"] for st in steps])),
-            "collectives_a_step": {k: {
-                "calls": int(np.median([st.get(k, {}).get("calls", 0) for st in steps])),
-                "bytes": int(np.median([st.get(k, {}).get("bytes", 0) for st in steps])),
-                "host_ms_median": float(np.median([st.get(k, {}).get("seconds", 0.0) * 1e3
-                                                   for st in steps]))} for k in ops},
-            "collective_host_ms_a_step_median": float(np.median(
-                [sum(v["seconds"] for k, v in st.items() if k != "ms") * 1e3 for st in steps])),
+            **serve_log_stats(log),
             "max_memory_allocated_gb": peak / 1e9,
             "pbs_kernel_launches": platform.launch_counts(),
             "seconds": {"setup": setup_s, "bf16_run": run_s, "f32_check_run": f32_s}}
@@ -3981,7 +4067,7 @@ def mr_serve_one_rank(dev, seed, served) -> dict:
     agreement with the one-rank run's; then the one-rank float32 run and
     check (b) of each mesh's float32 tokens."""
     t0 = time.perf_counter()
-    cfg = get_config(TRAIN_ARCH)
+    cfg = get_config(TRAIN_ARCH).scaled(n_layers=MR_SERVE_LAYERS)
     mesh = make_local_mesh(device=dev)
     ctx = mesh_ctx(mesh)
     params = mr_serve_params(cfg, mesh, seed)
@@ -4130,20 +4216,9 @@ def mr_moe_serve_mesh(dev, data, model, seed) -> dict:
     f32_s = time.perf_counter() - t0
     del params, sched, calls
     torch.cuda.empty_cache()
-    steps = log["decode"]
-    ops = sorted({k for st in steps for k in st if k != "ms"})
     return {"mesh": [data, model], "rank": mesh.rank, "tokens": tokens, "tokens_f32": tokens32,
             "route_piece": piece, "dispatch": dispatch, "dispatch_f32": dispatch32,
-            "prefill_ms": {plen: ms for plen, ms in log["prefill"]},
-            "decode_ms": [st["ms"] for st in steps],
-            "decode_ms_median": float(np.median([st["ms"] for st in steps])),
-            "collectives_a_step": {k: {
-                "calls": int(np.median([st.get(k, {}).get("calls", 0) for st in steps])),
-                "bytes": int(np.median([st.get(k, {}).get("bytes", 0) for st in steps])),
-                "host_ms_median": float(np.median([st.get(k, {}).get("seconds", 0.0) * 1e3
-                                                   for st in steps]))} for k in ops},
-            "collective_host_ms_a_step_median": float(np.median(
-                [sum(v["seconds"] for k, v in st.items() if k != "ms") * 1e3 for st in steps])),
+            **serve_log_stats(log),
             "max_memory_allocated_gb": peak / 1e9,
             "pbs_kernel_launches": platform.launch_counts(),
             "seconds": {"setup": setup_s, "bf16_run": run_s, "f32_check_run": f32_s}}
@@ -4210,12 +4285,170 @@ def mr_moe_one_rank(dev, seed, served, pieces) -> dict:
     return out
 
 
-def mr_rank(dev, checks, timed, seed, wait_for=None, serve=(), moe_serve=()) -> dict:
+def mr_rec_serve_mesh(dev, data, model, seed) -> dict:
+    """Both recurrent families served on this rank of a (data, model) mesh
+    whose ranks share the card, one after the other: the bfloat16 run at
+    full width over ``MR_SERVE_BUCKETS`` (steps timed, ``timed_engine``),
+    then the float32 model's run of ``MR_REC_CHECK`` (TF32 off), its
+    final-norm states recorded (``hidden``: this rank's rows, on the first
+    'model' rank only, where they are replicated).  Every rank returns the
+    same (global) tokens."""
+    mesh = make_local_mesh(data, model, device=dev)
+    ctx = mesh_ctx(mesh)
+    assert not torch.backends.cuda.matmul.allow_tf32
+    out = {"mesh": [data, model], "rank": mesh.rank, "archs": {}}
+    for arch in MR_REC_ARCHS:
+        t0 = time.perf_counter()
+        cfg = get_config(arch)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params = draw_shards(model_spec(cfg, ctx), seed, mesh)
+        requests = mr_serve_requests(seed, MR_SERVE_BUCKETS, arch)
+        sched = BatchScheduler(cfg, mesh, batch=SERVE_BATCH, max_len=MR_SERVE_MAX_LEN, eos_id=-1)
+        log = {"prefill": [], "decode": []}
+        timed_engine(sched, mesh, log)
+        setup_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tokens = mr_serve_run(sched, params, requests, cfg)
+        run_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        del params, sched
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        layers, buckets, _ = MR_REC_CHECK[arch]
+        cfg32 = cfg.scaled(n_layers=layers)
+        params = draw_shards(model_spec(cfg32, ctx), seed, mesh, float32=True)
+        sched = BatchScheduler(cfg32, mesh, batch=SERVE_BATCH, max_len=MR_SERVE_MAX_LEN,
+                               eos_id=-1)
+        with recorded_hidden() as states:
+            tokens32 = mr_serve_run(sched, params,
+                                    [r for r in requests if len(r.prompt) in buckets], cfg32)
+        hidden = None
+        if ctx.midx() == 0:
+            # a prefill and MR_SERVE_MAX_NEW - 1 steps a bucket, in bucket order
+            n, b = MR_SERVE_MAX_NEW, states[0].shape[0]
+            lo = mesh.index("data") * b if sched._engine.batch_ax else 0
+            hidden = {"rows": [lo, lo + b], "x": {
+                plen: torch.cat(states[i * n:(i + 1) * n], 1).cpu()     # (B_local, n, d)
+                for i, plen in enumerate(sorted(buckets))}}
+        f32_s = time.perf_counter() - t0
+        del params, sched, states
+        torch.cuda.empty_cache()
+        out["archs"][arch] = {
+            "tokens": tokens, "tokens_f32": tokens32, "hidden": hidden, **serve_log_stats(log),
+            "max_memory_allocated_gb": peak / 1e9,
+            "seconds": {"setup": setup_s, "bf16_run": run_s, "f32_check_run": f32_s}}
+    out["pbs_kernel_launches"] = platform.launch_counts()
+    return out
+
+
+def first_differences(params, cfg, ctx, reqs, one, runs) -> list:
+    """Each run of ``runs`` ({rid: tokens}) against the one-rank run ``one``
+    up to its first difference, with the one-rank forward's top-2 margin
+    there (one forward a bucket over ``one``'s own sequences)."""
+    margin = {}
+    for plen in sorted({len(r.prompt) for r in reqs}):
+        rr = [r for r in reqs if len(r.prompt) == plen]
+        seq = torch.tensor([r.prompt + one[r.rid][:-1] for r in rr], dtype=torch.int32,
+                           device=DEV)
+        x = forward(params, seq, ctx, cfg)[:, plen - 1:]
+        top2 = vocab_logits(params["embed"], x, ctx, cfg).topk(2, dim=-1).values
+        margin.update(zip((r.rid for r in rr), (top2[..., 0] - top2[..., 1]).cpu()))
+        del x, top2
+    out = []
+    for run in runs:
+        compared, near = 0, []
+        for r in reqs:
+            got, want = run[r.rid], one[r.rid]
+            n = next((j for j, (a, b) in enumerate(zip(got, want)) if a != b), None)
+            compared += len(want) if n is None else n
+            if n is not None:
+                near.append({"rid": r.rid, "position": n, "margin": float(margin[r.rid][n])})
+        out.append({"positions": sum(len(one[r.rid]) for r in reqs),
+                    "positions_compared": compared, "differences": near,
+                    "margin_tol": MR_SERVE_F32_MARGIN})
+    return out
+
+
+def decode_logit_errors(params, cfg, ctx, requests, tokens, hidden) -> dict:
+    """A mesh's decode logits (its recorded final-norm states through the
+    one-rank unembedding) against the one-rank no-cache forward's over the
+    mesh's own sequences: the largest difference over every logit and at
+    the forward's top one, and the share of positions each margin of
+    ``MR_REC_MARGINS`` would check (the calibration of check (a)'s margin)."""
+    err, top, margins = 0.0, 0.0, []
+    for plen, x in hidden.items():
+        reqs = [r for r in requests if len(r.prompt) == plen]
+        seq = torch.tensor([r.prompt + tokens[r.rid][:-1] for r in reqs], dtype=torch.int32,
+                           device=DEV)
+        want = vocab_logits(params["embed"], forward(params, seq, ctx, cfg)[:, plen - 1:],
+                            ctx, cfg)
+        got = vocab_logits(params["embed"], x[:len(reqs)].to(DEV), ctx, cfg)
+        err = max(err, float((got - want).abs().max()))
+        best = want.argmax(-1, keepdim=True)
+        top = max(top, float((got.gather(-1, best) - want.gather(-1, best)).abs().max()))
+        top2 = want.topk(2, dim=-1).values
+        margins.append((top2[..., 0] - top2[..., 1]).flatten().cpu())
+        del want, got
+    margins = torch.cat(margins)
+    return {"max_abs_logit_err": err, "max_top_logit_err": top,
+            "share_checked_by_margin": {str(m): float((margins > m).float().mean())
+                                        for m in MR_REC_MARGINS}}
+
+
+def mr_rec_one_rank(dev, seed, served, pieces) -> dict:
+    """On rank 0 alone, after every mesh's run, for each recurrent family:
+    the one-rank float32 run of ``MR_REC_CHECK``, then for each mesh of
+    ``served`` check (a) on its float32 tokens (``forward_check`` over the
+    mesh's own sequences, one rank) with its decode logits against the
+    forward's (from every rank's ``pieces`` of recorded states), and check
+    (b) against the one-rank run."""
+    t0 = time.perf_counter()
+    mesh = make_local_mesh(device=dev)
+    ctx = mesh_ctx(mesh)
+    out = {}
+    for arch in MR_REC_ARCHS:
+        layers, buckets, margin = MR_REC_CHECK[arch]
+        cfg32 = get_config(arch).scaled(n_layers=layers)
+        reqs = [r for r in mr_serve_requests(seed, MR_SERVE_BUCKETS, arch)
+                if len(r.prompt) in buckets]
+        res = {"meshes": [{"mesh": s["mesh"]} for s in served]}
+        params = init_params(model_spec(cfg32, ctx),
+                             torch.Generator(device=DEV).manual_seed(seed), mesh.device)
+        upcast_(params)
+        sched = BatchScheduler(cfg32, mesh, batch=SERVE_BATCH, max_len=MR_SERVE_MAX_LEN,
+                               eos_id=-1)
+        one32 = mr_serve_run(sched, params, reqs, cfg32)
+        for i, (s, m) in enumerate(zip(served, res["meshes"])):
+            toks = s["archs"][arch]["tokens_f32"]
+            done = {rid: Completion(rid, t, True) for rid, t in toks.items()}
+            m["forward_check"] = forward_check(params, cfg32, ctx, done, reqs, margin)
+            hidden = {}
+            for rank_pieces in pieces:
+                pc = rank_pieces[i][arch]
+                for plen, x in ({} if pc is None else pc["x"]).items():
+                    hidden.setdefault(plen, torch.empty((SERVE_BATCH,) + x.shape[1:],
+                                                        dtype=x.dtype))
+                    hidden[plen][pc["rows"][0]:pc["rows"][1]] = x
+            m["decode_logits"] = decode_logit_errors(params, cfg32, ctx, reqs, toks, hidden)
+        firsts = first_differences(params, cfg32, ctx, reqs, one32,
+                                   [s["archs"][arch]["tokens_f32"] for s in served])
+        for m, f in zip(res["meshes"], firsts):
+            m["f32_check"] = dict(f, n_layers=cfg32.n_layers)
+        del params, sched
+        torch.cuda.empty_cache()
+        out[arch] = res
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def mr_rank(dev, checks, timed, seed, wait_for=None, serve=(), moe_serve=(),
+            rec_serve=()) -> dict:
     """A rank of phase multirank: its checks, then its timed runs, then its
-    serving runs (``serve``: meshes), after which rank 0 alone runs the
-    one-rank serving and its token checks; with ``wait_for``, only once
-    that file exists (a group started early, its start-up beside another
-    group's work)."""
+    serving runs (``serve``, ``moe_serve``, ``rec_serve``: meshes), after
+    which rank 0 alone runs the one-rank serving and its token checks; with
+    ``wait_for``, only once that file exists (a group started early, its
+    start-up beside another group's work)."""
     platform.reset_launch_counts()
     started = time.time()
     while wait_for and not Path(wait_for).exists():
@@ -4224,7 +4457,8 @@ def mr_rank(dev, checks, timed, seed, wait_for=None, serve=(), moe_serve=()) -> 
            "checks": [mr_check_mesh(dev, a, d, m, z, r, seed) for a, (d, m), z, r in checks],
            "timed": [mr_timed_mesh(dev, d, m, z, seed) for (d, m), z in timed],
            "serve": [mr_serve_mesh(dev, d, m, seed) for d, m in serve],
-           "moe_serve": [mr_moe_serve_mesh(dev, d, m, seed) for d, m in moe_serve]}
+           "moe_serve": [mr_moe_serve_mesh(dev, d, m, seed) for d, m in moe_serve],
+           "rec_serve": [mr_rec_serve_mesh(dev, d, m, seed) for d, m in rec_serve]}
     if serve or moe_serve:
         # every rank's route pieces, so rank 0 can put each mesh's routes together
         pieces = [None] * torch.distributed.get_world_size()
@@ -4235,10 +4469,17 @@ def mr_rank(dev, checks, timed, seed, wait_for=None, serve=(), moe_serve=()) -> 
                 out["serve_one_rank"] = mr_serve_one_rank(dev, seed, out["serve"])
             if moe_serve:
                 out["moe_one_rank"] = mr_moe_one_rank(dev, seed, out["moe_serve"], pieces)
+    if rec_serve:
+        # every rank's recorded decode states, so rank 0 can read each mesh's logits
+        pieces = [None] * torch.distributed.get_world_size()
+        torch.distributed.all_gather_object(pieces, [
+            {a: s["archs"][a].pop("hidden") for a in MR_REC_ARCHS} for s in out["rec_serve"]])
+        if torch.distributed.get_rank() == 0:
+            out["rec_one_rank"] = mr_rec_one_rank(dev, seed, out["rec_serve"], pieces)
     return out
 
 
-MR_FAMILIES = {"dense": TRAIN_ARCH, "moe": MR_MOE_ARCH}
+MR_FAMILIES = {"dense": (TRAIN_ARCH,), "moe": (MR_MOE_ARCH,), "recurrent": MR_REC_ARCHS}
 
 
 def multirank_phase(args, smi, families=tuple(MR_FAMILIES)) -> None:
@@ -4247,14 +4488,14 @@ def multirank_phase(args, smi, families=tuple(MR_FAMILIES)) -> None:
     all-to-all), the ranks processes sharing the one card over gloo: two
     ranks for the (1, 2) and (2, 1) checks, timed and serving runs, four for
     the (2, 2) checks.  ``families`` (of ``MR_FAMILIES``) limits the phase
-    to the dense or the MoE family's runs."""
+    to the dense, the MoE or the recurrent families' runs."""
     t_phase = time.perf_counter()
     cards = torch.cuda.device_count()
     root = Path(tempfile.mkdtemp(prefix="multirank_"))
     torch.cuda.empty_cache()
     runs, wall, start_up = {}, {}, {}
 
-    archs = [MR_FAMILIES[f] for f in families]
+    archs = [a for f in families for a in MR_FAMILIES[f]]
     dense = TRAIN_ARCH in archs
 
     def group(world, wait_for=None):
@@ -4262,10 +4503,13 @@ def multirank_phase(args, smi, families=tuple(MR_FAMILIES)) -> None:
         timed = [t for t in MR_TIMED if t[0][0] * t[0][1] == world and dense]
         serve = [m for m in MR_SERVE if m[0] * m[1] == world and dense]
         moe_serve = [m for m in MR_SERVE if m[0] * m[1] == world and MR_MOE_ARCH in archs]
+        rec_serve = [m for m in MR_SERVE if m[0] * m[1] == world
+                     and set(MR_REC_ARCHS) <= set(archs)]
         t0 = time.perf_counter()
         res = run_ranks(mr_rank, world, root / f"w{world}", device=DEV.type,
                         backend=MR_BACKEND,
-                        args=(checks, timed, args.seed, wait_for, serve, moe_serve),
+                        args=(checks, timed, args.seed, wait_for, serve, moe_serve,
+                              rec_serve),
                         timeout=MR_TIMEOUT_S, threads=None)
         runs[world], wall[world] = res, time.perf_counter() - t0
         start_up[world] = min(r["started"] for r in res) - (time.time() - wall[world])
@@ -4303,7 +4547,7 @@ def multirank_phase(args, smi, families=tuple(MR_FAMILIES)) -> None:
     pbs = {}
     for w in (2, 4):
         for r in runs[w]:
-            for c in r["checks"] + r["timed"] + r["serve"] + r["moe_serve"]:
+            for c in r["checks"] + r["timed"] + r["serve"] + r["moe_serve"] + r["rec_serve"]:
                 for k, v in c["pbs_kernel_launches"].items():
                     pbs[k] = pbs.get(k, 0) + v
     assert not pbs, pbs                           # no PBS kernel on this path
@@ -4321,6 +4565,8 @@ def multirank_phase(args, smi, families=tuple(MR_FAMILIES)) -> None:
         serve_report(smi, runs[2], pbs)
     if MR_MOE_ARCH in archs:
         moe_serve_report(smi, runs[2], pbs)
+    if set(MR_REC_ARCHS) <= set(archs):
+        rec_serve_report(smi, runs[2], pbs)
     emit({"phase": "multirank", "gpu": smi, "backend": MR_BACKEND, "cards": cards,
           "ranks_share_one_card": cards == 1,
           "worlds": {str(w): [[c[0], list(c[1])] for c in MR_CHECKS
@@ -4333,7 +4579,9 @@ def multirank_phase(args, smi, families=tuple(MR_FAMILIES)) -> None:
                     "reduced": {MR_MOE_ARCH: "d_model 5120 -> 1024, moe_d_ff 1536 -> 512, "
                                              "60 -> 2 layers (the float32 training state of "
                                              "one full-width MoE layer is ~60 GB)",
-                                TRAIN_ARCH: f"28 -> {MR_CHECK_LAYERS} layers"},
+                                TRAIN_ARCH: f"28 -> {MR_CHECK_LAYERS} layers",
+                                "recurrentgemma-2b": "26 -> 3 layers (one period)",
+                                "mamba2-780m": "48 -> 2 layers"},
                     "rows_x_seq": [MR_CHECK_ROWS, MR_CHECK_SEQ], "dtype": "float32",
                     "state": "carried",
                     "tolerances": {"loss_rel": MR_LOSS_RTOL, "grad_rel_to_leaf_max": MR_GRAD_REL,
@@ -4378,19 +4626,10 @@ def moe_serve_report(smi, ranks, pbs) -> None:
         assert max(check["route_flip_share_by_moe_layer"]) <= ROUTE_FLIP_CEILING, check
         assert all(d["near_tie"] for d in cmp["differences"]), cmp
         meshes.append({
-            "mesh": list(mesh_),
-            "prefill_ms_by_bucket": {str(p): [r["prefill_ms"][p] for r in per]
-                                     for p, _ in MR_SERVE_BUCKETS},
-            "decode_ms_a_step_median": [r["decode_ms_median"] for r in per],
-            "decode_steps": len(per[0]["decode_ms"]),
-            "collectives_a_step": [r["collectives_a_step"] for r in per],
-            "collective_host_ms_a_step_median": [r["collective_host_ms_a_step_median"]
-                                                 for r in per],
+            "mesh": list(mesh_), **rank_timings(per),
             "dispatch_bf16_run": [r["dispatch"] for r in per],
             "dispatch_f32_check": [r["dispatch_f32"] for r in per],
-            "max_memory_allocated_gb": [r["max_memory_allocated_gb"] for r in per],
-            "forward_check": check, "one_rank_compare": cmp,
-            "seconds": [r["seconds"] for r in per]})
+            "forward_check": check, "one_rank_compare": cmp})
     bf16 = [m["tokens"] for m in ranks[0]["moe_serve"]]          # (1, 2)'s, (2, 1)'s
     pairs = [(a, b) for rid in bf16[0] for a, b in zip(bf16[0][rid], bf16[1][rid])]
     full = get_config(MR_MOE_ARCH)
@@ -4403,8 +4642,8 @@ def moe_serve_report(smi, ranks, pbs) -> None:
                      "capacity_factor": full.capacity_factor,
                      "weights": "torch.Generator seed --seed, drawn leaf by leaf, each rank "
                                 "keeping its shard",
-                     "reduced": f"n_layers {full.n_layers} -> {MR_MOE_LAYERS} (the one-card "
-                                "row's depth)",
+                     "reduced": f"n_layers {full.n_layers} -> {MR_MOE_LAYERS} (the "
+                                "script's budget)",
                      "f32_check_layers": MR_MOE_CHECK_LAYERS,
                      "f32_check_bucket": MR_MOE_CHECK_BUCKET},
           "traffic": {"buckets": [{"prompt_tokens": p, "requests": n}
@@ -4418,6 +4657,60 @@ def moe_serve_report(smi, ranks, pbs) -> None:
           "bf16_tokens_equal_across_meshes": sum(a == b for a, b in pairs) / len(pairs),
           "meshes": meshes, "one_rank_s": one["seconds"],
           "pbs_kernel_launches": pbs})
+
+
+def rec_serve_report(smi, ranks, pbs) -> None:
+    """Phase multirank's recurrent serving line, from the 2-rank group's
+    results, with its assertions: every rank of a mesh returned the same
+    tokens, and checks (a) and (b) of ``MR_REC_CHECK`` hold for each
+    family on each mesh."""
+    one = ranks[0]["rec_one_rank"]
+    meshes, failed = [], []
+    for i, mesh_ in enumerate(MR_SERVE):
+        per = [r["rec_serve"][i] for r in ranks]
+        row = {"mesh": list(mesh_)}
+        for arch in MR_REC_ARCHS:
+            pa = [p["archs"][arch] for p in per]
+            res = one[arch]["meshes"][i]
+            check, f32 = res["forward_check"], res["f32_check"]
+            logit_err = res["decode_logits"]["max_abs_logit_err"]
+            for what, ok in (
+                    ("ranks' tokens", all(p["tokens"] == pa[0]["tokens"]
+                                          and p["tokens_f32"] == pa[0]["tokens_f32"]
+                                          for p in pa[1:])),
+                    ("(a) mismatches", check["checked_mismatches"] == 0),
+                    ("(a) margin past twice the logit error",
+                     check["margin_tol"] >= 2 * logit_err),
+                    ("(a) half the positions", check["positions_checked"] * 2
+                     >= check["positions"]),
+                    ("(b) near ties", all(d["margin"] <= MR_SERVE_F32_MARGIN
+                                          for d in f32["differences"])),
+                    ("(b) half the positions", f32["positions_compared"] * 2
+                     >= f32["positions"])):
+                if not ok:
+                    failed.append(f"{arch} {list(mesh_)}: {what}")
+            row[arch] = {**rank_timings(pa), "forward_check": check, "f32_check": f32,
+                         "decode_logits": res["decode_logits"]}
+        meshes.append(row)
+    emit({"phase": "multirank", "step": "serve_recurrent", "gpu": smi, "backend": MR_BACKEND,
+          "note": "ranks are processes sharing one card over gloo (host memory); no "
+                  "collective time here is an NVLink or NCCL figure",
+          "config": {a: {"n_layers": get_config(a).n_layers, "d_model": get_config(a).d_model,
+                         "dtype": "bfloat16",
+                         "check": dict(zip(("f32_layers", "f32_buckets", "margin"),
+                                           MR_REC_CHECK[a]))}
+                     for a in MR_REC_ARCHS},
+          "weights": "torch.Generator seed --seed, drawn leaf by leaf, each rank keeping "
+                     "its shard",
+          "traffic": {"buckets": [{"prompt_tokens": p, "requests": n}
+                                  for p, n in MR_SERVE_BUCKETS],
+                      "max_new": MR_SERVE_MAX_NEW, "batch": SERVE_BATCH,
+                      "max_len": MR_SERVE_MAX_LEN,
+                      "reduced": "model_serve's 3 buckets and 32 new tokens -> 2 and 16"},
+          "tolerances": {"near_tie_margin": MR_SERVE_F32_MARGIN},
+          "meshes": meshes, "failed": failed, "one_rank_s": one["seconds"],
+          "pbs_kernel_launches": pbs})
+    assert not failed, failed
 
 
 def serve_report(smi, ranks, pbs) -> None:
@@ -4437,24 +4730,17 @@ def serve_report(smi, ranks, pbs) -> None:
         assert all(d["margin"] <= MR_SERVE_F32_MARGIN for d in f32["differences"]), f32
         assert f32["positions_compared"] * 2 >= f32["positions"], f32
         meshes.append({
-            "mesh": list(mesh_),
-            "prefill_ms_by_bucket": {str(p): [r["prefill_ms"][p] for r in per]
-                                     for p, _ in MR_SERVE_BUCKETS},
-            "decode_ms_a_step_median": [r["decode_ms_median"] for r in per],
-            "decode_steps": len(per[0]["decode_ms"]),
-            "collectives_a_step": [r["collectives_a_step"] for r in per],
-            "collective_host_ms_a_step_median": [r["collective_host_ms_a_step_median"]
-                                                 for r in per],
-            "max_memory_allocated_gb": [r["max_memory_allocated_gb"] for r in per],
+            "mesh": list(mesh_), **rank_timings(per),
             "forward_check": check,
             "tokens_equal_one_rank": one["meshes"][i]["tokens_equal_one_rank"],
             "first_difference_by_request": one["meshes"][i]["first_difference_by_request"],
-            "f32_check": f32,
-            "seconds": [r["seconds"] for r in per]})
+            "f32_check": f32})
     emit({"phase": "multirank", "step": "serve", "gpu": smi, "backend": MR_BACKEND,
           "note": "ranks are processes sharing one card over gloo (host memory); no "
                   "collective time here is an NVLink or NCCL figure",
-          "config": {"arch": TRAIN_ARCH, "n_layers": get_config(TRAIN_ARCH).n_layers,
+          "config": {"arch": TRAIN_ARCH, "n_layers": MR_SERVE_LAYERS,
+                     "reduced": f"n_layers {get_config(TRAIN_ARCH).n_layers} -> "
+                                f"{MR_SERVE_LAYERS} (the script's budget)",
                      "d_model": get_config(TRAIN_ARCH).d_model, "dtype": "bfloat16",
                      "weights": "torch.Generator seed --seed, every rank the same, sharded",
                      "f32_check_layers": MR_CHECK_LAYERS},

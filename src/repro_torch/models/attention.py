@@ -21,7 +21,9 @@ in.
 
 Sliding-window attention decodes against a ring of ``window`` slots
 (``local_*``, slot = position % window), written in place the same way; a
-ring never fills, so ``local_decode`` has no capacity to refuse.
+ring never fills, so ``local_decode`` has no capacity to refuse.  Across
+ranks the ring is replicated over 'model' (the window is small), the
+query heads sharded as in prefill, and the output psummed.
 
 MLA (deepseek's multi-head latent attention, ``mla_*``) caches only the
 latent ``c_kv`` and the shared rotary key ``k_rope`` and decodes in absorbed
@@ -291,11 +293,13 @@ def local_fill_cache(cache, k, v, cfg: ModelConfig):
 
 
 def local_decode(p, x, cache, ctx: MeshCtx, cfg: ModelConfig):
-    """Sliding-window decode against the ring.  x: (B, 1, d).
+    """Sliding-window decode against the ring.  x: (B, 1, d), replicated
+    over 'model', as the ring is (K/V projections are replicated).
 
-    The new K/V go into slot ``len % window`` of ``cache`` in place; slots
-    are masked by the absolute position they hold.  RoPE positions are
-    absolute."""
+    The new K/V go into slot ``len % window`` of ``cache`` in place (every
+    rank writes the same); slots are masked by the absolute position they
+    hold.  RoPE positions are absolute.  Each rank attends its own query
+    heads and multiplies them by its ``wo`` rows, psummed over 'model'."""
     B = x.shape[0]
     dh = cfg.resolved_head_dim
     w = cfg.window
@@ -320,7 +324,7 @@ def local_decode(p, x, cache, ctx: MeshCtx, cfg: ModelConfig):
     out = _mask_pad_heads(out, cfg, ctx)
     qpr = out.shape[1]
     o = matmul(out.transpose(1, 2).reshape(B, 1, qpr * dh), p["wo"])
-    return o, {"k": k_c, "v": v_c, "len": pos + 1}
+    return psum_model(o, ctx), {"k": k_c, "v": v_c, "len": pos + 1}
 
 
 # ---- cross attention decode: the encoder memory's K/V, computed once ------

@@ -27,19 +27,21 @@ reference's ``(x, aux)``.  With ``remat`` (the default, as the reference's
 under ``torch.utils.checkpoint`` and is recomputed in the backward
 (serving records nothing, so it runs the layers as they are).
 
-Across ranks (a ``MeshCtx`` above one rank) the dense and MoE families
-train as the reference's do: the residual stream sequence-sharded over
-'model' between blocks (``forward`` takes this rank's (B, T/M) tokens),
-the embedding and the logits vocab-sharded (``embed_tokens``, ``ce_loss``
-with ``pmax_const`` and scalar psums), Q/O (and MLA's ``wq_b`` /
-``wkv_b`` / ``wo``) head-sharded, the MLP split column / row, and the
-routed experts spread over the whole ('data', 'model') world with their
-tokens dispatched by all-to-all (``ffn.moe_apply``, the mesh's 'data'
-size its ``ep_data_size``); and serve as the reference's decode does: the
-one-token stream replicated over 'model'
-(``embed_tokens(seq_sharded=False)``), the greedy token a distributed
-argmax over the vocab shards (``greedy_token``).  The recurrent block
-kinds, the encoder-decoder and the frontends raise
+Across ranks (a ``MeshCtx`` above one rank) the dense, MoE, hybrid and
+SSM families train as the reference's do: the residual stream
+sequence-sharded over 'model' between blocks (``forward`` takes this
+rank's (B, T/M) tokens), the embedding and the logits vocab-sharded
+(``embed_tokens``, ``ce_loss`` with ``pmax_const`` and scalar psums), Q/O
+(and MLA's ``wq_b`` / ``wkv_b`` / ``wo``) head-sharded, windowed
+attention too, the MLP split column / row, the routed experts spread over
+the whole ('data', 'model') world with their tokens dispatched by
+all-to-all (``ffn.moe_apply``, the mesh's 'data' size its
+``ep_data_size``), the RG-LRU scanning each rank's chunk at full width
+(``rglru.rglru_apply``) and the SSD's heads sharded (``ssm.ssm_apply``);
+and serve as the reference's decode does: the one-token stream replicated
+over 'model' (``embed_tokens(seq_sharded=False)``), the greedy token a
+distributed argmax over the vocab shards (``greedy_token``).  The
+encoder-decoder block, the encoder and the frontends raise
 ``NotImplementedError`` above one rank, naming the later sub-item of
 ROADMAP Queue A item 15 that brings them.
 
@@ -77,9 +79,9 @@ from .ssm import ssm_apply, ssm_spec
 ACROSS_RANKS_TODO = ("{what} above one rank: ROADMAP Queue A item 15 sub-item 6c.{part} "
                      "(the other families across ranks)")
 # the block kinds that run above one rank, and the sub-item of the others
-ACROSS_RANKS_KINDS = ("attn", "mla_dense", "mla_moe")
-TODO_PART = {"attn_window": "ii", "rglru": "ii", "ssm": "ii", "dec": "iii",
-             "hybrid_period": "ii"}
+ACROSS_RANKS_KINDS = ("attn", "mla_dense", "mla_moe", "attn_window", "rglru", "ssm",
+                      "hybrid_period")
+TODO_PART = {"dec": "iii"}
 
 
 def vocab_pad(cfg: ModelConfig) -> int:
@@ -274,8 +276,8 @@ def make_block_fn(cfg: ModelConfig, ctx: MeshCtx, kind: str, *, memory=None,
     """Returns f(params, x) -> x for train / prefill; with ``with_aux``
     f(params, x) -> (x, aux), aux the MoE block's aux loss and ``None`` for
     every other kind.  A ``dec`` block attends to ``memory`` (B, Tm, d), the
-    encoder's output.  Above one rank the ``attn``, ``mla_dense`` and
-    ``mla_moe`` blocks run (the others raise ``NotImplementedError``)."""
+    encoder's output.  Above one rank every kind but ``dec`` runs (it
+    raises ``NotImplementedError``)."""
     if ctx.world > 1 and kind not in ACROSS_RANKS_KINDS:
         raise NotImplementedError(ACROSS_RANKS_TODO.format(what=f"the {kind!r} block",
                                                            part=TODO_PART[kind]))

@@ -1,26 +1,46 @@
-"""RG-LRU recurrent block (Griffin / RecurrentGemma, arXiv:2402.19427) on
-one card.
+"""RG-LRU recurrent block (Griffin / RecurrentGemma, arXiv:2402.19427).
 
 h_t = a_t ⊙ h_{t-1} + sqrt(1 - a_t^2) ⊙ (i_t ⊙ x_t),
 a_t = exp(c · r_t · log σ(Λ)),  c = 8,
 with sigmoid input/recurrence gates (diagonal).
 
-The reference (``repro.models.rglru``) runs the block sequence-parallel:
-each rank scans its chunk with ``lax.associative_scan`` and the chunks are
-composed with one all-gather of segment summaries and a 3-step conv halo.
-On one card the halo is zeros and there is one chunk.  Torch has no
-associative scan; ``_linear_scan`` is a log-depth doubling scan
-(Hillis–Steele over the affine maps (a, b), ⌈log₂ T⌉ steps) in float32,
-whose rounding differs from ``lax.associative_scan``'s tree in the last
-bits.
+As in the reference (``repro.models.rglru``) the block is
+sequence-parallel: each rank of 'model' holds its (B, T/M, d) chunk at
+full width, the weights replicated over 'model', and scans the chunk
+alone; the chunks are composed from each chunk's affine map (A_seg, B_seg)
+— the decay it applies to the state it is handed, and the state it leaves
+from a zero start.  The port takes two all-gathers over 'model' and no
+``ppermute`` (``LocalMesh`` has none):
 
-One deliberate difference: the decode cache's ``"conv"`` holds the last 3
-**pre-conv** branch inputs, which ``rglru_decode`` convolves with the new
-one.  The reference's ``rglru_apply`` stores the last 3 conv *outputs*
-there (it rebinds ``rec`` to the conv's output before taking the tail), so
-its decode after a prefill convolves twice and departs from its own
-no-cache forward.  A prompt shorter than 3 tokens leaves zeros in the
-oldest rows, which equal the zero halo.
+* every rank's last ``min(3, T/M)`` **pre-conv** branch inputs.  The rows
+  before a rank's chunk are its causal conv's halo (zeros before the
+  sequence starts), and the last 3 rows of the whole sequence are the
+  decode cache's ``"conv"``.  A chunk shorter than the halo hands on all
+  its rows, so 1- and 2-row chunks get the right halo;
+* the stacked (A_seg, B_seg) summaries: a rank's carry-in state is the
+  composition of the chunks before it, and the decode cache's ``"h"`` that
+  of all of them.  Then h = exp(cumsum(log a)) · h_in + h_local, as in the
+  reference.
+
+Every rank records both gathers in autograd whatever its position (its
+halo and carry-in are slices of the gathered tensors, zero on rank 0), so
+every rank runs both transposes (reduce-scatters) in the backward.  On one
+rank the halo is zeros and there is one chunk.  Torch has no associative
+scan; ``_linear_scan`` is a log-depth doubling scan (Hillis–Steele over
+the affine maps (a, b), ⌈log₂ T⌉ steps) in float32, whose rounding differs
+from ``lax.associative_scan``'s tree in the last bits.  ``rglru_decode``
+is replicated over 'model' and takes no collective.
+
+Two deliberate differences from the reference.  The decode cache's
+``"conv"`` holds the last 3 **pre-conv** branch inputs, which
+``rglru_decode`` convolves with the new one.  The reference's
+``rglru_apply`` stores the last 3 conv *outputs* there (it rebinds ``rec``
+to the conv's output before taking the tail), so its decode after a
+prefill convolves twice and departs from its own no-cache forward.  And a
+sequence (above one rank, a chunk) shorter than 3 rows takes its halo from
+the rows that exist, zeros before the sequence's start; the reference's
+zero halo and its ``ppermute`` of ``rec[:, -3:]`` are then as short as the
+chunk, and it raises or misaligns the taps.
 """
 from __future__ import annotations
 
@@ -28,7 +48,7 @@ import torch
 import torch.nn.functional as F
 
 from .config import ModelConfig
-from .layers import MeshCtx, einsum, matmul
+from .layers import MeshCtx, ag_seq, einsum, matmul
 from .spec import P
 
 _C = 8.0
@@ -87,20 +107,45 @@ def _linear_scan(a, b):
     return b
 
 
+def _compose(summ):
+    """Every chunk's carry-in state from the gathered summaries summ (B, M,
+    2, w), (A_seg, B_seg) a chunk: (B, M + 1, w), row j the state before
+    chunk j (row M after the last)."""
+    h = torch.zeros_like(summ[:, 0, 1])
+    states = [h]
+    for j in range(summ.shape[1]):
+        h = summ[:, j, 0] * h + summ[:, j, 1]
+        states.append(h)
+    return torch.stack(states, dim=1)
+
+
 def rglru_apply(p, x_sp, ctx: MeshCtx, cfg: ModelConfig, *, return_state=False):
-    """Forward over the whole sequence: x (B, T, d) in, (B, T, d) out.
-    With ``return_state`` also the decode cache: the last state ``h``, the
-    last 3 pre-conv branch inputs ``conv`` (bfloat16) and ``len`` = T."""
-    B, T, _ = x_sp.shape
+    """Sequence-parallel forward: x_sp (B, T/M, d), this rank's chunk, in,
+    (B, T/M, d) out (on one rank the whole sequence).  With
+    ``return_state`` also the decode cache, the same on every rank: the
+    whole sequence's last state ``h``, its last 3 pre-conv branch inputs
+    ``conv`` (bfloat16) and ``len`` = T."""
+    B, Tc, _ = x_sp.shape
+    M, r = ctx.model_size, ctx.midx()
     gate, rec = _branch_in(p, x_sp)
-    halo = rec.new_zeros((B, 3, rec.shape[2]))
-    tail = torch.cat([halo, rec], dim=1)[:, -3:]          # pre-conv (see docstring)
-    rec = _conv_with_halo(rec, halo, p)
-    _, a, b = _gates(p, rec)
+    k = min(3, Tc)
+    # 3 zero rows, then every rank's last k pre-conv rows in rank order
+    # (B, 3 + k·M, w): the 3 rows before row 3 + r·k are this rank's halo
+    tails = torch.cat([rec.new_zeros((B, 3, rec.shape[2])), ag_seq(rec[:, Tc - k:], ctx)], 1)
+    conv = _conv_with_halo(rec, tails[:, r * k:r * k + 3], p)
+    log_a, a, b = _gates(p, conv)
     h = _linear_scan(a, b)
+    if M > 1:
+        a_prefix = torch.exp(torch.cumsum(log_a, dim=1))            # (B, Tc, w)
+        summ = torch.stack([a_prefix[:, -1], h[:, -1]], dim=1)[:, None]
+        states = _compose(ag_seq(summ, ctx))                      # (B, M + 1, w)
+        h_last = states[:, M]
+        h = a_prefix * states[:, r, None] + h
+    else:
+        h_last = h[:, -1]
     out = matmul(h.to(x_sp.dtype) * gate, p["wout"])
     if return_state:
-        return out, {"h": h[:, -1], "conv": tail.to(torch.bfloat16), "len": T}
+        return out, {"h": h_last, "conv": tails[:, -3:].to(torch.bfloat16), "len": Tc * M}
     return out
 
 
@@ -114,7 +159,9 @@ def rglru_init_cache(cfg: ModelConfig, ctx: MeshCtx, batch: int, device=None):
 
 
 def rglru_decode(p, x, cache, ctx: MeshCtx, cfg: ModelConfig):
-    """One step: x (B, 1, d) -> (B, 1, d) and the next cache."""
+    """One step: x (B, 1, d) -> (B, 1, d) and the next cache.  Above one
+    rank x, the weights and the cache are replicated over 'model': no
+    collective."""
     gate, rec = _branch_in(p, x)                       # (B, 1, w)
     window = torch.cat([cache["conv"].to(rec.dtype), rec], dim=1)
     rec1 = einsum("bkc,kc->bc", window, p["conv_w"]) + p["conv_b"]

@@ -1,8 +1,20 @@
-"""Mamba-2 / SSD block (state-space duality, arXiv:2405.21060) on one card.
+"""Mamba-2 / SSD block (state-space duality, arXiv:2405.21060).
 
-The reference (``repro.models.ssm``) shards heads over 'model' inside
-``shard_map`` with a sequence-parallel reduce-scatter on the output; on one
-card every head is local and the collectives are identities.
+As in the reference (``repro.models.ssm``) heads (``d_inner / headdim``)
+are sharded over 'model', the B/C projections (``ssm_ngroups`` groups)
+replicated: ``ssm_apply`` all-gathers the sequence in and reduce-scatters
+its output, the gated RMSNorm psums its sum of squares over the whole
+``d_inner``, and the one-token ``ssm_decode`` (its input replicated over
+'model') psums its output; its cache holds this rank's heads and
+``d_inner`` columns.  On one rank every head is local and the collectives
+are identities.
+
+One deliberate difference: each local head reads the B/C group of its
+*global* head, ``(midx · H/M + h) // (H / G)`` (``_head_groups``).  The
+reference takes the map from the local head count, local head ``h`` reading
+group ``h // (H / M / G)``, so above one rank with ``ssm_ngroups > 1`` it
+computes another function than on one device (mamba2-780m has one group,
+where the maps agree).
 
 Prefill uses the chunked SSD algorithm: a quadratic attention-like term
 within each chunk plus a recurrence over chunk-boundary states (a Python
@@ -13,11 +25,13 @@ casts, so bfloat16 activations meet float32 decays where they do there.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
 from .config import ModelConfig
-from .layers import MeshCtx, ag_seq, einsum, matmul, rs_seq
+from .layers import MeshCtx, ag_seq, einsum, matmul, psum_model, rs_seq
 from .spec import P
 
 
@@ -60,8 +74,23 @@ def _softplus(x):
     return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
-def _ssd_chunked(xh, dt, A, B, C, cfg: ModelConfig, init_state=None):
-    """Chunked SSD: xh (B, T, H, P), dt (B, T, H), B/C (B, T, G, N).
+@functools.lru_cache(maxsize=None)
+def _groups_of(start: int, Hl: int, per: int, device: torch.device) -> torch.Tensor:
+    # one upload per (rank, shape, device), not one per layer and step; read-only
+    return torch.div(torch.arange(start, start + Hl), per, rounding_mode="floor").to(device)
+
+
+def _head_groups(cfg: ModelConfig, ctx: MeshCtx, Hl: int, device) -> torch.Tensor:
+    """The B/C group of each of this rank's ``Hl`` heads: that of its
+    global head."""
+    _, H, _, G, _ = _dims(cfg, ctx)
+    return _groups_of(ctx.midx() * Hl, Hl, max(1, H // G), torch.device(device))
+
+
+def _ssd_chunked(xh, dt, A, B, C, cfg: ModelConfig, init_state=None, groups=None):
+    """Chunked SSD: xh (B, T, H, P), dt (B, T, H), B/C (B, T, G, N);
+    ``groups`` (H,) the group each head reads (None: ``H // G`` heads a
+    group, in order).
 
     Returns (y (B, T, H, P), final_state (B, H, P, N) float32).
     """
@@ -75,12 +104,13 @@ def _ssd_chunked(xh, dt, A, B, C, cfg: ModelConfig, init_state=None):
         B = F.pad(B, (0, 0, 0, 0, 0, T_pad - T))
         C = F.pad(C, (0, 0, 0, 0, 0, T_pad - T))
     nC = T_pad // L
-    rep = H // G
+    if groups is None:
+        groups = torch.arange(H, device=xh.device) // (H // G)
 
     xc = xh.reshape(Bsz, nC, L, H, Pd)
     dtc = dt.reshape(Bsz, nC, L, H)
-    Bg = B.reshape(Bsz, nC, L, G, N).repeat_interleave(rep, dim=3)
-    Cg = C.reshape(Bsz, nC, L, G, N).repeat_interleave(rep, dim=3)
+    Bg = B.reshape(Bsz, nC, L, G, N).index_select(3, groups)
+    Cg = C.reshape(Bsz, nC, L, G, N).index_select(3, groups)
     dA = dtc * (-torch.exp(A))[None, None, None, :]    # (B, nC, L, H) negative
     cum = torch.cumsum(dA, dim=2)                        # within-chunk cumulative
 
@@ -118,8 +148,10 @@ def _ssd_chunked(xh, dt, A, B, C, cfg: ModelConfig, init_state=None):
 
 
 def _gated_rmsnorm(y, scale, cfg: ModelConfig, ctx: MeshCtx):
+    """RMSNorm of y (…, d_inner / M) over the whole ``d_inner``: the local
+    sum of squares psummed over 'model'."""
     d_inner = cfg.d_model * cfg.ssm_expand
-    ss = torch.sum(torch.square(y.float()), -1, keepdim=True)
+    ss = psum_model(torch.sum(torch.square(y.float()), -1, keepdim=True), ctx)
     var = ss / d_inner
     return (y.float() * torch.rsqrt(var + 1e-6)).to(y.dtype) * scale
 
@@ -152,7 +184,8 @@ def ssm_apply(p, x_sp, ctx: MeshCtx, cfg: ModelConfig, *, return_state=False):
     Cm = bc[..., G * N:].reshape(Bsz, T, G, N)
     Hl = xin.shape[-1] // hp
     xh = xin.reshape(Bsz, T, Hl, hp)
-    y, state = _ssd_chunked(xh, dt, p["a_log"].float(), Bm, Cm, cfg)
+    y, state = _ssd_chunked(xh, dt, p["a_log"].float(), Bm, Cm, cfg,
+                            groups=_head_groups(cfg, ctx, Hl, xh.device))
     y = y + xh * p["dskip"][None, None, :, None]
     y = y.reshape(Bsz, T, Hl * hp)
     y = y * F.silu(z)
@@ -166,11 +199,13 @@ def ssm_apply(p, x_sp, ctx: MeshCtx, cfg: ModelConfig, *, return_state=False):
 
 
 def ssm_init_cache(cfg: ModelConfig, ctx: MeshCtx, batch: int, device=None):
-    d_inner, H, hp, G, N = _dims(cfg, ctx)
+    """A zeroed cache of this rank's heads and ``d_inner`` columns."""
+    _, H, hp, G, N = _dims(cfg, ctx)
+    Hl = max(1, H // ctx.model_size)
     return {
-        "ssd": torch.zeros((batch, H, hp, N), dtype=torch.float32, device=device),
+        "ssd": torch.zeros((batch, Hl, hp, N), dtype=torch.float32, device=device),
         "conv": {
-            "x": torch.zeros((batch, cfg.ssm_conv - 1, d_inner), dtype=torch.bfloat16,
+            "x": torch.zeros((batch, cfg.ssm_conv - 1, Hl * hp), dtype=torch.bfloat16,
                              device=device),
             "bc": torch.zeros((batch, cfg.ssm_conv - 1, 2 * G * N), dtype=torch.bfloat16,
                               device=device),
@@ -180,8 +215,9 @@ def ssm_init_cache(cfg: ModelConfig, ctx: MeshCtx, batch: int, device=None):
 
 
 def ssm_decode(p, x, cache, ctx: MeshCtx, cfg: ModelConfig):
-    """O(1) recurrent step: x (B, 1, d).  The ``ssd`` state of ``cache`` is
-    updated in place and returned in the next cache."""
+    """O(1) recurrent step: x (B, 1, d), replicated over 'model'.  The
+    ``ssd`` state of ``cache`` (this rank's heads) is updated in place and
+    returned in the next cache; the output is psummed over 'model'."""
     Bsz = x.shape[0]
     _, H, hp, G, N = _dims(cfg, ctx)
     z, xin, bc, dt = _proj(p, x, cfg)                    # (B, 1, ·)
@@ -193,12 +229,12 @@ def ssm_decode(p, x, cache, ctx: MeshCtx, cfg: ModelConfig):
     Bm = bcv[..., :G * N].reshape(Bsz, G, N)
     Cm = bcv[..., G * N:].reshape(Bsz, G, N)
     Hl = xin.shape[-1] // hp
-    rep = Hl // G if Hl >= G else 1
+    groups = _head_groups(cfg, ctx, Hl, x.device)
     xh = xin.reshape(Bsz, Hl, hp)
     dt0 = dt[:, 0].float()
     dA = dt0 * (-torch.exp(p["a_log"].float()))          # (B, Hl)
-    Bg = Bm.repeat_interleave(rep, dim=1)[:, :Hl]
-    Cg = Cm.repeat_interleave(rep, dim=1)[:, :Hl]
+    Bg = Bm.index_select(1, groups)
+    Cg = Cm.index_select(1, groups)
     h = cache["ssd"]
     h.mul_(torch.exp(dA)[..., None, None]).add_(
         (dt0[..., None] * xh.float())[..., None] * Bg.float()[:, :, None, :])
@@ -207,7 +243,7 @@ def ssm_decode(p, x, cache, ctx: MeshCtx, cfg: ModelConfig):
     y = y.reshape(Bsz, 1, Hl * hp)
     y = y * F.silu(z)
     y = _gated_rmsnorm(y, p["gate_norm"], cfg, ctx)
-    out = matmul(y, p["wout"])
+    out = psum_model(matmul(y, p["wout"]), ctx)
     new_cache = {
         "ssd": h,
         "conv": {"x": cx[:, 1:], "bc": cbc[:, 1:]},

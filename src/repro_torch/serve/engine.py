@@ -8,11 +8,14 @@ functions on tensors over the same parameter tree, looping over each
 group's layers in Python where the reference runs ``lax.scan``.
 
 Above one rank (``launch.mesh.LocalMesh`` ranks started by
-``launch.ranks.run_ranks``) the dense family (a plan of ``attn`` blocks)
-and the MoE family (``mla_dense`` and ``mla_moe`` blocks: the latent cache
+``launch.ranks.run_ranks``) the dense family (a plan of ``attn`` blocks),
+the MoE family (``mla_dense`` and ``mla_moe`` blocks: the latent cache
 sequence-sharded as the KV cache is, the routed experts over the whole
-('data', 'model') world, the mesh's 'data' size their ``ep_data_size``)
-are served as the reference's ``shard_map`` serves them: every rank calls the
+('data', 'model') world, the mesh's 'data' size their ``ep_data_size``),
+the hybrid family (``rglru`` and ``attn_window`` blocks: the RG-LRU state
+and conv tail and the KV rings replicated over 'model') and the SSM family
+(``ssm`` blocks: the state and the conv ring of ``x`` split over 'model' by
+heads) are served as the reference's ``shard_map`` serves them: every rank calls the
 steps with its own parameter shards and the *global* inputs, keeps its rows
 (over ``batch_axes``) and, at prefill, its sequence chunk, and gets back its
 own caches (the blocks of the reference's global caches by ``cache_spec``)
@@ -385,11 +388,11 @@ def make_serve_fns(cfg: ModelConfig, mesh, *, batch: int, max_len: int,
     Above one rank ``params`` are this rank's shards
     (``models.spec.shard_params``), ``inputs`` and ``tokens`` the global
     batch, ``caches`` this rank's, and the token is global (see the module
-    docstring).  There only a plan of ``attn``, ``mla_dense`` and
-    ``mla_moe`` blocks without a frontend is served (the other kinds and
-    ``"frontend"`` raise ``NotImplementedError``, sub-item 6c.ii / 6c.iii),
-    T must divide by the 'model' size, and a ``max_len`` that the 'model'
-    size does not divide raises ``ValueError``."""
+    docstring).  There every plan but the encoder-decoder's is served,
+    without a frontend (``dec`` blocks and ``"frontend"`` raise
+    ``NotImplementedError``, sub-item 6c.iii), T must divide by the 'model'
+    size, and a ``max_len`` that the 'model' size does not divide raises
+    ``ValueError``."""
     ctx = mesh_ctx(mesh)
     groups = [(f"g{gi}", kind, count, scanned)
               for gi, (kind, count, scanned) in enumerate(layer_plan(cfg)) if count]

@@ -35,6 +35,17 @@ Tasks (``kind``):
   where the task names ``max_len``, ``mla_fill_cache`` then one
   ``mla_decode`` a ``xsteps`` entry (outputs and each rank's cache); the
   weights are given in the reference's placement;
+* ``recurrent_layers``: where the task's ``parts`` name them,
+  ``rglru_apply``, the windowed ``gqa_apply`` and ``ssm_apply``, each with
+  its state (``return_state`` / ``return_kv``): each rank's output, state
+  and ``jax.vjp`` of ``Σ out · cot``; ``rglru_decode`` from the given cache
+  (``h0``, ``conv0``), ``local_fill_cache`` + ``local_decode`` and
+  ``ssm_apply`` + ``ssm_decode`` over the ``xstep`` inputs: each rank's
+  outputs and last cache; and the raw pre-conv tail ``_branch_in(p,
+  x)[1][:, -3:]`` of the whole sequence.  A part that raises records its
+  exception's name under ``<name>/<part>/error``;
+* ``forward``: the no-cache ``forward`` of the given tokens on the mesh:
+  the final-norm states, whole;
 * ``serve``: the reference's ``BatchScheduler`` on the given global
   parameters and requests (each completion's tokens, ``finished`` and the
   run's counts), then, where the task names a ``prefill`` bucket, that
@@ -56,7 +67,7 @@ import numpy as np  # noqa: E402
 from jax.sharding import PartitionSpec as JP  # noqa: E402
 
 from repro.configs import get_smoke_config  # noqa: E402
-from repro.models import attention, backbone, ffn, layers  # noqa: E402
+from repro.models import attention, backbone, ffn, layers, rglru, ssm  # noqa: E402
 from repro.models.spec import pspecs  # noqa: E402
 from repro.optim import OptConfig, build_plan, sync_gradient  # noqa: E402
 from repro.optim.compression import CompressionConfig  # noqa: E402
@@ -341,6 +352,110 @@ def moe_layers(task, inp, out):
             out[f"{name}/mla_decode/k_rope"] = np.asarray(kr)
 
 
+def recurrent_layers(task, inp, out):
+    d, m = task["mesh"]
+    mesh = mesh_of(d, m)
+    ctx = mesh_ctx(mesh)
+    cfg = config(task)
+    name = task["name"]
+    parts = task["parts"]
+    seq, rows = JP("data", "model", None), JP("data", None, None)
+    f32 = jnp.float32
+    x = inp[f"{name}/x"]
+    steps = [inp[f"{name}/xstep{i}"] for i in range(task.get("n_steps", 0))]
+    specs = {"rglru": pspecs(rglru.rglru_spec(cfg, ctx)),
+             "attn": pspecs(attention.gqa_spec(cfg, ctx)),
+             "ssm": pspecs(ssm.ssm_spec(cfg, ctx))}
+    params = {k: unflat(inp, f"{name}/params/{k}") for k in parts}
+    per = lambda t: jax.tree.map(lambda a: jnp.asarray(a, f32)[None], t)   # noqa: E731
+
+    def applies(key, pp, xs):
+        if key == "rglru":
+            o, st = rglru.rglru_apply(pp, xs, ctx, cfg, return_state=True)
+            return o, {"h": st["h"], "conv": st["conv"]}
+        if key == "attn":
+            o, (k, v) = attention.gqa_apply(pp, xs, ctx, cfg, window=cfg.window,
+                                            return_kv=True)
+            return o, {"k": k, "v": v}
+        o, st = ssm.ssm_apply(pp, xs, ctx, cfg, return_state=True)
+        return o, {"ssd": st["ssd"], "conv": st["conv"]}
+
+    def vjp_body(key):
+        def body(pp, xs, cot):
+            y, pull, aux = jax.vjp(lambda a, b: applies(key, a, b), pp, xs, has_aux=True)
+            gp, gx = pull(cot[0])
+            return y[None], per(aux), per(gp), gx[None]
+        return body
+
+    def chains(key, pp, xs, *xd):
+        ys = []
+        if key == "rglru":
+            cache = {"h": xs[0], "conv": xs[1], "len": jnp.int32(0)}
+            for xx in xd:
+                o, cache = rglru.rglru_decode(pp, xx, cache, ctx, cfg)
+                ys.append(o)
+            st = {"h": cache["h"], "conv": cache["conv"]}
+        elif key == "attn":
+            _, (k, v) = attention.gqa_apply(pp, xs, ctx, cfg, window=cfg.window,
+                                            return_kv=True)
+            cache = attention.local_fill_cache(None, k, v, cfg)
+            for xx in xd:
+                o, cache = attention.local_decode(pp, xx, cache, ctx, cfg)
+                ys.append(o)
+            st = {"k": cache["k"], "v": cache["v"]}
+        else:
+            _, cache = ssm.ssm_apply(pp, xs, ctx, cfg, return_state=True)
+            for xx in xd:
+                o, cache = ssm.ssm_decode(pp, xx, cache, ctx, cfg)
+                ys.append(o)
+            st = {"ssd": cache["ssd"], "conv": cache["conv"]}
+        return tuple(per(y) for y in ys), per(st)
+
+    for key in parts:
+        try:
+            body = jax.shard_map(vjp_body(key), mesh=mesh,
+                                 in_specs=(specs[key], seq, RANKS), out_specs=RANKS,
+                                 check_vma=False)
+            y, st, gp, gx = jax.jit(body)(params[key], x, inp[f"{name}/cot/{key}"])
+        except Exception as e:          # noqa: BLE001 -- recorded, the test reads it
+            out[f"{name}/{key}/error"] = np.asarray(type(e).__name__)
+            continue
+        out[f"{name}/{key}/y"], out[f"{name}/{key}/dx"] = np.asarray(y), np.asarray(gx)
+        flat(st, f"{name}/{key}/state", out)
+        flat(gp, f"{name}/{key}/dp", out)
+        if not steps:
+            continue
+        if key == "rglru":
+            xs, x_spec = (inp[f"{name}/h0"], inp[f"{name}/conv0"]), (JP("data", None), rows)
+        else:
+            xs, x_spec = x, seq
+        body = jax.shard_map(lambda pp, a, *b, key=key: chains(key, pp, a, *b), mesh=mesh,
+                             in_specs=(specs[key], x_spec) + (rows,) * len(steps),
+                             out_specs=RANKS, check_vma=False)
+        ys, st = jax.jit(body)(params[key], xs, *steps)
+        for i, y in enumerate(ys):
+            out[f"{name}/{key}_decode/y{i}"] = np.asarray(y)
+        flat(st, f"{name}/{key}_decode/state", out)
+    if "rglru" in parts:
+        out[f"{name}/raw_tail"] = np.asarray(rglru._branch_in(params["rglru"], x)[1][:, -3:])
+
+
+def forward(task, inp, out):
+    d, m = task["mesh"]
+    mesh = mesh_of(d, m)
+    ctx = mesh_ctx(mesh)
+    cfg = config(task)
+    name = task["name"]
+    params = jax.tree.map(jnp.asarray, unflat(inp, f"{name}/params"))
+    spec = pspecs(backbone.model_spec(cfg, ctx))
+    body = jax.shard_map(
+        lambda p, t: backbone.forward(p, t, ctx, cfg, ep_data_size=d, remat=False)[0],
+        mesh=mesh, in_specs=(spec, JP("data", "model")), out_specs=JP("data", "model", None),
+        check_vma=False)
+    out[f"{name}/x"] = np.asarray(jax.jit(body)(params, jnp.asarray(inp[f"{name}/tokens"],
+                                                                    jnp.int32)))
+
+
 def serve(task, inp, out):
     d, m = task["mesh"]
     mesh = mesh_of(d, m)
@@ -371,7 +486,8 @@ def main():
     out = {}
     for task in json.loads(str(inp.pop("job"))):
         {"coll": coll, "layers": layer_fns, "step": step, "init": init,
-         "serve": serve, "moe_layers": moe_layers}[task["kind"]](
+         "serve": serve, "moe_layers": moe_layers, "recurrent_layers": recurrent_layers,
+         "forward": forward}[task["kind"]](
             task, inp, out)
     np.savez(sys.argv[2], **out)
 

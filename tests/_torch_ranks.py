@@ -13,7 +13,7 @@ import torch.distributed as dist
 
 from repro_torch.configs import get_smoke_config
 from repro_torch.launch.mesh import make_local_mesh
-from repro_torch.models import attention, backbone, ffn, layers
+from repro_torch.models import attention, backbone, ffn, layers, rglru, ssm
 from repro_torch.models.spec import gather_params, shard_params, tree_map, tree_map_p
 from repro_torch.optim import OptConfig, build_plan, sync_gradient
 from repro_torch.optim.compression import CompressionConfig
@@ -315,7 +315,7 @@ def serve(dev, tasks):
             with torch.no_grad():
                 caches, tok = sv.prefill(params, {"tokens": torch.tensor(prompts)})
                 res["caches"] = tree_map(
-                    lambda x: x if isinstance(x, int) else x.float().numpy(), caches)
+                    lambda x: x if isinstance(x, int) else x.float().numpy().copy(), caches)
                 res["prefill_token"] = tok.numpy()
                 mesh.ledger.clear()
                 tok2, _ = sv.decode(params, caches, tok[:, None])
@@ -399,6 +399,100 @@ def moe_layers(dev, tasks):
                 res["mla_decode"] = {"y": outs, "c_kv": cache["c_kv"].float().numpy(),
                                      "k_rope": cache["k_rope"].float().numpy(),
                                      "len": cache["len"]}
+        results[t["name"]] = res
+        dist.barrier()
+    return results
+
+
+def _recurrent_apply(key, p, x, ctx, cfg):
+    """A recurrent-family block function with its state: (out, state dict)."""
+    if key == "rglru":
+        o, st = rglru.rglru_apply(p, x, ctx, cfg, return_state=True)
+        return o, {"h": st["h"], "conv": st["conv"]}
+    if key == "attn":
+        o, (k, v) = attention.gqa_apply(p, x, ctx, cfg, window=cfg.window, return_kv=True)
+        return o, {"k": k, "v": v}
+    o, st = ssm.ssm_apply(p, x, ctx, cfg, return_state=True)
+    return o, {"ssd": st["ssd"], "conv": st["conv"]}
+
+
+def _recurrent_chain(key, p, x, steps, ctx, cfg, cache0=None):
+    """The decode chain of a recurrent-family block: ``rglru_decode`` from
+    ``cache0``, ``local_fill_cache`` + ``local_decode`` or ``ssm_apply`` +
+    ``ssm_decode`` over ``steps``: (outputs, last cache)."""
+    if key == "rglru":
+        cache = dict(cache0, len=0)
+        dec = rglru.rglru_decode
+    elif key == "attn":
+        _, (k, v) = attention.gqa_apply(p, x, ctx, cfg, window=cfg.window, return_kv=True)
+        cache = attention.local_fill_cache(None, k, v, cfg)
+        dec = attention.local_decode
+    else:
+        _, cache = ssm.ssm_apply(p, x, ctx, cfg, return_state=True)
+        dec = ssm.ssm_decode
+    ys = []
+    for xd in steps:
+        o, cache = dec(p, xd, cache, ctx, cfg)
+        ys.append(o.numpy())
+    return ys, cache
+
+
+def _state_np(tree):
+    return {k: _state_np(v) if isinstance(v, dict) else (
+        v if isinstance(v, int) else v.detach().float().numpy()) for k, v in tree.items()}
+
+
+def recurrent_layers(dev, tasks):
+    """Each task's recurrent-family blocks (``parts`` of ``rglru``, ``attn``
+    — windowed — and ``ssm``) on its (data, model) mesh, this rank's shards
+    of the task's global float32 weights: output, state and gradients of
+    ``Σ out · cot`` of each apply and its collectives (forward and
+    backward); where the task has ``xsteps``, each decode chain's outputs
+    and this rank's last cache (``rglru_decode`` from the given ``h0`` /
+    ``conv0``)."""
+    results = {}
+    for t in tasks:
+        d, m = t["mesh"]
+        mesh = make_local_mesh(d, m, device=dev)
+        ctx = mesh_ctx(mesh)
+        cfg = config(t["arch"], t.get("scale"))
+        r = mesh.rank
+        seq, rows = ("data", "model", None), ("data", None, None)
+        specs = {"rglru": rglru.rglru_spec(cfg, ctx), "attn": attention.gqa_spec(cfg, ctx),
+                 "ssm": ssm.ssm_spec(cfg, ctx)}
+
+        def local(a, spec):
+            return torch.from_numpy(np.ascontiguousarray(block(a, mesh, spec)))
+
+        xs = local(t["x"], seq)
+        steps = [local(xd, rows) for xd in t.get("xsteps", ())]
+        res = {}
+        for key in t["parts"]:
+            p = shard_params(t["params"][key], specs[key], mesh)
+            flat = [(k, v.requires_grad_(True)) for k, v in _leaves(p)]
+            xg = xs.clone().requires_grad_(True)
+            mesh.ledger.clear()
+            y, st = _recurrent_apply(key, p, xg, ctx, cfg)
+            wrt = [v for _, v in flat] + [xg]
+            gs = torch.autograd.grad(y, wrt, grad_outputs=torch.from_numpy(t["cot"][key][r]),
+                                     allow_unused=True)
+            gs = [torch.zeros_like(w) if g is None else g for g, w in zip(gs, wrt)]
+            res[key] = {"y": y.detach().numpy(), "state": _state_np(st),
+                        "dp": {k: g.numpy() for (k, _), g in zip(flat, gs)},
+                        "dx": gs[-1].numpy(),
+                        "ledger": {k: v["calls"] for k, v in mesh.ledger.items()}}
+            if steps:
+                cache0 = None
+                if key == "rglru":
+                    cache0 = {"h": local(t["h0"], ("data", None)),
+                              "conv": local(t["conv0"], rows).to(torch.bfloat16)}
+                p = shard_params(t["params"][key], specs[key], mesh)
+                with torch.no_grad():
+                    mesh.ledger.clear()
+                    ys, cache = _recurrent_chain(key, p, xs, steps, ctx, cfg, cache0)
+                res[f"{key}_decode"] = {"y": ys, "state": _state_np(cache),
+                                        "ledger": {k: v["calls"]
+                                                   for k, v in mesh.ledger.items()}}
         results[t["name"]] = res
         dist.barrier()
     return results

@@ -223,16 +223,19 @@ DP = MeshCtx(data_size=2)
 @pytest.mark.parametrize("kind", ["attn_window", "mla_dense", "mla_moe", "ssm", "rglru", "dec"])
 @pytest.mark.parametrize("ctx", [TWO, DP], ids=["model2", "data2"])
 def test_other_block_kinds_raise_above_one_rank(kind, ctx):
-    """The recurrent and encoder-decoder kinds raise above one rank, naming
-    6c.ii / 6c.iii; the dense block and, since 6c.i, the MLA blocks build
-    there (``tests/test_torch_moe_multirank.py`` runs them)."""
-    cfg = get_smoke_config("deepseek-v2-236b" if kind.startswith("mla") else "qwen2-1.5b")
-    if kind.startswith("mla"):
-        assert callable(backbone.make_block_fn(cfg, ctx, kind, with_aux=True))
-    else:
-        part = "iii" if kind == "dec" else "ii"
-        with pytest.raises(NotImplementedError, match=f"sub-item 6c.{part} "):
+    """The encoder-decoder block raises above one rank, naming 6c.iii; the
+    dense block, since 6c.i the MLA blocks and since 6c.ii the recurrent
+    kinds build there (``tests/test_torch_moe_multirank.py`` and
+    ``tests/test_torch_recurrent_multirank.py`` run them)."""
+    arch = {"mla_dense": "deepseek-v2-236b", "mla_moe": "deepseek-v2-236b",
+            "attn_window": "recurrentgemma-2b", "rglru": "recurrentgemma-2b",
+            "ssm": "mamba2-780m"}.get(kind, "qwen2-1.5b")
+    cfg = get_smoke_config(arch)
+    if kind == "dec":
+        with pytest.raises(NotImplementedError, match="sub-item 6c.iii "):
             backbone.make_block_fn(cfg, ctx, kind)
+    else:
+        assert callable(backbone.make_block_fn(cfg, ctx, kind, with_aux=True))
     backbone.make_block_fn(cfg, ctx, "attn")           # the dense block runs
 
 

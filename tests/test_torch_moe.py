@@ -156,8 +156,9 @@ def test_model_spec_equals_the_reference(jmesh, variant):
                                              (V2, 7, 25_219_261_440),
                                              (V3, None, 671_026_404_352)])
 def test_model_spec_at_full_width(jmesh, arch, n_layers, n):
-    """The full configs (and deepseek-v2 at the 7 layers ``chip_smoke.py``
-    serves) on the ``meta`` device: the reference's tree and count."""
+    """The full configs (and deepseek-v2 at 7 layers, the depth of the
+    card's calibration) on the ``meta`` device: the reference's tree and
+    count."""
     kw = {"n_layers": n_layers} if n_layers else {}
     cfg, pcfg = ref_configs.get_config(arch).scaled(**kw), port_configs.get_config(arch).scaled(**kw)
     spec = port_bb.model_spec(pcfg, PCTX)

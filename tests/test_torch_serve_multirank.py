@@ -357,18 +357,24 @@ def test_max_len_not_divisible_by_model_where_the_reference_drops_positions(runs
 
 
 def test_other_kinds_and_frontends_still_raise_above_one_rank():
-    """The recurrent and encoder-decoder families and the patch frontend
-    raise above one rank (6c.ii, 6c.iii); the MoE family's steps build
-    there (6c.i; ``tests/test_torch_moe_multirank.py`` serves it), its
-    latent cache split over 'model'."""
+    """The encoder-decoder family and the patch frontend raise above one
+    rank (6c.iii); the MoE family's steps build there (6c.i;
+    ``tests/test_torch_moe_multirank.py`` serves it), its latent cache
+    split over 'model', and since 6c.ii the recurrent families'
+    (``tests/test_torch_recurrent_multirank.py``): the RG-LRU state and
+    the rings replicated over 'model', the SSD's state split by heads."""
     mesh = LocalMesh(("data", "model"), {"data": 1, "model": 2}, torch.device("cpu"))
-    for arch, part in (("recurrentgemma-2b", "ii"), ("mamba2-780m", "ii"),
-                       ("whisper-tiny", "iii")):
-        with pytest.raises(NotImplementedError, match=f"sub-item 6c.{part} "):
-            make_serve_fns(get_smoke_config(arch), mesh, batch=2, max_len=16)
+    with pytest.raises(NotImplementedError, match="sub-item 6c.iii "):
+        make_serve_fns(get_smoke_config("whisper-tiny"), mesh, batch=2, max_len=16)
     sv = make_serve_fns(get_smoke_config("deepseek-v2-236b"), mesh, batch=2, max_len=16)
     assert sv.ctx.model_size == 2
     assert sv.cache_pspec["g1"]["c_kv"].axes == (None, ("data",), "model", None)
+    rg = make_serve_fns(get_smoke_config("recurrentgemma-2b"), mesh, batch=2, max_len=16)
+    assert rg.cache_pspec["g0"]["b0"]["h"].axes == (None, ("data",), None)
+    assert rg.cache_pspec["g0"]["b2"]["k"].axes == (None, ("data",), None, None, None)
+    mb = make_serve_fns(get_smoke_config("mamba2-780m"), mesh, batch=2, max_len=16)
+    assert mb.cache_pspec["g0"]["ssd"].axes == (None, ("data",), "model", None, None)
+    assert mb.cache_pspec["g0"]["conv"]["x"].axes == (None, ("data",), None, "model")
     cfg = get_smoke_config("pixtral-12b")
     with pytest.raises(NotImplementedError, match="sub-item 6c"):
         backbone.embed_inputs({}, torch.zeros(2, 4, dtype=torch.int32),
