@@ -121,10 +121,17 @@ just before it and read just after:
   (``MR_REC_ARCHS``, recurrentgemma-2b and mamba2-780m) the same way: the
   training check at full width and reduced depth on (1, 2) and (2, 1)
   with ZeRO-1 (the RG-LRU's gathered tails and summaries, the SSD's
-  head-sharded norm), then served at full width and all their layers in
+  head-sharded norm), then served at full width and half their layers in
   bfloat16 on (1, 2) and (2, 1) with the same traffic, and the tokens
   checked by rank 0 (``MR_REC_CHECK``), on a line ``"step":
-  "serve_recurrent"``.
+  "serve_recurrent"``.  The frontend families (``MR_FRONT_ARCHS``,
+  whisper-tiny and pixtral-12b) the same way: the training check on (1, 2)
+  and (2, 1) with ZeRO-1, whisper at full width and depth beside 1 500
+  frames, pixtral at reduced width with 384 patch positions; then served in
+  bfloat16 (``MR_FAMILY_SERVE``: whisper all its layers over 1 500 frames,
+  pixtral 8 of 40 layers with a 1 024-patch image and a text-only bucket)
+  and their float32 tokens checked by rank 0 (``MR_FRONT_CHECK``), on a
+  line ``"step": "serve_frontends"``.
 * ``dryrun`` — ``launch.dryrun`` and ``roofline``, which launch no PBS
   kernel: the 40-cell grid counted on meta tensors by
   ``python -m repro_torch.launch.dryrun``, one process an arch, the card
@@ -2516,10 +2523,12 @@ class ModelRow:
     enc_len: int = 32
 
 
-# Every row but whisper's runs cut to about half its full-width depth
-# (``layers``) for the script's budget: qwen2 14 of 28, recurrentgemma 13 of
-# 26 (four periods and an rglru), mamba2 24 of 48, deepseek-v2 4 of 60,
-# pixtral 20 of 40.  The calibrations below were taken at the depths they
+# Every row but whisper's runs cut below its full-width depth (``layers``)
+# for the script's budget: qwen2 14 of 28, recurrentgemma 13 of 26 (four
+# periods and an rglru), mamba2 12 of 48, deepseek-v2 2 of 60 (one dense
+# and one MoE layer), pixtral 10 of 40 (the last three halved again when
+# the frontend families joined phase multirank and a whole run on a slower
+# host took 1 013 s).  The calibrations below were taken at the depths they
 # name; fewer layers part decode from forward by less.
 MODEL_ROWS = (
     # the two paths round bfloat16 activations in other places (blockwise
@@ -2549,8 +2558,8 @@ MODEL_ROWS = (
     # off) on the same weights, all 48 layers, where decode and forward
     # logits part by at most 0.0029: the margin is 2.7 times that.
     ModelRow("mamba2-780m", None, (40, 40, 12, 12, 12, 5), 96,
-             ((128, 8), (1000, 8), (2048, 4)), 4096, 0.0078125, 1000, layers=24,
-             check_float32_layers=24),
+             ((128, 8), (1000, 8), (2048, 4)), 4096, 0.0078125, 1000, layers=12,
+             check_float32_layers=12),
     # calibrated at 7 of 60 layers at full width (1 mla_dense + 6 mla_moe,
     # 50.45 GB in bfloat16, the most one card holds beside the 8 x 1 536
     # prefill), with qwen2's traffic.  The latent cache is bfloat16 whatever
@@ -2566,7 +2575,7 @@ MODEL_ROWS = (
     # part only below a margin of 0.108: the margin is 0.125.  Route flips:
     # see ROUTE_GAP_TOL below.
     ModelRow("deepseek-v2-236b", None, (8, 8, 12, 12, 12, 5), 64,
-             ((128, 8), (512, 8), (1536, 4)), 2048, 0.125, 512, layers=4,
+             ((128, 8), (512, 8), (1536, 4)), 2048, 0.125, 512, layers=2,
              check_float32_layers=3),
     # whisper-tiny, all of it (4 encoder and 4 decoder layers, d 384): a 30 s
     # window's 1 500 frames (standard normal at the encoder's input) and
@@ -2592,8 +2601,8 @@ MODEL_ROWS = (
     # bfloat16 ones freed first), where they part by at most 0.0446 and tokens
     # only below 0.089: the margin is 0.125, which checks 68-85 %.
     ModelRow("pixtral-12b", None, (12, 12, 20, 20, 20, 5), 64,
-             ((128, 8), (1056, 8), (2048, 4)), 3072, 0.125, 1056, layers=20,
-             check_float32_layers=20),
+             ((128, 8), (1056, 8), (2048, 4)), 3072, 0.125, 1056, layers=10,
+             check_float32_layers=10),
 )
 # MoE rows: a position is left out of the token check where a layer's
 # decode routed it to another top-k expert set than the forward did and, in
@@ -3631,15 +3640,32 @@ MR_MOE_TRAIN = dict(d_model=1024, moe_d_ff=512, n_layers=2)
 # check runs at full width, reduced depth: one period of recurrentgemma
 # (rglru, rglru, attn), two mamba2 layers
 MR_REC_ARCHS = ("recurrentgemma-2b", "mamba2-780m")
+# the frontend families across ranks: whisper-tiny (arXiv:2212.04356; the
+# encoder over each rank's chunk of the frames, its memory gathered whole,
+# the cross cache sequence-sharded) and pixtral-12b
+# (hf:mistralai/Pixtral-12B-2409; each rank's chunk of the patch rows).
+# whisper's training check runs at full width and all its layers, 4 x 448
+# tokens beside 1 500 frames; pixtral's at reduced width, MR_FRONT_TRAIN,
+# keeping its 32 heads, 8 KV heads of 128, vocab and frontend, 4 x 512 with
+# the first 384 positions patches (labels -1), which straddles (1, 2)'s
+# chunk boundary at 256.  At full width a 2-layer one-rank float32 step of
+# its ~1.87 B parameters needs ~30 GB beside (2, 1)'s two ZeRO-1 ranks of
+# ~22 GB each: more than the card
+MR_FRONT_ARCHS = ("whisper-tiny", "pixtral-12b")
+MR_FRONT_TRAIN = dict(d_model=1024, d_ff=2048, n_layers=2)
+# arch: (sequence, frames, patch positions) of its training check's rows
+MR_CHECK_SHAPE = {"whisper-tiny": (448, 1500, 0), "pixtral-12b": (512, 0, 384)}
 MR_CHECK_CONFIG = {TRAIN_ARCH: dict(n_layers=MR_CHECK_LAYERS), MR_MOE_ARCH: MR_MOE_TRAIN,
-                   "recurrentgemma-2b": dict(n_layers=3), "mamba2-780m": dict(n_layers=2)}
-# (arch, mesh, ZeRO-1, compression ratio); the recurrent families leave
-# (2, 2) to the CPU tests (tests/test_torch_recurrent_multirank.py)
+                   "recurrentgemma-2b": dict(n_layers=3), "mamba2-780m": dict(n_layers=2),
+                   "whisper-tiny": {}, "pixtral-12b": MR_FRONT_TRAIN}
+# (arch, mesh, ZeRO-1, compression ratio); the recurrent and frontend
+# families leave (2, 2) to the CPU tests
+# (tests/test_torch_recurrent_multirank.py, test_torch_frontends_multirank.py)
 MR_CHECKS = ((TRAIN_ARCH, (1, 2), False, None), (TRAIN_ARCH, (2, 1), True, None),
              (TRAIN_ARCH, (2, 2), False, TRAIN_COMPRESSION),
              (MR_MOE_ARCH, (1, 2), False, None), (MR_MOE_ARCH, (2, 1), True, None),
              (MR_MOE_ARCH, (2, 2), False, None)) + tuple(
-                 (a, mesh, zero1, None) for a in MR_REC_ARCHS
+                 (a, mesh, zero1, None) for a in MR_REC_ARCHS + MR_FRONT_ARCHS
                  for mesh, zero1 in (((1, 2), False), ((2, 1), True)))
 MR_LOSS_RTOL, MR_GRAD_REL, MR_PARAM_ATOL = 1e-5, 1e-4, 1e-6
 # timed: bfloat16 weights, MR_TIMED_LAYERS layers, model_train's train_4k
@@ -3695,10 +3721,11 @@ MR_SERVE_F32_BUCKET = 1536
 MR_MOE_LAYERS, MR_MOE_CHECK_LAYERS, MR_MOE_CHECK_BUCKET = 4, 3, 128
 MR_MOE_MARGIN = 0.125
 # recurrentgemma-2b and mamba2-780m served on the same meshes after the MoE
-# family, at full width and all their layers (26, 48) in bfloat16, each rank
+# family, at full width and half their layers (13 of 26, 24 of 48: cut for
+# the script's budget when the frontend families joined) in bfloat16, each rank
 # drawing the weights leaf by leaf and keeping its shard, with qwen2's
 # multirank traffic.  Their tokens are checked by rank 0 after every mesh's
-# run on a float32 model of all their layers (TF32 off), weights drawn from
+# run on a float32 model of the same layers (TF32 off), weights drawn from
 # the same seed, on the 128 x 8 bucket (arch: (layers, buckets, margin)):
 # (a) every token equals the one-rank no-cache forward's argmax wherever the
 # forward's top-2 margin exceeds the margin, half the positions or more
@@ -3712,11 +3739,54 @@ MR_MOE_MARGIN = 0.125
 # row).  In
 # float32 the margin is at least twice the largest decode-to-forward logit
 # difference a run measures (``decode_logit_errors``, in the line):
-# mamba2's 1/128 (its row's; 0.0028-0.0031 on the meshes), recurrentgemma's
-# 1/64 (0.0050-0.0051 on the meshes, calibration on an H100), which checks
-# 94 % of the positions.
-MR_REC_CHECK = {"recurrentgemma-2b": (26, (128,), 1 / 64),
-                "mamba2-780m": (48, (128,), 1 / 128)}
+# mamba2's 1/128 (its row's; 0.0028-0.0031 on the meshes at all 48
+# layers), recurrentgemma's 1/64 (0.0050-0.0051 on the meshes at all 26,
+# calibration on an H100), which checked 94 % of the positions there.
+MR_REC_DEPTH = {"recurrentgemma-2b": 13, "mamba2-780m": 24}
+MR_REC_CHECK = {"recurrentgemma-2b": (13, (128,), 1 / 64),
+                "mamba2-780m": (24, (128,), 1 / 128)}
+# the frontend families served on the same meshes after the recurrent ones,
+# bfloat16, each rank drawing the weights leaf by leaf and keeping its
+# shard, arch: (layers, None for all, buckets, max_len, enc_len).  whisper-tiny
+# at full width and all its layers (4 + 4): a 30 s window's 1 500 stub
+# frames (standard normal), its 448-token decoder context, and its
+# model_serve row's traffic less the 224 x 4 bucket.  pixtral-12b at full
+# width and 8 of its 40 layers (the script's budget): a text-only bucket of
+# 128 x 8, and 1 056 x 8, one 1 024-patch image (its rows drawn at the token
+# table's scale, 0.02) at the prompt's start, then a 32-token question; on
+# (1, 2) the patches fill rank 0's 528 positions and 496 of rank 1's.  The
+# recurrent families' entries: MR_REC_DEPTH and MR_SERVE_BUCKETS.
+MR_FAMILY_SERVE = {**{a: (MR_REC_DEPTH[a], MR_SERVE_BUCKETS, MR_SERVE_MAX_LEN, 32)
+                      for a in MR_REC_ARCHS},
+                   "whisper-tiny": (None, ((4, 8), (132, 8)), 448, 1500),
+                   "pixtral-12b": (8, ((128, 8), (1056, 8)), 2048, 32)}
+# their token checks, as MR_REC_CHECK's, on float32 models (TF32 off): in
+# bfloat16 neither has a margin that checks half the positions (their
+# model_serve rows).  whisper: all its layers on the 132 x 8 bucket at its
+# row's 1/32 (its bfloat16 caches part decode from forward by up to 0.0140
+# on one card); pixtral: 4 layers at full width on the 1 056 x 8 bucket at
+# its row's 0.125 (up to 0.0446 at 40 layers on one card)
+MR_FRONT_CHECK = {"whisper-tiny": (4, (132,), 1 / 32), "pixtral-12b": (4, (1056,), 0.125)}
+# Their check (b)'s near tie is wider than MR_SERVE_F32_MARGIN.  Two decodes
+# whose logits each lie within e of the forward's can pick different tokens
+# only where the forward's top-2 margin is at most 2e, and their bfloat16
+# self and cross caches and bfloat16 combines leave e far above the float32
+# summation noise: the first call on an H100 read e = 0.0486 for pixtral's
+# 4-layer float32 decode (0.0146 for whisper's) and a mesh's first
+# difference from the one-rank run at a margin of 0.0104, past 1/128.  So a
+# frontend family's first difference must lie within twice the largest
+# decode-to-forward logit error the run measured on the mesh (the mesh's e
+# standing for the one-rank run's, both decoding over the same caches),
+# and never past the family's check-(a) margin
+def near_tie_margin(arch, logit_err: float) -> float:
+    """Check (b)'s near-tie margin of ``arch`` (see MR_FRONT_CHECK)."""
+    if arch not in MR_FRONT_ARCHS:
+        return MR_SERVE_F32_MARGIN
+    return min(max(MR_SERVE_F32_MARGIN, 2 * logit_err), MR_FRONT_CHECK[arch][2])
+
+
+
+MR_FAMILY_CHECK = {**MR_REC_CHECK, **MR_FRONT_CHECK}
 # the margins whose share of checked positions the calibration reports
 MR_REC_MARGINS = (1 / 128, 1 / 64, 1 / 32, 1 / 16)
 # the 2-rank group's join limit: its training checks and timed runs, then
@@ -3780,13 +3850,12 @@ def mr_check_mesh(dev, arch, data, model, zero1, ratio, seed) -> dict:
     from the mesh's own compressed gradient, gathered.  An MoE config's
     check counts the pairs its dispatch drops at capacity."""
     stamps = {"start": time.perf_counter()}
+    torch.cuda.reset_peak_memory_stats()        # this check's peak, not an earlier one's
     cfg = get_config(arch).scaled(**MR_CHECK_CONFIG[arch])
     mesh = make_local_mesh(data, model, device=dev)
     ocfg = OptConfig(**TRAIN_OPT, zero1=zero1)
     ccfg = CompressionConfig(ratio=ratio, min_leaf_size=65_536, enabled=True) if ratio else None
-    gb = global_batch(0, DataConfig(vocab=cfg.vocab, seq_len=MR_CHECK_SEQ,
-                                    global_batch=MR_CHECK_ROWS))
-    batch = {k: gb[k] for k in ("tokens", "labels")}
+    batch = mr_check_batch(arch, cfg, mesh.device, seed)
     bundle, params, opt = mr_state(cfg, mesh, ocfg, ccfg, MR_CHECK_ROWS, seed)
     spec = bundle.param_spec
     torch.cuda.synchronize()
@@ -3859,6 +3928,27 @@ def mr_check_mesh(dev, arch, data, model, zero1, ratio, seed) -> dict:
     del params, opt, synced, c_all
     torch.cuda.empty_cache()
     return out
+
+
+def mr_check_batch(arch, cfg, device, seed) -> dict:
+    """The check's global batch, the same on every rank: ``MR_CHECK_ROWS``
+    rows of the data pipeline's tokens and labels (``MR_CHECK_SEQ`` long,
+    or the arch's ``MR_CHECK_SHAPE``), with its frames (standard normal) or
+    its patch rows (0.02 times standard normal, the positions' tokens and
+    labels -1) drawn on ``device`` from ``seed`` + 2."""
+    seq, frames, patches = MR_CHECK_SHAPE.get(arch, (MR_CHECK_SEQ, 0, 0))
+    gb = global_batch(0, DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=MR_CHECK_ROWS))
+    batch = {k: gb[k].copy() for k in ("tokens", "labels")}
+    g = torch.Generator(device=device).manual_seed(seed + 2)
+    if frames:
+        batch["enc"] = torch.randn((MR_CHECK_ROWS, frames, cfg.d_model), generator=g,
+                                   device=device)
+    if patches:
+        batch["tokens"][:, :patches] = -1
+        batch["labels"][:, :patches] = -1
+        batch["frontend"] = 0.02 * torch.randn((MR_CHECK_ROWS, seq, cfg.d_model),
+                                               generator=g, device=device)
+    return batch
 
 
 def local_errors(local, whole, spec, mesh) -> dict:
@@ -3935,21 +4025,38 @@ def mr_serve_params(cfg, mesh, seed, float32=False):
 
 def mr_serve_requests(seed, buckets=MR_SERVE_BUCKETS, arch=TRAIN_ARCH) -> list:
     """The serving traffic, the same on every rank: ``MR_SERVE_MAX_NEW`` new
-    tokens a prompt, ids in ``arch``'s vocab."""
+    tokens a prompt, ids in ``arch``'s vocab; a ``patch_stub`` model's
+    prompt longer than its image starts with it (``n_frontend_tokens``
+    patch positions, -1)."""
     rng = np.random.default_rng(seed)
-    vocab = get_config(arch).vocab
-    return [Request(rid, [int(x) for x in rng.integers(0, vocab, plen)], MR_SERVE_MAX_NEW)
-            for rid, plen in enumerate(p for p, n in buckets for _ in range(n))]
+    cfg = get_config(arch)
+    out = []
+    for rid, plen in enumerate(p for p, n in buckets for _ in range(n)):
+        toks = [int(x) for x in rng.integers(0, cfg.vocab, plen)]
+        if cfg.frontend == "patch_stub" and plen > cfg.n_frontend_tokens:
+            toks[:cfg.n_frontend_tokens] = [-1] * cfg.n_frontend_tokens
+        out.append(Request(rid, toks, MR_SERVE_MAX_NEW))
+    return out
 
 
-def mr_serve_run(sched, params, requests, cfg) -> dict:
+def mr_serve_extras(cfg, buckets, enc_len: int, seed: int) -> dict:
+    """{prompt length: its bucket's extras} (``bucket_extras``: frames or
+    patch rows, None for text), drawn on the card from ``seed`` + 1 in
+    bucket order, so every rank and the one-rank checks draw the same."""
+    g = torch.Generator(device=DEV).manual_seed(seed + 1)
+    return {plen: bucket_extras(cfg, plen, SERVE_BATCH, enc_len, lambda shape: torch.randn(
+        shape, generator=g, device=DEV)) for plen, _ in buckets}
+
+
+def mr_serve_run(sched, params, requests, cfg, extras=None) -> dict:
     """``requests`` through ``sched``, one ``run`` a prompt length (as
-    model_serve's ``serve_run``), each completion checked: finished with
-    ``MR_SERVE_MAX_NEW`` in-vocab tokens.  Returns {rid: tokens}."""
+    model_serve's ``serve_run``) with that length's ``extras``, each
+    completion checked: finished with ``MR_SERVE_MAX_NEW`` in-vocab
+    tokens.  Returns {rid: tokens}."""
     out = {}
     for plen in sorted({len(r.prompt) for r in requests}):
         reqs = [r for r in requests if len(r.prompt) == plen]
-        got, stats = sched.run(params, reqs)
+        got, stats = sched.run(params, reqs, extras=(extras or {}).get(plen))
         assert sorted(got) == [r.rid for r in reqs], got.keys()
         for r in reqs:
             c = got[r.rid]
@@ -4011,7 +4118,7 @@ def rank_timings(per) -> dict:
     """A serving line's timings of one mesh and model, one entry a rank of
     ``per`` (each rank's ``serve_log_stats``, peak and seconds)."""
     return {"prefill_ms_by_bucket": {str(p): [r["prefill_ms"][p] for r in per]
-                                     for p, _ in MR_SERVE_BUCKETS},
+                                     for p in per[0]["prefill_ms"]},
             "decode_ms_a_step_median": [r["decode_ms_median"] for r in per],
             "decode_steps": len(per[0]["decode_ms"]),
             "collectives_a_step": [r["collectives_a_step"] for r in per],
@@ -4285,44 +4392,54 @@ def mr_moe_one_rank(dev, seed, served, pieces) -> dict:
     return out
 
 
-def mr_rec_serve_mesh(dev, data, model, seed) -> dict:
-    """Both recurrent families served on this rank of a (data, model) mesh
-    whose ranks share the card, one after the other: the bfloat16 run at
-    full width over ``MR_SERVE_BUCKETS`` (steps timed, ``timed_engine``),
-    then the float32 model's run of ``MR_REC_CHECK`` (TF32 off), its
-    final-norm states recorded (``hidden``: this rank's rows, on the first
-    'model' rank only, where they are replicated).  Every rank returns the
-    same (global) tokens."""
+def mr_family_serving(arch):
+    """(bfloat16 config, buckets, max_len, enc_len) of ``MR_FAMILY_SERVE``."""
+    layers, buckets, max_len, enc_len = MR_FAMILY_SERVE[arch]
+    cfg = get_config(arch)
+    return (cfg.scaled(n_layers=layers) if layers else cfg), buckets, max_len, enc_len
+
+
+def mr_family_serve_mesh(dev, data, model, seed, archs) -> dict:
+    """The families ``archs`` served on this rank of a (data, model) mesh
+    whose ranks share the card, one after the other: the bfloat16 run of
+    ``MR_FAMILY_SERVE`` with its frames or patch rows (``mr_serve_extras``;
+    steps timed, ``timed_engine``), then the float32 model's run of
+    ``MR_FAMILY_CHECK`` (TF32 off), its final-norm states recorded
+    (``hidden``: this rank's rows, on the first 'model' rank only, where
+    they are replicated).  Every rank returns the same (global) tokens."""
     mesh = make_local_mesh(data, model, device=dev)
     ctx = mesh_ctx(mesh)
     assert not torch.backends.cuda.matmul.allow_tf32
     out = {"mesh": [data, model], "rank": mesh.rank, "archs": {}}
-    for arch in MR_REC_ARCHS:
+    for arch in archs:
         t0 = time.perf_counter()
-        cfg = get_config(arch)
+        cfg, serve_buckets, max_len, enc_len = mr_family_serving(arch)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         params = draw_shards(model_spec(cfg, ctx), seed, mesh)
-        requests = mr_serve_requests(seed, MR_SERVE_BUCKETS, arch)
-        sched = BatchScheduler(cfg, mesh, batch=SERVE_BATCH, max_len=MR_SERVE_MAX_LEN, eos_id=-1)
+        requests = mr_serve_requests(seed, serve_buckets, arch)
+        extras = mr_serve_extras(cfg, serve_buckets, enc_len, seed)
+        sched = BatchScheduler(cfg, mesh, batch=SERVE_BATCH, max_len=max_len, eos_id=-1,
+                               enc_len=enc_len)
         log = {"prefill": [], "decode": []}
         timed_engine(sched, mesh, log)
         setup_s = time.perf_counter() - t0
         t0 = time.perf_counter()
-        tokens = mr_serve_run(sched, params, requests, cfg)
+        tokens = mr_serve_run(sched, params, requests, cfg, extras)
         run_s = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
         del params, sched
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        layers, buckets, _ = MR_REC_CHECK[arch]
-        cfg32 = cfg.scaled(n_layers=layers)
+        layers, buckets, _ = MR_FAMILY_CHECK[arch]
+        cfg32 = get_config(arch).scaled(n_layers=layers)
         params = draw_shards(model_spec(cfg32, ctx), seed, mesh, float32=True)
-        sched = BatchScheduler(cfg32, mesh, batch=SERVE_BATCH, max_len=MR_SERVE_MAX_LEN,
-                               eos_id=-1)
+        sched = BatchScheduler(cfg32, mesh, batch=SERVE_BATCH, max_len=max_len, eos_id=-1,
+                               enc_len=enc_len)
         with recorded_hidden() as states:
             tokens32 = mr_serve_run(sched, params,
-                                    [r for r in requests if len(r.prompt) in buckets], cfg32)
+                                    [r for r in requests if len(r.prompt) in buckets], cfg32,
+                                    extras)
         hidden = None
         if ctx.midx() == 0:
             # a prefill and MR_SERVE_MAX_NEW - 1 steps a bucket, in bucket order
@@ -4332,7 +4449,7 @@ def mr_rec_serve_mesh(dev, data, model, seed) -> dict:
                 plen: torch.cat(states[i * n:(i + 1) * n], 1).cpu()     # (B_local, n, d)
                 for i, plen in enumerate(sorted(buckets))}}
         f32_s = time.perf_counter() - t0
-        del params, sched, states
+        del params, sched, states, extras
         torch.cuda.empty_cache()
         out["archs"][arch] = {
             "tokens": tokens, "tokens_f32": tokens32, "hidden": hidden, **serve_log_stats(log),
@@ -4342,16 +4459,18 @@ def mr_rec_serve_mesh(dev, data, model, seed) -> dict:
     return out
 
 
-def first_differences(params, cfg, ctx, reqs, one, runs) -> list:
+def first_differences(params, cfg, ctx, reqs, one, runs, extras=None) -> list:
     """Each run of ``runs`` ({rid: tokens}) against the one-rank run ``one``
     up to its first difference, with the one-rank forward's top-2 margin
-    there (one forward a bucket over ``one``'s own sequences)."""
+    there (one forward a bucket over ``one``'s own sequences, fed the
+    bucket's ``extras``)."""
     margin = {}
     for plen in sorted({len(r.prompt) for r in reqs}):
         rr = [r for r in reqs if len(r.prompt) == plen]
         seq = torch.tensor([r.prompt + one[r.rid][:-1] for r in rr], dtype=torch.int32,
                            device=DEV)
-        x = forward(params, seq, ctx, cfg)[:, plen - 1:]
+        kw = forward_inputs((extras or {}).get(plen), len(rr), seq.shape[1], SERVE_BATCH, DEV)
+        x = forward(params, seq, ctx, cfg, **kw)[:, plen - 1:]
         top2 = vocab_logits(params["embed"], x, ctx, cfg).topk(2, dim=-1).values
         margin.update(zip((r.rid for r in rr), (top2[..., 0] - top2[..., 1]).cpu()))
         del x, top2
@@ -4370,18 +4489,21 @@ def first_differences(params, cfg, ctx, reqs, one, runs) -> list:
     return out
 
 
-def decode_logit_errors(params, cfg, ctx, requests, tokens, hidden) -> dict:
+def decode_logit_errors(params, cfg, ctx, requests, tokens, hidden, extras=None) -> dict:
     """A mesh's decode logits (its recorded final-norm states through the
     one-rank unembedding) against the one-rank no-cache forward's over the
-    mesh's own sequences: the largest difference over every logit and at
-    the forward's top one, and the share of positions each margin of
-    ``MR_REC_MARGINS`` would check (the calibration of check (a)'s margin)."""
+    mesh's own sequences (fed each bucket's ``extras``): the largest
+    difference over every logit and at the forward's top one, and the
+    share of positions each margin of ``MR_REC_MARGINS`` would check (the
+    calibration of check (a)'s margin)."""
     err, top, margins = 0.0, 0.0, []
     for plen, x in hidden.items():
         reqs = [r for r in requests if len(r.prompt) == plen]
         seq = torch.tensor([r.prompt + tokens[r.rid][:-1] for r in reqs], dtype=torch.int32,
                            device=DEV)
-        want = vocab_logits(params["embed"], forward(params, seq, ctx, cfg)[:, plen - 1:],
+        kw = forward_inputs((extras or {}).get(plen), len(reqs), seq.shape[1], SERVE_BATCH,
+                            DEV)
+        want = vocab_logits(params["embed"], forward(params, seq, ctx, cfg, **kw)[:, plen - 1:],
                             ctx, cfg)
         got = vocab_logits(params["embed"], x[:len(reqs)].to(DEV), ctx, cfg)
         err = max(err, float((got - want).abs().max()))
@@ -4396,33 +4518,37 @@ def decode_logit_errors(params, cfg, ctx, requests, tokens, hidden) -> dict:
                                         for m in MR_REC_MARGINS}}
 
 
-def mr_rec_one_rank(dev, seed, served, pieces) -> dict:
-    """On rank 0 alone, after every mesh's run, for each recurrent family:
-    the one-rank float32 run of ``MR_REC_CHECK``, then for each mesh of
-    ``served`` check (a) on its float32 tokens (``forward_check`` over the
-    mesh's own sequences, one rank) with its decode logits against the
+def mr_family_one_rank(dev, seed, served, pieces, archs) -> dict:
+    """On rank 0 alone, after every mesh's run, for each family of
+    ``archs``: the one-rank float32 run of ``MR_FAMILY_CHECK``, then for
+    each mesh of ``served`` check (a) on its float32 tokens
+    (``forward_check`` over the mesh's own sequences, one rank, fed the
+    same frames or patch rows) with its decode logits against the
     forward's (from every rank's ``pieces`` of recorded states), and check
     (b) against the one-rank run."""
     t0 = time.perf_counter()
     mesh = make_local_mesh(device=dev)
     ctx = mesh_ctx(mesh)
     out = {}
-    for arch in MR_REC_ARCHS:
-        layers, buckets, margin = MR_REC_CHECK[arch]
+    for arch in archs:
+        layers, buckets, margin = MR_FAMILY_CHECK[arch]
+        cfg, serve_buckets, max_len, enc_len = mr_family_serving(arch)
         cfg32 = get_config(arch).scaled(n_layers=layers)
-        reqs = [r for r in mr_serve_requests(seed, MR_SERVE_BUCKETS, arch)
+        reqs = [r for r in mr_serve_requests(seed, serve_buckets, arch)
                 if len(r.prompt) in buckets]
+        extras = mr_serve_extras(cfg, serve_buckets, enc_len, seed)
         res = {"meshes": [{"mesh": s["mesh"]} for s in served]}
         params = init_params(model_spec(cfg32, ctx),
                              torch.Generator(device=DEV).manual_seed(seed), mesh.device)
         upcast_(params)
-        sched = BatchScheduler(cfg32, mesh, batch=SERVE_BATCH, max_len=MR_SERVE_MAX_LEN,
-                               eos_id=-1)
-        one32 = mr_serve_run(sched, params, reqs, cfg32)
+        sched = BatchScheduler(cfg32, mesh, batch=SERVE_BATCH, max_len=max_len, eos_id=-1,
+                               enc_len=enc_len)
+        one32 = mr_serve_run(sched, params, reqs, cfg32, extras)
         for i, (s, m) in enumerate(zip(served, res["meshes"])):
             toks = s["archs"][arch]["tokens_f32"]
             done = {rid: Completion(rid, t, True) for rid, t in toks.items()}
-            m["forward_check"] = forward_check(params, cfg32, ctx, done, reqs, margin)
+            m["forward_check"] = forward_check(params, cfg32, ctx, done, reqs, margin,
+                                               extras=extras)
             hidden = {}
             for rank_pieces in pieces:
                 pc = rank_pieces[i][arch]
@@ -4430,12 +4556,14 @@ def mr_rec_one_rank(dev, seed, served, pieces) -> dict:
                     hidden.setdefault(plen, torch.empty((SERVE_BATCH,) + x.shape[1:],
                                                         dtype=x.dtype))
                     hidden[plen][pc["rows"][0]:pc["rows"][1]] = x
-            m["decode_logits"] = decode_logit_errors(params, cfg32, ctx, reqs, toks, hidden)
+            m["decode_logits"] = decode_logit_errors(params, cfg32, ctx, reqs, toks, hidden,
+                                                     extras)
         firsts = first_differences(params, cfg32, ctx, reqs, one32,
-                                   [s["archs"][arch]["tokens_f32"] for s in served])
+                                   [s["archs"][arch]["tokens_f32"] for s in served], extras)
         for m, f in zip(res["meshes"], firsts):
-            m["f32_check"] = dict(f, n_layers=cfg32.n_layers)
-        del params, sched
+            m["f32_check"] = dict(f, n_layers=cfg32.n_layers, margin_tol=near_tie_margin(
+                arch, m["decode_logits"]["max_abs_logit_err"]))
+        del params, sched, extras
         torch.cuda.empty_cache()
         out[arch] = res
     out["seconds"] = time.perf_counter() - t0
@@ -4443,12 +4571,12 @@ def mr_rec_one_rank(dev, seed, served, pieces) -> dict:
 
 
 def mr_rank(dev, checks, timed, seed, wait_for=None, serve=(), moe_serve=(),
-            rec_serve=()) -> dict:
+            rec_serve=(), front_serve=()) -> dict:
     """A rank of phase multirank: its checks, then its timed runs, then its
-    serving runs (``serve``, ``moe_serve``, ``rec_serve``: meshes), after
-    which rank 0 alone runs the one-rank serving and its token checks; with
-    ``wait_for``, only once that file exists (a group started early, its
-    start-up beside another group's work)."""
+    serving runs (``serve``, ``moe_serve``, ``rec_serve``, ``front_serve``:
+    meshes), after which rank 0 alone runs the one-rank serving and its
+    token checks; with ``wait_for``, only once that file exists (a group
+    started early, its start-up beside another group's work)."""
     platform.reset_launch_counts()
     started = time.time()
     while wait_for and not Path(wait_for).exists():
@@ -4458,7 +4586,10 @@ def mr_rank(dev, checks, timed, seed, wait_for=None, serve=(), moe_serve=(),
            "timed": [mr_timed_mesh(dev, d, m, z, seed) for (d, m), z in timed],
            "serve": [mr_serve_mesh(dev, d, m, seed) for d, m in serve],
            "moe_serve": [mr_moe_serve_mesh(dev, d, m, seed) for d, m in moe_serve],
-           "rec_serve": [mr_rec_serve_mesh(dev, d, m, seed) for d, m in rec_serve]}
+           "rec_serve": [mr_family_serve_mesh(dev, d, m, seed, MR_REC_ARCHS)
+                         for d, m in rec_serve],
+           "front_serve": [mr_family_serve_mesh(dev, d, m, seed, MR_FRONT_ARCHS)
+                           for d, m in front_serve]}
     if serve or moe_serve:
         # every rank's route pieces, so rank 0 can put each mesh's routes together
         pieces = [None] * torch.distributed.get_world_size()
@@ -4469,17 +4600,21 @@ def mr_rank(dev, checks, timed, seed, wait_for=None, serve=(), moe_serve=(),
                 out["serve_one_rank"] = mr_serve_one_rank(dev, seed, out["serve"])
             if moe_serve:
                 out["moe_one_rank"] = mr_moe_one_rank(dev, seed, out["moe_serve"], pieces)
-    if rec_serve:
+    for key, archs in (("rec", MR_REC_ARCHS), ("front", MR_FRONT_ARCHS)):
+        if not out[f"{key}_serve"]:
+            continue
         # every rank's recorded decode states, so rank 0 can read each mesh's logits
         pieces = [None] * torch.distributed.get_world_size()
         torch.distributed.all_gather_object(pieces, [
-            {a: s["archs"][a].pop("hidden") for a in MR_REC_ARCHS} for s in out["rec_serve"]])
+            {a: s["archs"][a].pop("hidden") for a in archs} for s in out[f"{key}_serve"]])
         if torch.distributed.get_rank() == 0:
-            out["rec_one_rank"] = mr_rec_one_rank(dev, seed, out["rec_serve"], pieces)
+            out[f"{key}_one_rank"] = mr_family_one_rank(dev, seed, out[f"{key}_serve"], pieces,
+                                                     archs)
     return out
 
 
-MR_FAMILIES = {"dense": (TRAIN_ARCH,), "moe": (MR_MOE_ARCH,), "recurrent": MR_REC_ARCHS}
+MR_FAMILIES = {"dense": (TRAIN_ARCH,), "moe": (MR_MOE_ARCH,), "recurrent": MR_REC_ARCHS,
+               "frontends": MR_FRONT_ARCHS}
 
 
 def multirank_phase(args, smi, families=tuple(MR_FAMILIES)) -> None:
@@ -4488,7 +4623,7 @@ def multirank_phase(args, smi, families=tuple(MR_FAMILIES)) -> None:
     all-to-all), the ranks processes sharing the one card over gloo: two
     ranks for the (1, 2) and (2, 1) checks, timed and serving runs, four for
     the (2, 2) checks.  ``families`` (of ``MR_FAMILIES``) limits the phase
-    to the dense, the MoE or the recurrent families' runs."""
+    to the dense, the MoE, the recurrent or the frontend families' runs."""
     t_phase = time.perf_counter()
     cards = torch.cuda.device_count()
     root = Path(tempfile.mkdtemp(prefix="multirank_"))
@@ -4505,11 +4640,13 @@ def multirank_phase(args, smi, families=tuple(MR_FAMILIES)) -> None:
         moe_serve = [m for m in MR_SERVE if m[0] * m[1] == world and MR_MOE_ARCH in archs]
         rec_serve = [m for m in MR_SERVE if m[0] * m[1] == world
                      and set(MR_REC_ARCHS) <= set(archs)]
+        front_serve = [m for m in MR_SERVE if m[0] * m[1] == world
+                       and set(MR_FRONT_ARCHS) <= set(archs)]
         t0 = time.perf_counter()
         res = run_ranks(mr_rank, world, root / f"w{world}", device=DEV.type,
                         backend=MR_BACKEND,
                         args=(checks, timed, args.seed, wait_for, serve, moe_serve,
-                              rec_serve),
+                              rec_serve, front_serve),
                         timeout=MR_TIMEOUT_S, threads=None)
         runs[world], wall[world] = res, time.perf_counter() - t0
         start_up[world] = min(r["started"] for r in res) - (time.time() - wall[world])
@@ -4547,7 +4684,8 @@ def multirank_phase(args, smi, families=tuple(MR_FAMILIES)) -> None:
     pbs = {}
     for w in (2, 4):
         for r in runs[w]:
-            for c in r["checks"] + r["timed"] + r["serve"] + r["moe_serve"] + r["rec_serve"]:
+            for c in (r["checks"] + r["timed"] + r["serve"] + r["moe_serve"] + r["rec_serve"]
+                      + r["front_serve"]):
                 for k, v in c["pbs_kernel_launches"].items():
                     pbs[k] = pbs.get(k, 0) + v
     assert not pbs, pbs                           # no PBS kernel on this path
@@ -4566,7 +4704,9 @@ def multirank_phase(args, smi, families=tuple(MR_FAMILIES)) -> None:
     if MR_MOE_ARCH in archs:
         moe_serve_report(smi, runs[2], pbs)
     if set(MR_REC_ARCHS) <= set(archs):
-        rec_serve_report(smi, runs[2], pbs)
+        family_serve_report(smi, runs[2], pbs, MR_REC_ARCHS, "rec", "serve_recurrent")
+    if set(MR_FRONT_ARCHS) <= set(archs):
+        family_serve_report(smi, runs[2], pbs, MR_FRONT_ARCHS, "front", "serve_frontends")
     emit({"phase": "multirank", "gpu": smi, "backend": MR_BACKEND, "cards": cards,
           "ranks_share_one_card": cards == 1,
           "worlds": {str(w): [[c[0], list(c[1])] for c in MR_CHECKS
@@ -4581,7 +4721,14 @@ def multirank_phase(args, smi, families=tuple(MR_FAMILIES)) -> None:
                                              "one full-width MoE layer is ~60 GB)",
                                 TRAIN_ARCH: f"28 -> {MR_CHECK_LAYERS} layers",
                                 "recurrentgemma-2b": "26 -> 3 layers (one period)",
-                                "mamba2-780m": "48 -> 2 layers"},
+                                "mamba2-780m": "48 -> 2 layers",
+                                "whisper-tiny": "none: full width, 4 + 4 layers, 4 x 448 "
+                                                "tokens beside 1 500 frames",
+                                "pixtral-12b": "d_model 5120 -> 1024, d_ff 14336 -> 2048, "
+                                               "40 -> 2 layers (a full-width 2-layer "
+                                               "one-rank float32 step is ~30 GB beside "
+                                               "(2, 1)'s two ZeRO-1 ranks); 4 x 512 with "
+                                               "384 patch positions"},
                     "rows_x_seq": [MR_CHECK_ROWS, MR_CHECK_SEQ], "dtype": "float32",
                     "state": "carried",
                     "tolerances": {"loss_rel": MR_LOSS_RTOL, "grad_rel_to_leaf_max": MR_GRAD_REL,
@@ -4659,17 +4806,18 @@ def moe_serve_report(smi, ranks, pbs) -> None:
           "pbs_kernel_launches": pbs})
 
 
-def rec_serve_report(smi, ranks, pbs) -> None:
-    """Phase multirank's recurrent serving line, from the 2-rank group's
-    results, with its assertions: every rank of a mesh returned the same
-    tokens, and checks (a) and (b) of ``MR_REC_CHECK`` hold for each
-    family on each mesh."""
-    one = ranks[0]["rec_one_rank"]
+def family_serve_report(smi, ranks, pbs, archs, key, step) -> None:
+    """Phase multirank's serving line of the families ``archs`` (the
+    recurrent or the frontend ones, ``key`` their results'), from the 2-rank
+    group's results, with its assertions: every rank of a mesh returned the
+    same tokens, and checks (a) and (b) of ``MR_FAMILY_CHECK`` hold for
+    each family on each mesh."""
+    one = ranks[0][f"{key}_one_rank"]
     meshes, failed = [], []
     for i, mesh_ in enumerate(MR_SERVE):
-        per = [r["rec_serve"][i] for r in ranks]
+        per = [r[f"{key}_serve"][i] for r in ranks]
         row = {"mesh": list(mesh_)}
-        for arch in MR_REC_ARCHS:
+        for arch in archs:
             pa = [p["archs"][arch] for p in per]
             res = one[arch]["meshes"][i]
             check, f32 = res["forward_check"], res["f32_check"]
@@ -4683,7 +4831,7 @@ def rec_serve_report(smi, ranks, pbs) -> None:
                      check["margin_tol"] >= 2 * logit_err),
                     ("(a) half the positions", check["positions_checked"] * 2
                      >= check["positions"]),
-                    ("(b) near ties", all(d["margin"] <= MR_SERVE_F32_MARGIN
+                    ("(b) near ties", all(d["margin"] <= f32["margin_tol"]
                                           for d in f32["differences"])),
                     ("(b) half the positions", f32["positions_compared"] * 2
                      >= f32["positions"])):
@@ -4692,22 +4840,30 @@ def rec_serve_report(smi, ranks, pbs) -> None:
             row[arch] = {**rank_timings(pa), "forward_check": check, "f32_check": f32,
                          "decode_logits": res["decode_logits"]}
         meshes.append(row)
-    emit({"phase": "multirank", "step": "serve_recurrent", "gpu": smi, "backend": MR_BACKEND,
+    config = {}
+    for a in archs:
+        cfg, buckets, max_len, enc_len = mr_family_serving(a)
+        full = get_config(a)
+        config[a] = {"n_layers": cfg.n_layers, "d_model": cfg.d_model, "dtype": "bfloat16",
+                     "reduced": (f"n_layers {full.n_layers} -> {cfg.n_layers} (the script's "
+                                 "budget)" if cfg.n_layers < full.n_layers else None),
+                     "check": dict(zip(("f32_layers", "f32_buckets", "margin"),
+                                       MR_FAMILY_CHECK[a])),
+                     "traffic": {"buckets": [{"prompt_tokens": p, "requests": n}
+                                             for p, n in buckets],
+                                 "max_new": MR_SERVE_MAX_NEW, "batch": SERVE_BATCH,
+                                 "max_len": max_len,
+                                 "enc_len": enc_len if cfg.family == "encdec" else None}}
+    emit({"phase": "multirank", "step": step, "gpu": smi, "backend": MR_BACKEND,
           "note": "ranks are processes sharing one card over gloo (host memory); no "
                   "collective time here is an NVLink or NCCL figure",
-          "config": {a: {"n_layers": get_config(a).n_layers, "d_model": get_config(a).d_model,
-                         "dtype": "bfloat16",
-                         "check": dict(zip(("f32_layers", "f32_buckets", "margin"),
-                                           MR_REC_CHECK[a]))}
-                     for a in MR_REC_ARCHS},
+          "config": config,
           "weights": "torch.Generator seed --seed, drawn leaf by leaf, each rank keeping "
                      "its shard",
-          "traffic": {"buckets": [{"prompt_tokens": p, "requests": n}
-                                  for p, n in MR_SERVE_BUCKETS],
-                      "max_new": MR_SERVE_MAX_NEW, "batch": SERVE_BATCH,
-                      "max_len": MR_SERVE_MAX_LEN,
-                      "reduced": "model_serve's 3 buckets and 32 new tokens -> 2 and 16"},
-          "tolerances": {"near_tie_margin": MR_SERVE_F32_MARGIN},
+          "traffic_reduced": "model_serve's 3 buckets and 32 new tokens -> 2 and 16",
+          "tolerances": {"near_tie_margin": {a: "MR_SERVE_F32_MARGIN" if a not in MR_FRONT_ARCHS
+                                             else "twice the run's decode logit error"
+                                             for a in archs}},
           "meshes": meshes, "failed": failed, "one_rank_s": one["seconds"],
           "pbs_kernel_launches": pbs})
     assert not failed, failed

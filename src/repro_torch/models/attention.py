@@ -36,7 +36,11 @@ Cross attention (the encoder-decoder's ``cross`` blocks) reads an encoder
 memory without rope: ``gqa_apply(memory=)`` for prefill, and at decode
 ``cross_decode`` against the memory's K/V, computed once by
 ``cross_fill_cache``.  That cache's ``len`` is the memory's length, a host
-``int``; decode reads it and never writes it.
+``int``; decode reads it and never writes it.  Across ranks every rank
+reads the same gathered memory (``backbone.encode``) and only the cache is
+sharded, along the sequence as the KV cache is: each rank keeps its
+``Tm / M`` positions, attends every head over them, and the partials are
+LSE-combined across ranks.
 """
 from __future__ import annotations
 
@@ -331,10 +335,15 @@ def local_decode(p, x, cache, ctx: MeshCtx, cfg: ModelConfig):
 
 
 def cross_fill_cache(p, memory, cfg: ModelConfig, ctx: MeshCtx):
-    """The cross-attention K/V of encoder memory (B, Tm, d), bfloat16, with
-    ``len`` the host ``int`` Tm."""
-    k, v = _kv(p, memory, cfg)
-    return {"k": k.to(torch.bfloat16), "v": v.to(torch.bfloat16), "len": memory.shape[1]}
+    """The cross-attention K/V of this rank's chunk ``[midx·tc, (midx+1)·tc)``
+    of encoder memory (B, Tm, d), whole on every rank, with ``tc = Tm // M``
+    (the whole memory on one rank), bfloat16; ``len`` is the host ``int``
+    Tm.  Only the chunk is projected: the projection is row by row."""
+    tm = memory.shape[1]
+    tc = tm // ctx.model_size
+    start = ctx.midx() * tc
+    k, v = _kv(p, memory[:, start:start + tc], cfg)
+    return {"k": k.to(torch.bfloat16), "v": v.to(torch.bfloat16), "len": tm}
 
 
 # past every memory position: cross attention is not causal
@@ -342,19 +351,33 @@ _ALL_MEMORY = 1 << 30
 
 
 def cross_decode(p, x, cache, ctx: MeshCtx, cfg: ModelConfig):
-    """One token's cross attention over the whole memory cache.  x: (B, 1, d).
-    Only q is projected: the cache holds the memory's K/V."""
+    """One token's cross attention over the sequence-sharded memory cache.
+    x: (B, 1, d), replicated over 'model'.  Only q is projected: the cache
+    holds the memory's K/V.
+
+    q is computed for this rank's heads and all-gathered to every head;
+    each rank attends all heads over its chunk of the cache (at key offset
+    ``midx·tc``, every position valid), the partials are LSE-combined
+    across ranks, and each rank multiplies its head slice of the output by
+    its ``wo`` rows, psummed over 'model'.  On one rank the chunk is the
+    whole memory and the combine a division."""
     B = x.shape[0]
     dh = cfg.resolved_head_dim
+    M, midx = ctx.model_size, ctx.midx()
     q = _q(p, x, cfg)
+    if M > 1:       # every head everywhere: the head shards of one token
+        q = ctx.comm().all_gather(q, ctx.m, dim=1)
+    tc = cache["k"].shape[2]
     num, m, l = attention_partial_lse(
-        q, cache["k"], cache["v"], kv_map(cfg, ctx, x.device), k_offset=0,
+        q, cache["k"], cache["v"], kv_map(cfg, ctx, x.device), k_offset=midx * tc,
         kv_valid_len=cache["len"], q_pos=torch.full((1,), _ALL_MEMORY, device=x.device),
     )
     out = combine_partials(num, m, l, ctx)  # (B, Hq_pad, 1, dh)
     out = _mask_pad_heads(out, cfg, ctx, local=False)
-    hq = out.shape[1]
-    return matmul(out.transpose(1, 2).reshape(B, 1, hq * dh), p["wo"])
+    qpr = out.shape[1] // M
+    o_loc = out[:, midx * qpr:(midx + 1) * qpr]
+    o = matmul(o_loc.transpose(1, 2).reshape(B, 1, qpr * dh), p["wo"])
+    return psum_model(o, ctx)
 
 
 # --------------------------------------------------------------------------

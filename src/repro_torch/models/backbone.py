@@ -27,23 +27,23 @@ reference's ``(x, aux)``.  With ``remat`` (the default, as the reference's
 under ``torch.utils.checkpoint`` and is recomputed in the backward
 (serving records nothing, so it runs the layers as they are).
 
-Across ranks (a ``MeshCtx`` above one rank) the dense, MoE, hybrid and
-SSM families train as the reference's do: the residual stream
-sequence-sharded over 'model' between blocks (``forward`` takes this
-rank's (B, T/M) tokens), the embedding and the logits vocab-sharded
-(``embed_tokens``, ``ce_loss`` with ``pmax_const`` and scalar psums), Q/O
-(and MLA's ``wq_b`` / ``wkv_b`` / ``wo``) head-sharded, windowed
-attention too, the MLP split column / row, the routed experts spread over
-the whole ('data', 'model') world with their tokens dispatched by
-all-to-all (``ffn.moe_apply``, the mesh's 'data' size its
-``ep_data_size``), the RG-LRU scanning each rank's chunk at full width
-(``rglru.rglru_apply``) and the SSD's heads sharded (``ssm.ssm_apply``);
-and serve as the reference's decode does: the one-token stream replicated
-over 'model' (``embed_tokens(seq_sharded=False)``), the greedy token a
-distributed argmax over the vocab shards (``greedy_token``).  The
-encoder-decoder block, the encoder and the frontends raise
-``NotImplementedError`` above one rank, naming the later sub-item of
-ROADMAP Queue A item 15 that brings them.
+Across ranks (a ``MeshCtx`` above one rank) every family trains as the
+reference's does: the residual stream sequence-sharded over 'model'
+between blocks (``forward`` takes this rank's (B, T/M) tokens), the
+embedding and the logits vocab-sharded (``embed_tokens``, ``ce_loss``
+with ``pmax_const`` and scalar psums), Q/O (and MLA's ``wq_b`` /
+``wkv_b`` / ``wo``) head-sharded, windowed attention too, the MLP split
+column / row, the routed experts spread over the whole ('data', 'model')
+world with their tokens dispatched by all-to-all (``ffn.moe_apply``, the
+mesh's 'data' size its ``ep_data_size``), the RG-LRU scanning each rank's
+chunk at full width (``rglru.rglru_apply``), the SSD's heads sharded
+(``ssm.ssm_apply``), the encoder over this rank's (B, Te/M) frames with
+its memory gathered whole for every rank's cross attention (``encode``),
+and the patch frontend's rows as this rank's (B, T/M, d) chunk beside its
+tokens (``embed_inputs``); and serve as the reference's decode does: the
+one-token stream replicated over 'model'
+(``embed_tokens(seq_sharded=False)``), the greedy token a distributed
+argmax over the vocab shards (``greedy_token``).
 
 ``ce_loss`` is the reference's chunked cross-entropy with one deliberate
 difference: the reference scans ``T // t_chunk`` whole chunks and so
@@ -73,15 +73,6 @@ from .layers import (
 from .rglru import rglru_apply, rglru_spec
 from .spec import P, stack_layers, tree_map
 from .ssm import ssm_apply, ssm_spec
-
-
-# what a mesh above one rank does not run yet, and the sub-item that brings it
-ACROSS_RANKS_TODO = ("{what} above one rank: ROADMAP Queue A item 15 sub-item 6c.{part} "
-                     "(the other families across ranks)")
-# the block kinds that run above one rank, and the sub-item of the others
-ACROSS_RANKS_KINDS = ("attn", "mla_dense", "mla_moe", "attn_window", "rglru", "ssm",
-                      "hybrid_period")
-TODO_PART = {"dec": "iii"}
 
 
 def vocab_pad(cfg: ModelConfig) -> int:
@@ -127,12 +118,10 @@ def embed_tokens(p, tokens, ctx: MeshCtx, cfg: ModelConfig, *, seq_sharded: bool
 def embed_inputs(p, tokens, ctx: MeshCtx, cfg: ModelConfig, frontend=None):
     """The embeddings of tokens (B, T) (this rank's (B, T/M) above one
     rank): negative ids embed as id 0, as the reference's
-    ``jnp.maximum(tokens, 0)``, and with ``frontend`` (B, T, d) its rows
+    ``jnp.maximum(tokens, 0)``, and with ``frontend`` (B, T, d) (this
+    rank's (B, T/M, d) chunk above one rank, beside its tokens) its rows
     replace them where the token is below 0.  Raises ``ValueError`` where
     ``frontend``'s leading shape is not the tokens'."""
-    if frontend is not None and ctx.world > 1:
-        raise NotImplementedError(ACROSS_RANKS_TODO.format(what="the patch frontend",
-                                                           part="iii"))
     x = embed_tokens(p, tokens.clamp(min=0), ctx, cfg)
     if frontend is None:
         return x
@@ -276,11 +265,7 @@ def make_block_fn(cfg: ModelConfig, ctx: MeshCtx, kind: str, *, memory=None,
     """Returns f(params, x) -> x for train / prefill; with ``with_aux``
     f(params, x) -> (x, aux), aux the MoE block's aux loss and ``None`` for
     every other kind.  A ``dec`` block attends to ``memory`` (B, Tm, d), the
-    encoder's output.  Above one rank every kind but ``dec`` runs (it
-    raises ``NotImplementedError``)."""
-    if ctx.world > 1 and kind not in ACROSS_RANKS_KINDS:
-        raise NotImplementedError(ACROSS_RANKS_TODO.format(what=f"the {kind!r} block",
-                                                           part=TODO_PART[kind]))
+    encoder's output, whole on every rank (``encode`` gathers it)."""
 
     def attn_block(p, x):
         w = cfg.window if kind == "attn_window" else None
@@ -422,14 +407,20 @@ def _run_layers(fn, layers, x, aux, remat: bool):
 def encode(params, enc_embeds, ctx: MeshCtx, cfg: ModelConfig, remat: bool = True):
     """The encoder over stub frame embeddings (B, Te, d) -> memory (B, Te, d):
     the frames cast to the parameters' dtype, non-causal ``attn`` blocks
-    (rope over the frame positions), then the encoder's own norm."""
-    if ctx.world > 1:
-        raise NotImplementedError(ACROSS_RANKS_TODO.format(what="the encoder", part="iii"))
+    (rope over the frame positions), then the encoder's own norm.
+
+    Above one rank ``enc_embeds`` is this rank's (B, Te/M, d) chunk of the
+    frames and the blocks' stream is sequence-sharded, as the decoder's
+    is; the normed chunks are all-gathered over 'model' (``ag_seq``, as
+    the reference's), so every rank returns the whole (B, Te, d) memory.
+    The gather's backward reduce-scatters: each rank's cross-attention
+    gradient into the memory, of its own query heads, is summed over
+    'model' into its chunk."""
     fn = make_block_fn(cfg, ctx, "attn", causal=False, with_aux=True)
     x = enc_embeds.to(params["enc"]["norm"]["scale"].dtype)
     x, _ = _run_layers(fn, group_layers(params["enc"]["layers"], cfg.n_enc_layers, True), x,
                        None, remat)
-    return apply_norm(params["enc"]["norm"], x, cfg)
+    return ag_seq(apply_norm(params["enc"]["norm"], x, cfg), ctx)
 
 
 def forward(params, tokens, ctx: MeshCtx, cfg: ModelConfig, *, frontend=None,
@@ -440,8 +431,9 @@ def forward(params, tokens, ctx: MeshCtx, cfg: ModelConfig, *, frontend=None,
     ``enc_embeds`` (B, Te, d) are the stub frontends' inputs
     (``embed_inputs``, ``encode``); an encoder-decoder needs ``enc_embeds``.
     ``remat`` recomputes each layer in the backward (only while autograd
-    records).  Above one rank tokens are this rank's (B, T/M) chunk and the
-    result its (B, T/M, d) shard of the stream."""
+    records).  Above one rank tokens are this rank's (B, T/M) chunk,
+    ``frontend`` and ``enc_embeds`` its (B, T/M, d) and (B, Te/M, d)
+    chunks, and the result its (B, T/M, d) shard of the stream."""
     x = embed_inputs(params["embed"], tokens, ctx, cfg, frontend)
     memory = (encode(params, enc_embeds, ctx, cfg, remat) if cfg.family == "encdec"
               else None)

@@ -8,21 +8,27 @@ functions on tensors over the same parameter tree, looping over each
 group's layers in Python where the reference runs ``lax.scan``.
 
 Above one rank (``launch.mesh.LocalMesh`` ranks started by
-``launch.ranks.run_ranks``) the dense family (a plan of ``attn`` blocks),
-the MoE family (``mla_dense`` and ``mla_moe`` blocks: the latent cache
+``launch.ranks.run_ranks``) every family is served as the reference's
+``shard_map`` serves it: the dense family (a plan of ``attn`` blocks), the
+MoE family (``mla_dense`` and ``mla_moe`` blocks: the latent cache
 sequence-sharded as the KV cache is, the routed experts over the whole
 ('data', 'model') world, the mesh's 'data' size their ``ep_data_size``),
 the hybrid family (``rglru`` and ``attn_window`` blocks: the RG-LRU state
-and conv tail and the KV rings replicated over 'model') and the SSM family
+and conv tail and the KV rings replicated over 'model'), the SSM family
 (``ssm`` blocks: the state and the conv ring of ``x`` split over 'model' by
-heads) are served as the reference's ``shard_map`` serves them: every rank calls the
-steps with its own parameter shards and the *global* inputs, keeps its rows
-(over ``batch_axes``) and, at prefill, its sequence chunk, and gets back its
-own caches (the blocks of the reference's global caches by ``cache_spec``)
-and the *global* token (B,), gathered over the batch axes, so every rank
-takes the same decisions on it.  ``max_len`` must divide by the 'model'
-size: the reference gives each rank ``max_len // M`` positions and drops
-the writes past them.
+heads), the encoder-decoder (``dec`` blocks: the encoder over each rank's
+chunk of the frames, its memory gathered whole, the cross cache
+sequence-sharded as the KV cache is) and the patch frontend (each rank's
+chunk of the patch rows beside its tokens).  Every rank calls the steps
+with its own parameter shards and the *global* inputs, keeps its rows
+(over ``batch_axes``) and, at prefill, its sequence chunk (of the tokens,
+the frames and the patch rows), and gets back its own caches (the blocks
+of the reference's global caches by ``cache_spec``) and the *global*
+token (B,), gathered over the batch axes, so every rank takes the same
+decisions on it.  ``max_len`` and an encoder-decoder's ``enc_len`` must
+divide by the 'model' size: the reference gives each rank ``max_len // M``
+positions and drops the writes past them, and its ``shard_map`` cannot
+split such frames.
 
 Cache layout is declared as a ``P`` tree (``cache_spec``), as in the
 reference; ``abstract_cache`` gives it on the ``meta`` device.  A live
@@ -39,7 +45,8 @@ group's layers where the group is scanned.  Per block kind:
   pre-conv inputs (bfloat16);
 * ``dec``: ``"self"``, an ``attn`` cache of ``max_len`` positions, and
   ``"cross"``, the encoder memory's K/V of ``enc_len`` positions
-  (bfloat16), filled at prefill and only read by decode;
+  (bfloat16; sequence-sharded over 'model' as ``"self"`` is), filled at
+  prefill and only read by decode;
 * ``ssm``: the state ``"ssd"`` (float32) and ``"conv": {"x", "bc"}``, the
   last ``ssm_conv - 1`` raw conv inputs;
 * a ``hybrid_period`` group: ``{"b0", "b1", …}``, one of the above a block;
@@ -81,9 +88,6 @@ from repro_torch.models.attention import (
     mla_init_cache,
 )
 from repro_torch.models.backbone import (
-    ACROSS_RANKS_KINDS,
-    ACROSS_RANKS_TODO,
-    TODO_PART,
     embed_inputs,
     embed_tokens,
     encode,
@@ -388,24 +392,21 @@ def make_serve_fns(cfg: ModelConfig, mesh, *, batch: int, max_len: int,
     Above one rank ``params`` are this rank's shards
     (``models.spec.shard_params``), ``inputs`` and ``tokens`` the global
     batch, ``caches`` this rank's, and the token is global (see the module
-    docstring).  There every plan but the encoder-decoder's is served,
-    without a frontend (``dec`` blocks and ``"frontend"`` raise
-    ``NotImplementedError``, sub-item 6c.iii), T must divide by the 'model'
-    size, and a ``max_len`` that the 'model' size does not divide raises
-    ``ValueError``."""
+    docstring).  There T must divide by the 'model' size, and a
+    ``max_len``, or an encoder-decoder's ``enc_len``, that the 'model' size
+    does not divide raises ``ValueError``."""
     ctx = mesh_ctx(mesh)
     groups = [(f"g{gi}", kind, count, scanned)
               for gi, (kind, count, scanned) in enumerate(layer_plan(cfg)) if count]
     if mesh.world > 1:
-        for _, kind, _, _ in groups:
-            if kind not in ACROSS_RANKS_KINDS:
-                raise NotImplementedError(ACROSS_RANKS_TODO.format(
-                    what=f"serving the {kind!r} block", part=TODO_PART[kind]))
-        if max_len % ctx.model_size:
-            raise ValueError(
-                f"max_len {max_len} does not divide over a 'model' axis of "
-                f"{ctx.model_size} ranks: each would keep {max_len // ctx.model_size} "
-                f"positions and {max_len % ctx.model_size} would have no owner")
+        split = [("max_len", max_len)] + ([("enc_len", enc_len)]
+                                          if cfg.family == "encdec" else [])
+        for what, n in split:
+            if n % ctx.model_size:
+                raise ValueError(
+                    f"{what} {n} does not divide over a 'model' axis of "
+                    f"{ctx.model_size} ranks: each would keep {n // ctx.model_size} "
+                    f"positions and {n % ctx.model_size} would have no owner")
     spec = model_spec(cfg, ctx)
     c_spec = cache_spec(cfg, mesh, batch, max_len, enc_len)
     ba = batch_axes(mesh, batch)
@@ -425,15 +426,23 @@ def make_serve_fns(cfg: ModelConfig, mesh, *, batch: int, max_len: int,
         return tok if ba is None else mesh.all_gather(tok, ba, 0)
 
     def prefill(params, inputs):
+        # the global shapes, checked before each rank keeps its part
+        glob = tuple(inputs["tokens"].shape)
+        frontend, enc = inputs.get("frontend"), inputs.get("enc")
+        if frontend is not None and tuple(frontend.shape[:2]) != glob:
+            raise ValueError(f"frontend of shape {tuple(frontend.shape)} for tokens of "
+                             f"shape {glob}")
+        enc_shape = None if enc is None else tuple(enc.shape)
+        if cfg.family == "encdec" and (enc_shape or ())[:2] != (glob[0], enc_len):
+            raise ValueError(f"enc of shape {enc_shape}: expected ({glob[0]}, {enc_len}, d), "
+                             f"enc_len {enc_len}")
         tokens = rows(inputs["tokens"], "model")                # (B, T/M)
-        x = embed_inputs(params["embed"], tokens, ctx, cfg, inputs.get("frontend"))
-        memory = None
-        if cfg.family == "encdec":
-            enc = inputs["enc"]
-            if tuple(enc.shape[:2]) != (tokens.shape[0], enc_len):
-                raise ValueError(f"enc of shape {tuple(enc.shape)}: expected "
-                                 f"({tokens.shape[0]}, {enc_len}, d), enc_len {enc_len}")
-            memory = encode(params, enc, ctx, cfg)      # once, for every dec block
+        if frontend is not None:
+            frontend = rows(frontend, "model", None)            # (B, T/M, d)
+        x = embed_inputs(params["embed"], tokens, ctx, cfg, frontend)
+        # this rank's frames in, the whole memory out, once for every dec block
+        memory = (encode(params, rows(enc, "model", None), ctx, cfg)
+                  if cfg.family == "encdec" else None)
         caches = {}
         for name, kind, count, scanned in groups:
             fn = _prefill_block(cfg, ctx, kind, ep_data, max_len, memory=memory)

@@ -22,9 +22,10 @@ recurrent and sliding-window blocks (``hybrid``, ``ssm``) keeps caches of a
 fixed size that ``max_len`` does not bound: a state, conv rings and KV
 rings of ``window`` slots.  There only the reference's check applies.
 
-Across ranks (a ``LocalMesh`` of several ranks: every family but the
-encoder-decoder) every rank calls ``run`` with its own parameter shards
-and the same requests, and returns the same completions: each step's
+Across ranks (a ``LocalMesh`` of several ranks: every family) every rank
+calls ``run`` with its own parameter shards, the same requests and the
+same global ``extras`` (the engine's prefill keeps each rank's rows and
+sequence chunk of them), and returns the same completions: each step's
 token is global (the engine gathers it over the batch axes), so every rank
 takes the same ``done`` and early-``break`` decisions.  A rank that broke
 alone would leave the others waiting in their next collective.

@@ -44,15 +44,26 @@ Tasks (``kind``):
   outputs and last cache; and the raw pre-conv tail ``_branch_in(p,
   x)[1][:, -3:]`` of the whole sequence.  A part that raises records its
   exception's name under ``<name>/<part>/error``;
-* ``forward``: the no-cache ``forward`` of the given tokens on the mesh:
+* ``frontend_layers``: where the task's ``parts`` name them, ``encode``
+  over the frames (each rank's gathered memory and ``jax.vjp`` of ``Σ
+  memory · cot``), ``gqa_apply(memory=)`` (output and ``jax.vjp`` wrt the
+  weights, the stream and the memory), ``cross_fill_cache`` (each rank's
+  chunk) and ``cross_decode`` from the given global cache over the
+  ``xstep`` inputs (each step's output);
+* ``forward``: the no-cache ``forward`` of the given tokens on the mesh,
+  with the task's ``enc`` frames or ``frontend`` rows where it has them:
   the final-norm states, whole;
 * ``serve``: the reference's ``BatchScheduler`` on the given global
   parameters and requests (each completion's tokens, ``finished`` and the
-  run's counts), then, where the task names a ``prefill`` bucket, that
-  bucket's first ``batch`` prompts (padded with copies of the first) through
-  the run's own ``make_serve_fns``
-  prefill: the global caches (a rank's are their blocks by
-  ``cache_spec``) and the token.
+  run's counts), one ``run`` a task's ``runs`` entry where it has them (a
+  run's requests and its ``extras``, the counts summed), then, where the
+  task names a ``prefill`` bucket, that bucket's first ``batch`` prompts
+  (padded with copies of the first), with its run's extras, through the
+  run's own ``make_serve_fns`` prefill: the global caches (a rank's are
+  their blocks by ``cache_spec``) and the token.
+
+The ``step`` task's batch carries ``enc`` / ``frontend`` where the task's
+arrays hold them.
 """
 import json
 import os
@@ -211,6 +222,8 @@ def step(task, inp, out):
     opt = unflat(inp, f"{name}/opt")
     opt["step"] = jnp.asarray(inp[f"{name}/opt/step"], jnp.int32)
     batch = {k: jnp.asarray(inp[f"{name}/batch/{k}"], jnp.int32) for k in ("tokens", "labels")}
+    batch.update({k: jnp.asarray(inp[f"{name}/batch/{k}"], jnp.float32)
+                  for k in ("enc", "frontend") if f"{name}/batch/{k}" in inp})
     B = batch["tokens"].shape[0]
     bundle = make_train_step(cfg, mesh, ocfg, batch=B, compression=ccfg)
     world = d * m
@@ -220,7 +233,9 @@ def step(task, inp, out):
 
     def grads_body(params, b):
         def objective(pp):
-            x, aux = backbone.forward(pp, b["tokens"], ctx, cfg, ep_data_size=d)
+            x, aux = backbone.forward(pp, b["tokens"], ctx, cfg, ep_data_size=d,
+                                      frontend_sp=b.get("frontend"),
+                                      enc_embeds_sp=b.get("enc"))
             ce = backbone.ce_loss(pp["embed"], x, b["labels"], ctx, cfg)
             return (ce + 1e-3 * aux) / world, ce
         (_, ce), g = jax.value_and_grad(objective, has_aux=True)(params)
@@ -448,12 +463,79 @@ def forward(task, inp, out):
     name = task["name"]
     params = jax.tree.map(jnp.asarray, unflat(inp, f"{name}/params"))
     spec = pspecs(backbone.model_spec(cfg, ctx))
+    extra = [k for k in ("enc", "frontend") if f"{name}/{k}" in inp]
+
+    def body(p, t, *xs):
+        kw = dict(zip(("enc_embeds_sp" if k == "enc" else "frontend_sp" for k in extra), xs))
+        return backbone.forward(p, t, ctx, cfg, ep_data_size=d, remat=False, **kw)[0]
+
     body = jax.shard_map(
-        lambda p, t: backbone.forward(p, t, ctx, cfg, ep_data_size=d, remat=False)[0],
-        mesh=mesh, in_specs=(spec, JP("data", "model")), out_specs=JP("data", "model", None),
-        check_vma=False)
-    out[f"{name}/x"] = np.asarray(jax.jit(body)(params, jnp.asarray(inp[f"{name}/tokens"],
-                                                                    jnp.int32)))
+        body, mesh=mesh,
+        in_specs=(spec, JP("data", "model")) + (JP("data", "model", None),) * len(extra),
+        out_specs=JP("data", "model", None), check_vma=False)
+    out[f"{name}/x"] = np.asarray(jax.jit(body)(
+        params, jnp.asarray(inp[f"{name}/tokens"], jnp.int32),
+        *(jnp.asarray(inp[f"{name}/{k}"], jnp.float32) for k in extra)))
+
+
+def frontend_layers(task, inp, out):
+    d, m = task["mesh"]
+    mesh = mesh_of(d, m)
+    ctx = mesh_ctx(mesh)
+    cfg = config(task)
+    name = task["name"]
+    parts = task["parts"]
+    seq, rows = JP("data", "model", None), JP("data", None, None)
+    per = lambda t: jax.tree.map(lambda a: jnp.asarray(a, jnp.float32)[None], t)   # noqa: E731
+    if "encode" in parts:
+        p = unflat(inp, f"{name}/params/enc")
+        p_spec = pspecs(backbone.model_spec(cfg, ctx))["enc"]
+
+        def enc_body(pp, xs, cot):
+            y, pull = jax.vjp(lambda a, b: backbone.encode({"enc": a}, b, ctx, cfg), pp, xs)
+            gp, gx = pull(cot[0])
+            return y[None], per(gp), gx[None]
+
+        body = jax.shard_map(enc_body, mesh=mesh, in_specs=(p_spec, seq, RANKS),
+                             out_specs=RANKS, check_vma=False)
+        y, gp, gx = jax.jit(body)(p, inp[f"{name}/frames"], inp[f"{name}/cot/encode"])
+        out[f"{name}/encode/y"], out[f"{name}/encode/dx"] = np.asarray(y), np.asarray(gx)
+        flat(gp, f"{name}/encode/dp", out)
+    if "cross" in parts:
+        p = unflat(inp, f"{name}/params/cross")
+        p_spec = pspecs(attention.gqa_spec(cfg, ctx))
+
+        def cross_body(pp, xs, mem, cot):
+            y, pull = jax.vjp(lambda a, b, c: attention.gqa_apply(
+                a, b, ctx, cfg, causal=False, memory=c), pp, xs, mem)
+            gp, gx, gm = pull(cot[0])
+            return y[None], per(gp), gx[None], gm[None]
+
+        body = jax.shard_map(cross_body, mesh=mesh, in_specs=(p_spec, seq, rows, RANKS),
+                             out_specs=RANKS, check_vma=False)
+        y, gp, gx, gm = jax.jit(body)(p, inp[f"{name}/x"], inp[f"{name}/memory"],
+                                      inp[f"{name}/cot/cross"])
+        out[f"{name}/cross/y"], out[f"{name}/cross/dx"] = np.asarray(y), np.asarray(gx)
+        out[f"{name}/cross/dmem"] = np.asarray(gm)
+        flat(gp, f"{name}/cross/dp", out)
+        steps = [inp[f"{name}/xstep{i}"] for i in range(task["n_steps"])]
+        cache_spec = JP("data", None, "model", None)
+
+        def cache_body(pp, mem, k, v, *xd):
+            c = attention.cross_fill_cache(pp, mem, cfg, ctx)
+            given = {"k": k.astype(jnp.bfloat16), "v": v.astype(jnp.bfloat16),
+                     "len": jnp.int32(task["cache_len"])}
+            ys = tuple(attention.cross_decode(pp, xx, given, ctx, cfg)[None] for xx in xd)
+            return per({"k": c["k"], "v": c["v"]}), ys
+
+        body = jax.shard_map(cache_body, mesh=mesh,
+                             in_specs=(p_spec, rows, cache_spec, cache_spec)
+                             + (rows,) * len(steps), out_specs=RANKS, check_vma=False)
+        c, ys = jax.jit(body)(p, inp[f"{name}/memory"], inp[f"{name}/cache_k"],
+                              inp[f"{name}/cache_v"], *steps)
+        flat(c, f"{name}/cross_cache", out)
+        for i, y in enumerate(ys):
+            out[f"{name}/cross_decode/y{i}"] = np.asarray(y)
 
 
 def serve(task, inp, out):
@@ -463,20 +545,29 @@ def serve(task, inp, out):
     name = task["name"]
     params = jax.tree.map(jnp.asarray, unflat(inp, f"{name}/params"))
     sched = BatchScheduler(cfg, mesh, batch=task["batch"], max_len=task["max_len"],
-                           eos_id=task["eos_id"])
+                           eos_id=task["eos_id"], enc_len=task.get("enc_len", 32))
     reqs = [Request(rid, prompt, max_new) for rid, prompt, max_new in task["requests"]]
-    done, stats = sched.run(params, reqs)
-    for rid, c in done.items():
-        out[f"{name}/tokens/{rid}"] = np.asarray(c.tokens, np.int32)
-        out[f"{name}/finished/{rid}"] = np.asarray(c.finished)
-    out[f"{name}/stats"] = np.asarray([stats.requests, stats.prefill_tokens,
-                                       stats.decode_steps, stats.batches])
+    runs = task.get("runs") or [list(range(len(reqs)))]
+    run_extras = []
+    counts = np.zeros(4, np.int64)
+    for i, idx in enumerate(runs):
+        extras = {k: jnp.asarray(inp[f"{name}/extras{i}/{k}"], jnp.float32)
+                  for k in ("enc", "frontend") if f"{name}/extras{i}/{k}" in inp} or None
+        run_extras.append(extras)
+        done, stats = sched.run(params, [reqs[j] for j in idx], extras=extras)
+        for rid, c in done.items():
+            out[f"{name}/tokens/{rid}"] = np.asarray(c.tokens, np.int32)
+            out[f"{name}/finished/{rid}"] = np.asarray(c.finished)
+        counts += (stats.requests, stats.prefill_tokens, stats.decode_steps, stats.batches)
+    out[f"{name}/stats"] = counts
     plen = task.get("prefill")
     if plen:
         prompts = [r.prompt for r in reqs if len(r.prompt) == plen][:task["batch"]]
         prompts += [prompts[0]] * (task["batch"] - len(prompts))     # pad with a copy
         toks = jnp.asarray(np.asarray(prompts, np.int32))
-        caches, tok = sched._engine(plen).prefill(params, {"tokens": toks})
+        extras = next(e for idx, e in zip(runs, run_extras)
+                      if any(len(reqs[i].prompt) == plen for i in idx)) or {}
+        caches, tok = sched._engine(plen).prefill(params, {"tokens": toks, **extras})
         flat(caches, f"{name}/caches", out)
         out[f"{name}/prefill_token"] = np.asarray(tok)
 
@@ -487,7 +578,7 @@ def main():
     for task in json.loads(str(inp.pop("job"))):
         {"coll": coll, "layers": layer_fns, "step": step, "init": init,
          "serve": serve, "moe_layers": moe_layers, "recurrent_layers": recurrent_layers,
-         "forward": forward}[task["kind"]](
+         "forward": forward, "frontend_layers": frontend_layers}[task["kind"]](
             task, inp, out)
     np.savez(sys.argv[2], **out)
 

@@ -291,29 +291,42 @@ def serve(dev, tasks):
     ledger; then, where the task names a ``prefill`` bucket, that bucket's
     first ``batch`` prompts (padded with copies) through the run's own prefill (this rank's
     caches and the token) and one decode step on them (the token and the
-    step's collectives)."""
+    step's collectives).  A task with ``runs`` serves them one ``run`` each:
+    a run is (the indices of its requests, its global ``extras`` — an
+    encoder-decoder's frames, a ``patch_stub`` model's patch rows — or
+    None), its counts summed; the prefill bucket takes its run's extras."""
     results = {}
     for t in tasks:
         d, m = t["mesh"]
         mesh = make_local_mesh(d, m, device=dev)
         cfg = config(t["arch"], t.get("scale"))
         sched = BatchScheduler(cfg, mesh, batch=t["batch"], max_len=t["max_len"],
-                               eos_id=t["eos_id"])
+                               eos_id=t["eos_id"], enc_len=t.get("enc_len", 32))
         params = shard_params(t["params"], sched._engine.param_spec, mesh)
         reqs = [Request(rid, prompt, max_new) for rid, prompt, max_new in t["requests"]]
+        runs = t.get("runs") or [(list(range(len(reqs))), None)]
+        done, counts = {}, np.zeros(4, np.int64)
         with torch.no_grad():
-            done, stats = sched.run(params, reqs)
+            for idx, extras in runs:
+                got, stats = sched.run(params, [reqs[i] for i in idx], extras=extras)
+                done.update(got)
+                counts += (stats.requests, stats.prefill_tokens, stats.decode_steps,
+                           stats.batches)
         dispatch = dict(mesh.dispatch)
         res = {"completions": {rid: (c.tokens, c.finished) for rid, c in done.items()},
-               "stats": (stats.requests, stats.prefill_tokens, stats.decode_steps,
-                         stats.batches),
+               "stats": tuple(int(c) for c in counts),
                "ledger": {k: dict(v) for k, v in mesh.ledger.items()}, "dispatch": dispatch}
         if t.get("prefill"):
             prompts = [p for _, p, _ in t["requests"] if len(p) == t["prefill"]][:t["batch"]]
             prompts += [prompts[0]] * (t["batch"] - len(prompts))       # pad with a copy
+            extras = next((e for idx, e in runs
+                           if any(len(reqs[i].prompt) == t["prefill"] for i in idx)),
+                          None) or {}
             sv = sched._engine
             with torch.no_grad():
-                caches, tok = sv.prefill(params, {"tokens": torch.tensor(prompts)})
+                caches, tok = sv.prefill(params, {"tokens": torch.tensor(prompts),
+                                                  **{k: torch.as_tensor(v)
+                                                     for k, v in extras.items()}})
                 res["caches"] = tree_map(
                     lambda x: x if isinstance(x, int) else x.float().numpy().copy(), caches)
                 res["prefill_token"] = tok.numpy()
@@ -329,19 +342,21 @@ def serve(dev, tasks):
 EXPERT_LEAVES = ("we_gate", "we_up", "we_down")
 
 
-def _vjp(fn, params, xs, cots):
-    """``fn(params, xs)`` -> outputs; this rank's outputs and the gradients
-    of ``Σ out · cot`` over every output, wrt the parameter leaves and xs."""
+def _vjp(fn, params, xs, cots, more=()):
+    """``fn(params, xs, *more)`` -> outputs; this rank's outputs and the
+    gradients of ``Σ out · cot`` over every output, wrt the parameter leaves
+    and xs (with ``more``: wrt xs and each of ``more``, a list)."""
     flat = [(k, v.requires_grad_(True)) for k, v in _leaves(params)]
-    xs = xs.clone().requires_grad_(True)
-    outs = fn(params, xs)
-    wrt = [v for _, v in flat] + [xs]
+    ins = [x.clone().requires_grad_(True) for x in (xs, *more)]
+    outs = fn(params, *ins)
+    wrt = [v for _, v in flat] + ins
     gs = torch.autograd.grad(outs, wrt, allow_unused=True,     # a rank's experts may get no row
                              grad_outputs=[torch.as_tensor(c, dtype=o.dtype)
                                            for o, c in zip(outs, cots)])
     gs = [torch.zeros_like(w) if g is None else g.detach() for g, w in zip(gs, wrt)]
+    dxs = [g.numpy() for g in gs[len(flat):]]
     return ([o.detach().numpy() for o in outs],
-            {k: g.numpy() for (k, _), g in zip(flat, gs)}, gs[-1].numpy())
+            {k: g.numpy() for (k, _), g in zip(flat, gs)}, dxs if more else dxs[0])
 
 
 def moe_layers(dev, tasks):
@@ -493,6 +508,79 @@ def recurrent_layers(dev, tasks):
                 res[f"{key}_decode"] = {"y": ys, "state": _state_np(cache),
                                         "ledger": {k: v["calls"]
                                                    for k, v in mesh.ledger.items()}}
+        results[t["name"]] = res
+        dist.barrier()
+    return results
+
+
+def frontend_layers(dev, tasks):
+    """Each task's frontend-family functions on its (data, model) mesh, this
+    rank's shards of the task's global float32 weights, where its ``parts``
+    name them: ``encode`` over this rank's frames (the gathered memory and
+    the gradients of ``Σ memory · cot`` wrt the encoder's leaves and the
+    frames), ``gqa_apply(memory=)`` over this rank's stream chunk and its
+    rows of the whole memory (output and gradients wrt ``wq`` / ``wk`` /
+    ``wv`` / ``wo``, the chunk and the memory), ``cross_fill_cache`` of that
+    memory (this rank's chunk), ``cross_decode`` from the given global
+    cache (each step's output), and the no-cache ``forward`` over this
+    rank's tokens with its chunk of the frames or the patch rows (its
+    stream chunk); each part's collectives."""
+    results = {}
+    for t in tasks:
+        d, m = t["mesh"]
+        mesh = make_local_mesh(d, m, device=dev)
+        ctx = mesh_ctx(mesh)
+        cfg = config(t["arch"], t.get("scale"))
+        r = mesh.rank
+        seq, rows = ("data", "model", None), ("data", None, None)
+
+        def local(a, spec):
+            return torch.from_numpy(np.ascontiguousarray(block(a, mesh, spec)))
+
+        res = {}
+        if "encode" in t["parts"]:
+            spec = backbone.model_spec(cfg, ctx)["enc"]
+            p = shard_params(t["params"]["enc"], spec, mesh)
+            mesh.ledger.clear()
+            (y,), dp, dx = _vjp(
+                lambda pp, xx: (backbone.encode({"enc": pp}, xx, ctx, cfg),), p,
+                local(t["frames"], seq), [t["cot"]["encode"][r]])
+            res["encode"] = {"y": y, "dp": dp, "dx": dx,
+                             "ledger": {k: v["calls"] for k, v in mesh.ledger.items()}}
+        if "cross" in t["parts"]:
+            p = shard_params(t["params"]["cross"], attention.gqa_spec(cfg, ctx), mesh)
+            mem = local(t["memory"], rows)
+            (y,), dp, (dx, dmem) = _vjp(
+                lambda pp, xx, mm: (attention.gqa_apply(pp, xx, ctx, cfg, causal=False,
+                                                        memory=mm),),
+                p, local(t["x"], seq), [t["cot"]["cross"][r]], more=[mem])
+            res["cross"] = {"y": y, "dp": dp, "dx": dx, "dmem": dmem}
+            with torch.no_grad():
+                p = shard_params(t["params"]["cross"], attention.gqa_spec(cfg, ctx), mesh)
+                c = attention.cross_fill_cache(p, mem, cfg, ctx)
+                cache = {"k": local(t["cache_k"], (
+                    "data", None, "model", None)).to(torch.bfloat16),
+                         "v": local(t["cache_v"], (
+                    "data", None, "model", None)).to(torch.bfloat16),
+                         "len": t["cache_k"].shape[2]}
+                mesh.ledger.clear()
+                ys = [attention.cross_decode(p, local(xd, rows), cache, ctx, cfg).numpy()
+                      for xd in t["xsteps"]]
+            res["cross_cache"] = {"k": c["k"].float().numpy(), "v": c["v"].float().numpy(),
+                                  "len": c["len"]}
+            res["cross_decode"] = {"y": ys,
+                                   "ledger": {k: v["calls"] for k, v in mesh.ledger.items()}}
+        if "forward" in t["parts"]:
+            p = shard_params(t["params"]["model"], backbone.model_spec(cfg, ctx), mesh)
+            kw = {}
+            if "frames" in t:
+                kw["enc_embeds"] = local(t["frames"], seq)
+            if "frontend" in t:
+                kw["frontend"] = local(t["frontend"], seq)
+            with torch.no_grad():
+                x = backbone.forward(p, local(t["tokens"], ("data", "model")), ctx, cfg,
+                                     remat=False, **kw)
+            res["forward"] = {"x": x.numpy()}
         results[t["name"]] = res
         dist.barrier()
     return results

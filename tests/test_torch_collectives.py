@@ -7,9 +7,9 @@ check_vma=False)`` on 2 and 4 fake CPU devices
 whole-vocab logits (``backbone.vocab_logits``) and distributed argmax
 (``greedy_token``) on every rank against one rank's; the routed experts'
 dispatch (``ffn._moe_core``) on those meshes against one rank's; the rank
-launcher (``launch.ranks``) and the mesh (``launch.mesh``); and the paths
-outside the ported ones, which raise above one rank naming their sub-item
-of ROADMAP Queue A item 15.
+launcher (``launch.ranks``) and the mesh (``launch.mesh``); and every
+block kind, the encoder and the patch frontend building (or running, on a
+'data' axis that needs no collective) above one rank.
 
 The port's ranks run as gloo processes on the CPU, a group of 2 and one of
 4 for the module.  Each rank's output and its gradient of
@@ -45,6 +45,7 @@ from repro_torch.launch import mesh as port_mesh
 from repro_torch.launch.ranks import choose_backend, run_ranks
 from repro_torch.models import backbone, ffn
 from repro_torch.models.layers import MeshCtx
+from repro_torch.models.spec import params_from_numpy
 from repro_torch.serve.engine import make_serve_fns
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -213,7 +214,7 @@ def test_ranks_exiting_alike_exit_the_call(tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# what this slice does not run above one rank
+# every block kind and the frontends above one rank
 # ---------------------------------------------------------------------------
 
 TWO = MeshCtx(model_size=2)
@@ -222,36 +223,54 @@ DP = MeshCtx(data_size=2)
 
 @pytest.mark.parametrize("kind", ["attn_window", "mla_dense", "mla_moe", "ssm", "rglru", "dec"])
 @pytest.mark.parametrize("ctx", [TWO, DP], ids=["model2", "data2"])
-def test_other_block_kinds_raise_above_one_rank(kind, ctx):
-    """The encoder-decoder block raises above one rank, naming 6c.iii; the
-    dense block, since 6c.i the MLA blocks and since 6c.ii the recurrent
-    kinds build there (``tests/test_torch_moe_multirank.py`` and
-    ``tests/test_torch_recurrent_multirank.py`` run them)."""
+def test_every_block_kind_builds_above_one_rank(kind, ctx):
+    """Every block kind builds above one rank: the dense block, since 6c.i
+    the MLA blocks, since 6c.ii the recurrent kinds and since 6c.iii the
+    encoder-decoder block (``tests/test_torch_moe_multirank.py``,
+    ``tests/test_torch_recurrent_multirank.py`` and
+    ``tests/test_torch_frontends_multirank.py`` run them).  On 'data' 2
+    the ``dec`` block runs without a collective and equals one rank's."""
     arch = {"mla_dense": "deepseek-v2-236b", "mla_moe": "deepseek-v2-236b",
             "attn_window": "recurrentgemma-2b", "rglru": "recurrentgemma-2b",
-            "ssm": "mamba2-780m"}.get(kind, "qwen2-1.5b")
+            "ssm": "mamba2-780m", "dec": "whisper-tiny"}.get(kind, "qwen2-1.5b")
     cfg = get_smoke_config(arch)
-    if kind == "dec":
-        with pytest.raises(NotImplementedError, match="sub-item 6c.iii "):
-            backbone.make_block_fn(cfg, ctx, kind)
-    else:
-        assert callable(backbone.make_block_fn(cfg, ctx, kind, with_aux=True))
+    assert callable(backbone.make_block_fn(cfg, ctx, kind, with_aux=True))
     backbone.make_block_fn(cfg, ctx, "attn")           # the dense block runs
+    if kind == "dec" and ctx is DP:
+        rng = np.random.default_rng(7)
+        p = params_from_numpy(_torch_ranks.draw_tree(backbone.block_spec(cfg, DP, "dec"), rng),
+                              "cpu")
+        x, mem = (torch.from_numpy(rng.standard_normal((2, 8, cfg.d_model)).astype(np.float32))
+                  for _ in range(2))
+        got = backbone.make_block_fn(cfg, DP, "dec", memory=mem)(p, x)
+        want = backbone.make_block_fn(cfg, MeshCtx(), "dec", memory=mem)(p, x)
+        assert torch.equal(got, want)
 
 
-def test_frontends_encoder_experts_and_serving_raise_above_one_rank(runs):
-    """The frontends and the encoder raise above one rank (sub-item
-    6c.iii); the experts run there (6c.i): ``_moe_core`` on every rank of
-    (1, 2) and (2, 2) equals one rank's on the same rows; the dense
-    family's serving runs there: ``vocab_logits`` gives every rank the
-    whole padded vocab's logits, ``greedy_token`` their argmax, and
-    ``make_serve_fns`` builds its steps on a 'model' axis of 2."""
+def test_frontends_encoder_experts_and_serving_run_above_one_rank(runs):
+    """The frontends and the encoder run above one rank (sub-item 6c.iii):
+    on 'data' 2, which needs no collective, ``encode`` and
+    ``embed_inputs(frontend=)`` equal one rank's (the ranks of
+    ``tests/test_torch_frontends_multirank.py`` run them over 'model');
+    the experts run there (6c.i): ``_moe_core`` on every rank of (1, 2)
+    and (2, 2) equals one rank's on the same rows; the dense family's
+    serving runs there: ``vocab_logits`` gives every rank the whole padded
+    vocab's logits, ``greedy_token`` their argmax, and ``make_serve_fns``
+    builds its steps on a 'model' axis of 2."""
+    frng = np.random.default_rng(6)
     cfg = get_smoke_config("whisper-tiny")
-    with pytest.raises(NotImplementedError, match="sub-item 6c.iii"):
-        backbone.encode({}, torch.zeros(1, 4, cfg.d_model), TWO, cfg)
-    with pytest.raises(NotImplementedError, match="sub-item 6c.iii"):
-        backbone.embed_inputs({}, torch.zeros(1, 4, dtype=torch.int32), DP, cfg,
-                              frontend=torch.zeros(1, 4, cfg.d_model))
+    pw = params_from_numpy(_torch_ranks.draw_tree(backbone.model_spec(cfg, DP), frng), "cpu")
+    frames = torch.from_numpy(frng.standard_normal((2, 8, cfg.d_model)).astype(np.float32))
+    assert torch.equal(backbone.encode(pw, frames, DP, cfg),
+                       backbone.encode(pw, frames, MeshCtx(), cfg))
+    pix = get_smoke_config("pixtral-12b")
+    pe = params_from_numpy(_torch_ranks.draw_tree(backbone.embed_spec(pix), frng), "cpu")
+    toks = torch.from_numpy(frng.integers(0, pix.vocab, (2, 12)).astype(np.int32))
+    toks[:, :pix.n_frontend_tokens] = -1
+    fe = torch.from_numpy(frng.standard_normal((2, 12, pix.d_model)).astype(np.float32))
+    got = backbone.embed_inputs(pe, toks, DP, pix, frontend=fe)
+    assert torch.equal(got, backbone.embed_inputs(pe, toks, MeshCtx(), pix, frontend=fe))
+    assert torch.equal(got[:, :pix.n_frontend_tokens], fe[:, :pix.n_frontend_tokens])
     rng = np.random.default_rng(5)          # the inputs the ranks saw
     inputs = {k: cases(k, rng) for k in NS}
     for n in NS:

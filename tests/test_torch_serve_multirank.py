@@ -356,16 +356,25 @@ def test_max_len_not_divisible_by_model_where_the_reference_drops_positions(runs
     assert per_rank[0]["completions"] == one14 == runs["want"]["qc-14-16"][0]
 
 
-def test_other_kinds_and_frontends_still_raise_above_one_rank():
-    """The encoder-decoder family and the patch frontend raise above one
-    rank (6c.iii); the MoE family's steps build there (6c.i;
-    ``tests/test_torch_moe_multirank.py`` serves it), its latent cache
-    split over 'model', and since 6c.ii the recurrent families'
-    (``tests/test_torch_recurrent_multirank.py``): the RG-LRU state and
-    the rings replicated over 'model', the SSD's state split by heads."""
+def test_every_family_builds_its_steps_above_one_rank():
+    """Every family's steps build on a 'model' axis of 2: since 6c.i the
+    MoE family's (``tests/test_torch_moe_multirank.py`` serves it), its
+    latent cache split over 'model'; since 6c.ii the recurrent families'
+    (``tests/test_torch_recurrent_multirank.py``): the RG-LRU state and the
+    rings replicated over 'model', the SSD's state split by heads; since
+    6c.iii the encoder-decoder's, its cross cache split over 'model' as its
+    self cache is, and the patch frontend's
+    (``tests/test_torch_frontends_multirank.py`` serves both), whose rows
+    on 'data' 2 (no collective) embed as one rank's."""
     mesh = LocalMesh(("data", "model"), {"data": 1, "model": 2}, torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="sub-item 6c.iii "):
-        make_serve_fns(get_smoke_config("whisper-tiny"), mesh, batch=2, max_len=16)
+    wh = make_serve_fns(get_smoke_config("whisper-tiny"), mesh, batch=2, max_len=16,
+                        enc_len=24)
+    assert wh.ctx.model_size == 2
+    for leaf in ("k", "v"):
+        assert wh.cache_pspec["g0"]["cross"][leaf].axes == (None, ("data",), None, "model",
+                                                            None)
+        assert wh.cache_pspec["g0"]["self"][leaf].axes == (None, ("data",), None, "model",
+                                                           None)
     sv = make_serve_fns(get_smoke_config("deepseek-v2-236b"), mesh, batch=2, max_len=16)
     assert sv.ctx.model_size == 2
     assert sv.cache_pspec["g1"]["c_kv"].axes == (None, ("data",), "model", None)
@@ -376,7 +385,12 @@ def test_other_kinds_and_frontends_still_raise_above_one_rank():
     assert mb.cache_pspec["g0"]["ssd"].axes == (None, ("data",), "model", None, None)
     assert mb.cache_pspec["g0"]["conv"]["x"].axes == (None, ("data",), None, "model")
     cfg = get_smoke_config("pixtral-12b")
-    with pytest.raises(NotImplementedError, match="sub-item 6c"):
-        backbone.embed_inputs({}, torch.zeros(2, 4, dtype=torch.int32),
-                              MeshCtx(model_size=2), cfg,
-                              frontend=torch.zeros(2, 4, cfg.d_model))
+    assert make_serve_fns(cfg, mesh, batch=2, max_len=16).ctx.model_size == 2
+    rng = np.random.default_rng(9)
+    p = {"tok": torch.from_numpy((0.02 * rng.standard_normal((cfg.vocab, cfg.d_model)))
+                                 .astype(np.float32))}
+    toks = torch.tensor([[-1, -1, 3, 4], [-1, -1, 5, 6]], dtype=torch.int32)
+    fe = torch.from_numpy(rng.standard_normal((2, 4, cfg.d_model)).astype(np.float32))
+    got = backbone.embed_inputs(p, toks, MeshCtx(data_size=2), cfg, frontend=fe)
+    assert torch.equal(got, backbone.embed_inputs(p, toks, MeshCtx(), cfg, frontend=fe))
+    assert torch.equal(got[:, :2], fe[:, :2])

@@ -1,7 +1,8 @@
 """Which collectives a process group runs on CUDA tensors when its ranks
 share one card.
 
-    python3 tools/multirank_probe.py [--out PATH] [--mib N] [--phase [dense] [moe] [recurrent]]
+    python3 tools/multirank_probe.py [--out PATH] [--mib N]
+        [--phase [dense] [moe] [recurrent] [frontends]]
 
 Starts two ranks on ``cuda:0`` (``repro_torch.launch.ranks.run_ranks``,
 ``backend="gloo"``) and tries each collective the multi-rank training path
@@ -15,8 +16,9 @@ records whether it refuses.  Prints one JSON line; with ``--phase`` then
 runs phase ``multirank`` of ``chip_smoke.py`` alone (no kernel build),
 ``--phase moe`` only its MoE family's checks and serving (deepseek-v2),
 ``--phase dense`` only the dense family's, ``--phase recurrent`` only the
-recurrent families' (recurrentgemma-2b and mamba2-780m); last the card's
-name and power limit.
+recurrent families' (recurrentgemma-2b and mamba2-780m), ``--phase
+frontends`` only the frontend families' (whisper-tiny and pixtral-12b);
+last the card's name and power limit.
 """
 import argparse
 import json
@@ -130,7 +132,8 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None)
     ap.add_argument("--mib", type=int, default=96)
-    ap.add_argument("--phase", nargs="*", choices=("dense", "moe", "recurrent"), default=None,
+    ap.add_argument("--phase", nargs="*", choices=("dense", "moe", "recurrent", "frontends"),
+                    default=None,
                     help="then run phase multirank of chip_smoke.py (given families only)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--no-probe", action="store_true",
