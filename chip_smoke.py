@@ -134,16 +134,21 @@ just before it and read just after:
   line ``"step": "serve_frontends"``.
 * ``dryrun`` — ``launch.dryrun`` and ``roofline``, which launch no PBS
   kernel: the 40-cell grid counted on meta tensors by
-  ``python -m repro_torch.launch.dryrun``, one process an arch, the card
-  hidden from them, counting beside the kernels' build and sweeps and
-  read before the first path runs (at most ``DRYRUN_GRID_BUDGET_S``;
-  records under ``chiprun_out/dryrun/``), then
-  four cells at a reduced batch predicted on meta tensors and run for
-  real — qwen2-1.5b train_4k (``model_train``'s f32 run, re-used),
-  prefill_32k and decode_32k, mamba2-780m long_500k: flops equal to
-  ``FlopCounterMode``'s over the real step, the peak within
-  ``roofline.PEAK_RTOL`` of ``max_memory_allocated``, the measured step no
-  faster than the roofline step.
+  ``python -m repro_torch.launch.dryrun``, one process an arch, and one
+  cell a family (``DRYRUN_MESH_CELLS``) on rank 0 of the meta production
+  meshes, (16, 16) and (2, 16, 16), in one more process, the card hidden
+  from them, counting beside the kernels' build and sweeps and read
+  before the first path runs (at most ``DRYRUN_GRID_BUDGET_S``; records
+  under ``chiprun_out/dryrun/``; each mesh cell's three terms, bound, peak
+  and dropped pairs on the phase's line), then four cells at a reduced
+  batch predicted on meta tensors and run for real — qwen2-1.5b train_4k
+  (``model_train``'s f32 run, re-used), prefill_32k and decode_32k,
+  mamba2-780m long_500k: flops equal to ``FlopCounterMode``'s over the
+  real step, the peak within ``roofline.PEAK_RTOL`` of
+  ``max_memory_allocated``, the measured step no faster than the roofline
+  step; and phase ``multirank``'s timed (1, 2) training step counted on a
+  meta mesh, equal per op (calls, bytes in, ring bytes) to the ledgers its
+  two ranks recorded on the card (``meta_ledger_check``).
 
 Every result is compared with the package's own numpy oracle
 ``core.pbs.reconcile`` (per session, per tree leaf) and with the true set
@@ -294,6 +299,7 @@ from repro_torch.roofline import (  # noqa: E402
     HBM_BYTES_PER_S,
     PEAK_BF16_FLOPS,
     PEAK_RTOL,
+    analyze_step,
 )
 from repro_torch.serve.engine import cache_spec  # noqa: E402
 
@@ -3969,6 +3975,10 @@ def tree_zip_plan(fn, tree, plan):
     return fn(tree, plan)
 
 
+# what the meta count of a step must equal, per op, in a real rank's ledger
+LEDGER_CHECKED = ("calls", "bytes", "ring_bytes")
+
+
 def mr_timed_mesh(dev, data, model, zero1, seed) -> dict:
     """MR_TIMED_STEPS warm steps (after one cold) of qwen2-1.5b at full
     width, MR_TIMED_LAYERS layers, bf16 weights, on this rank of a (data,
@@ -4007,6 +4017,8 @@ def mr_timed_mesh(dev, data, model, zero1, seed) -> dict:
             "collective_ms_by_op": coll,
             "collective_ms_median_warm": float(np.median([sum(c.values()) for c in coll[1:]])),
             "collective_bytes_a_step": {k: v["bytes"] for k, v in mesh.ledger.items()},
+            "ledger_last_step": {k: {f: v[f] for f in LEDGER_CHECKED}
+                                 for k, v in mesh.ledger.items()},
             "losses": losses,
             "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
             "pbs_kernel_launches": platform.launch_counts()}
@@ -4617,13 +4629,15 @@ MR_FAMILIES = {"dense": (TRAIN_ARCH,), "moe": (MR_MOE_ARCH,), "recurrent": MR_RE
                "frontends": MR_FRONT_ARCHS}
 
 
-def multirank_phase(args, smi, families=tuple(MR_FAMILIES)) -> None:
+def multirank_phase(args, smi, families=tuple(MR_FAMILIES)) -> dict:
     """Training and serving across ranks (``launch.ranks``, ``launch.mesh``,
     the sequence-parallel layers, ZeRO-1, compression, the experts'
     all-to-all), the ranks processes sharing the one card over gloo: two
     ranks for the (1, 2) and (2, 1) checks, timed and serving runs, four for
     the (2, 2) checks.  ``families`` (of ``MR_FAMILIES``) limits the phase
-    to the dense, the MoE, the recurrent or the frontend families' runs."""
+    to the dense, the MoE, the recurrent or the frontend families' runs.
+    Returns the timed runs' last-step ledgers, rank by rank: ``{"timed":
+    {(mesh, zero1): [ledger, …]}}`` (phase dryrun's ``meta_ledger_check``)."""
     t_phase = time.perf_counter()
     cards = torch.cuda.device_count()
     root = Path(tempfile.mkdtemp(prefix="multirank_"))
@@ -4698,7 +4712,8 @@ def multirank_phase(args, smi, families=tuple(MR_FAMILIES)) -> None:
                           "collective_ms_median_warm",
                           "max_memory_allocated_gb", "losses")} for t in per],
                       "collective_ms_by_op_rank0": per[0]["collective_ms_by_op"],
-                      "collective_bytes_a_step_rank0": per[0]["collective_bytes_a_step"]})
+                      "collective_bytes_a_step_rank0": per[0]["collective_bytes_a_step"],
+                      "ledgers": [t["ledger_last_step"] for t in per]})
     if dense:
         serve_report(smi, runs[2], pbs)
     if MR_MOE_ARCH in archs:
@@ -4750,6 +4765,7 @@ def multirank_phase(args, smi, families=tuple(MR_FAMILIES)) -> None:
           "ranks_s": wall, "start_up_s": start_up,
           "pbs_kernel_launches": pbs,
           "multirank_phase_s": time.perf_counter() - t_phase})
+    return {"timed": {(tuple(t["mesh"]), t["zero1"]): t["ledgers"] for t in timed}}
 
 
 def moe_serve_report(smi, ranks, pbs) -> None:
@@ -4919,9 +4935,26 @@ TRAIN_SMOKE_ARCHS = ("qwen2-1.5b", "internlm2-1.8b", "qwen3-14b", "command-r-35b
 # the dry-run grid and its roofline, held against the card (phase dryrun)
 # ---------------------------------------------------------------------------
 
-# the whole 40-cell grid on meta tensors (repro_torch.launch.dryrun) takes
-# at most this long
+# the whole 40-cell grid on meta tensors (repro_torch.launch.dryrun), and
+# DRYRUN_MESH_CELLS on both production meshes, take at most this long
 DRYRUN_GRID_BUDGET_S = 120
+# one cell a family counted on rank 0 of the meta (16, 16) and (2, 16, 16)
+# meshes, beside the one-card grid: one process of the grid's counts them all
+# (``MESH_CELLS_JOB``), sharing its warm-up and its memo, started third
+DRYRUN_MESH_CELLS = (("qwen2-1.5b", "train_4k"), ("deepseek-v3-671b", "train_4k"),
+                     ("deepseek-v2-236b", "decode_32k"), ("mamba2-780m", "long_500k"),
+                     ("whisper-tiny", "prefill_32k"), ("pixtral-12b", "decode_32k"))
+DRYRUN_MESHES = {"pod": 256, "multipod": 512}
+MESH_CELLS_JOB = """
+import sys
+from pathlib import Path
+from repro_torch.launch import dryrun
+memo = {}
+for arch, shape in %r:
+    for multi_pod in (False, True):
+        dryrun.run_cell(arch, shape, multi_pod=multi_pod, out_dir=Path(sys.argv[1]),
+                        opt_overrides={}, memo=memo)
+""" % (DRYRUN_MESH_CELLS,)
 # (b): cells at a reduced batch, each predicted on meta tensors and then
 # run once for real on the card; (arch, shape, batch, why this one).  The
 # fourth, qwen2-1.5b train_4k at TRAIN_BATCH, is phase model_train's f32 run
@@ -5031,44 +5064,57 @@ def dryrun_check(arch: str, shape: str, batch: int, why: str, predicted: dict,
     return row
 
 
-# processes of the grid at once, beside the kernels' build (three nvcc) and
-# the main process; the archs with routed experts go first: they take longest
-DRYRUN_GRID_PROCS = max(1, (os.cpu_count() or 8) - 3)
+# processes of the grid at once: every core but the main process's (the
+# kernels' three nvcc share them for their first seconds; the grid, not the
+# build, is what the first timed phase waits for).  The archs with routed
+# experts go first, a process a shape: they take longest
+DRYRUN_GRID_PROCS = max(1, (os.cpu_count() or 8) - 1)
 DRYRUN_GRID_FIRST = ("deepseek-v3-671b", "deepseek-v2-236b")
 
 
 def start_dryrun_grid(out_dir: Path) -> dict:
     """Start the 40-cell grid: ``python -m repro_torch.launch.dryrun --arch
-    <arch> --out out_dir``, one process an arch, at most DRYRUN_GRID_PROCS
-    at once, the card hidden from them (``CUDA_VISIBLE_DEVICES`` empty: the
-    dry run needs none).  They count on the host while the kernels build
-    and their sweeps run, which nothing times; ``dryrun_grid`` waits for
-    them before the first timed phase.  Each one's lines go to
-    ``out_dir/<arch>.log``; ``stop_dryrun_grid`` ends them."""
+    <arch> --out out_dir``, one process an arch (a shape, for
+    DRYRUN_GRID_FIRST), and DRYRUN_MESH_CELLS on both production meshes in
+    one more (``MESH_CELLS_JOB``, ``run_cell`` as ``--both-meshes`` runs
+    it), at most DRYRUN_GRID_PROCS at once, the card hidden from them
+    (``CUDA_VISIBLE_DEVICES`` empty: the dry run needs none).  They count
+    on the host while the kernels build and their sweeps run, which
+    nothing times; ``dryrun_grid`` waits for them before the first timed
+    phase.  Each one's lines go to ``out_dir/<job>.log``;
+    ``stop_dryrun_grid`` ends them."""
     out_dir.mkdir(parents=True, exist_ok=True)
     archs = list(dict.fromkeys(arch for arch, _ in all_cells()))
-    archs = [a for a in DRYRUN_GRID_FIRST if a in archs] + [
-        a for a in archs if a not in DRYRUN_GRID_FIRST]
     for arch, shape in all_cells():
         (out_dir / f"{arch}__{shape}__card.json").unlink(missing_ok=True)
+    for arch, shape in DRYRUN_MESH_CELLS:
+        for mesh in DRYRUN_MESHES:
+            (out_dir / f"{arch}__{shape}__{mesh}.json").unlink(missing_ok=True)
+    grid_cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--out", str(out_dir)]
+    # the archs with routed experts a process a shape, the mesh cells next,
+    # then the rest an arch a process
+    jobs = [(f"{arch}__{shape}", grid_cmd + ["--arch", arch, "--shape", shape])
+            for arch in DRYRUN_GRID_FIRST for shape in SHAPES]
+    jobs.append(("mesh_cells", [sys.executable, "-c", MESH_CELLS_JOB, str(out_dir)]))
+    jobs += [(arch, grid_cmd + ["--arch", arch]) for arch in archs
+             if arch not in DRYRUN_GRID_FIRST]
     path = [str(ROOT / "src")] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]
     env = {**os.environ, "CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "1",
            "PYTHONPATH": os.pathsep.join(path)}
-    grid = {"out_dir": out_dir, "archs": archs, "logs": {}, "procs": {}, "stop": False,
-            "lock": threading.Lock(), "t0": time.perf_counter()}
+    grid = {"out_dir": out_dir, "jobs": [name for name, _ in jobs], "logs": {}, "procs": {},
+            "stop": False, "lock": threading.Lock(), "t0": time.perf_counter()}
 
     def run():
-        for arch in archs:
+        for name, argv in jobs:
             while sum(p.poll() is None for p in grid["procs"].values()) >= DRYRUN_GRID_PROCS:
                 time.sleep(0.05)
             with grid["lock"]:
                 if grid["stop"]:
                     return
-                grid["logs"][arch] = open(out_dir / f"{arch}.log", "w")
-                grid["procs"][arch] = subprocess.Popen(
-                    [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
-                     "--out", str(out_dir)], stdout=grid["logs"][arch],
-                    stderr=subprocess.STDOUT, env=env, cwd=ROOT)
+                grid["logs"][name] = open(out_dir / f"{name}.log", "w")
+                grid["procs"][name] = subprocess.Popen(
+                    argv, stdout=grid["logs"][name], stderr=subprocess.STDOUT, env=env,
+                    cwd=ROOT)
         for proc in grid["procs"].values():
             proc.wait()
         grid["wall_s"] = time.perf_counter() - grid["t0"]
@@ -5092,16 +5138,18 @@ def stop_dryrun_grid(grid: dict) -> None:
 def dryrun_grid(grid: dict) -> dict:
     """Wait for the grid ``start_dryrun_grid`` started (its wall from the
     first start to the last exit, torch's imports included, at most
-    DRYRUN_GRID_BUDGET_S) and read its 40 records."""
+    DRYRUN_GRID_BUDGET_S) and read its 40 records and the production
+    meshes' records of DRYRUN_MESH_CELLS: each ``ok`` on its mesh's world,
+    with a collective term."""
     grid["waiter"].join(max(0.0, grid["t0"] + DRYRUN_GRID_BUDGET_S - time.perf_counter()))
     if grid["waiter"].is_alive():
         stop_dryrun_grid(grid)
         raise AssertionError(f"the dry-run grid ran past {DRYRUN_GRID_BUDGET_S} s")
     stop_dryrun_grid(grid)
-    assert list(grid["procs"]) == grid["archs"], (list(grid["procs"]), grid["archs"])
-    for arch, proc in grid["procs"].items():
-        log = (grid["out_dir"] / f"{arch}.log").read_text()
-        assert proc.returncode == 0, (arch, proc.returncode, log[-4000:])
+    assert list(grid["procs"]) == grid["jobs"], (list(grid["procs"]), grid["jobs"])
+    for name, proc in grid["procs"].items():
+        log = (grid["out_dir"] / f"{name}.log").read_text()
+        assert proc.returncode == 0, (name, proc.returncode, log[-4000:])
     grid_s = grid["wall_s"]
     recs = [json.loads((grid["out_dir"] / f"{arch}__{shape}__card.json").read_text())
             for arch, shape in all_cells()]
@@ -5117,21 +5165,76 @@ def dryrun_grid(grid: dict) -> dict:
                        seconds=r["times"]["build"] + r["times"]["count"])
         rows.append(row)
     status = [r["status"] for r in recs]
+    mesh_cells = []
+    for arch, shape in DRYRUN_MESH_CELLS:
+        for mesh, chips in DRYRUN_MESHES.items():
+            r = json.loads((grid["out_dir"] / f"{arch}__{shape}__{mesh}.json").read_text())
+            assert (r["status"], r["chips"]) == ("ok", chips), (arch, shape, mesh, r)
+            roo, disp = r["roofline"], r["meta"].get("moe_dispatch", {})
+            mesh_cells.append({
+                "arch": arch, "shape": shape, "mesh": mesh, "chips": chips,
+                "compute_s": roo["compute_s"], "memory_s": roo["memory_s"],
+                "collective_s": roo["collective_s"], "bound": roo["bound"],
+                "peak_gb": r["memory"]["peak_bytes_per_device"] / 1e9,
+                "fits_h100": r["memory"]["fits_h100"],
+                "collective_by_op": r["hlo"]["collective_by_op_per_device"],
+                "pairs": disp.get("pairs", 0), "dropped": disp.get("dropped", 0),
+                "seconds": r["times"]["build"] + r["times"]["count"]})
+            assert roo["collective_s"] > 0, (arch, shape, mesh, roo)
     emit({"phase": "dryrun", "step": "grid", "cells": rows, "grid_s": grid_s,
           "cells_s": sum(r.get("seconds", 0.0) for r in rows),
+          "mesh_cells": mesh_cells,
           "budget_s": DRYRUN_GRID_BUDGET_S, "ok": status.count("ok"),
           "skipped": status.count("skipped"), "records": str(grid["out_dir"])})
     assert status.count("ok") == 32 and status.count("skipped") == 8, status
     assert grid_s <= DRYRUN_GRID_BUDGET_S, grid_s
-    return {"grid_s": grid_s}
+    return {"grid_s": grid_s, "mesh_cells": mesh_cells}
 
 
-def dryrun_phase(args, smi, train, grid) -> None:
+def meta_ledger_check(timed: dict) -> dict:
+    """The meta count of phase multirank's timed (1, 2) training step (no
+    ZeRO-1), at its shapes, rank by rank, against the ledger its two real
+    ranks recorded on the card (``timed``: multirank_phase's ledgers of
+    each timed mesh): per op, calls, bytes in and ring bytes equal."""
+    t0 = time.perf_counter()
+    real = timed[((1, 2), False)]
+    cfg = get_config(TRAIN_ARCH).scaled(n_layers=MR_TIMED_LAYERS)
+    per_rank = []
+    for rank, got in enumerate(real):
+        mesh = make_local_mesh(1, 2, device="meta", rank=rank)
+        cell = build_cell(TRAIN_ARCH, "train_4k", mesh, cfg=cfg, batch=TRAIN_BATCH,
+                          seq=TRAIN_SEQ, microbatch=TRAIN_MICROBATCH,
+                          opt_cfg=OptConfig(**TRAIN_OPT, zero1=False))
+        analyze_step(cell.fn, cell.args, mesh=mesh, host=cell.host)
+        meta = {k: {f: v[f] for f in LEDGER_CHECKED} for k, v in mesh.ledger.items()}
+        per_rank.append({"rank": rank, "meta": meta, "card": got, "equal": meta == got})
+    row = {"arch": TRAIN_ARCH, "mesh": [1, 2], "layers": MR_TIMED_LAYERS,
+           "batch_x_seq": [TRAIN_BATCH, TRAIN_SEQ], "microbatch": TRAIN_MICROBATCH,
+           "ranks": per_rank, "seconds": time.perf_counter() - t0}
+    emit({"phase": "dryrun", "step": "meta_ledger", **row})
+    for r in per_rank:
+        assert r["equal"], r
+    return row
+
+
+def mr_timed_ledgers(seed: int) -> dict:
+    """Phase multirank's timed (1, 2) training step alone (two ranks
+    sharing the card over gloo): its ledgers, as ``multirank_phase``
+    returns them."""
+    root = Path(tempfile.mkdtemp(prefix="timed_"))
+    res = run_ranks(mr_rank, 2, root / "w2", device=DEV.type, backend=MR_BACKEND,
+                    args=([], [((1, 2), False)], seed), timeout=MR_TIMEOUT_S, threads=None)
+    return {((1, 2), False): [r["timed"][0]["ledger_last_step"] for r in res]}
+
+
+def dryrun_phase(args, smi, train, grid, timed) -> None:
     """The dry run on the card's host, and its predictions held against the
-    card: (a) the 40-cell grid on meta tensors (``grid``: ``dryrun_grid``'s
-    result, read before the paths ran); (b) the cells of
-    DRYRUN_CHECKS, and phase model_train's f32 run (``train``), each
-    predicted at its reduced batch and run for real.  No PBS kernel
+    card: (a) the 40-cell grid on meta tensors and DRYRUN_MESH_CELLS on the
+    production meshes (``grid``: ``dryrun_grid``'s result, read before the
+    paths ran); (b) the cells of DRYRUN_CHECKS, and phase model_train's f32
+    run (``train``), each predicted at its reduced batch and run for real;
+    (c) the meta count of phase multirank's timed (1, 2) step against its
+    ranks' ledgers (``timed``, ``meta_ledger_check``).  No PBS kernel
     launches (the launch counts must read 0)."""
     t_phase = time.perf_counter()
     platform.reset_launch_counts()
@@ -5151,9 +5254,14 @@ def dryrun_phase(args, smi, train, grid) -> None:
         full = SHAPES[shape]["batch"]
         rows.append(dryrun_check(arch, shape, batch, why, predicted, measured,
                                  f"batch {full} -> {batch}" if batch != full else "none"))
+    ledger = meta_ledger_check(timed)
     pbs = platform.launch_counts()
     assert not pbs, pbs                      # the dry run launches no PBS kernel
     emit({"phase": "dryrun", "gpu": smi, "grid_s": grid["grid_s"],
+          "mesh_cells": [{k: c[k] for k in (
+              "arch", "shape", "mesh", "compute_s", "memory_s", "collective_s", "bound",
+              "peak_gb", "dropped")} for c in grid["mesh_cells"]],
+          "meta_ledger_equal": all(r["equal"] for r in ledger["ranks"]),
           "total_memory": total, "hbm_bytes": HBM_BYTES,
           "checks": [{k: r[k] for k in ("arch", "shape", "batch", "flops_equal",
                                         "peak_rel_err", "roofline_step_ms",
@@ -5282,8 +5390,8 @@ def main() -> None:
         del sessions, serve_results, trees
         model_serve_phase(args, smi)
         train = model_train_phase(args, smi)
-        multirank_phase(args, smi)
-        dryrun_phase(args, smi, train, grid)
+        multirank = multirank_phase(args, smi)
+        dryrun_phase(args, smi, train, grid, multirank["timed"])
         report = main_shape_phase(args, rng, launched, k4_inputs, sass)
         emit({"kernels": [
             {"name": name, **meta, "launches": launches[HOME_PATH[name]][name], **report[name],

@@ -43,6 +43,17 @@ differences:
 The mesh's ``dispatch`` ledger (``launch.mesh.LocalMesh``) counts the calls
 above one rank, the owned pairs they routed and those dropped at capacity
 (a layer recomputed under remat counts again).
+
+The dry run (meta tensors, which hold no routes) on one card gives each
+expert ``balanced_routes`` of the N · k pairs.  Above one rank, on a meta
+mesh, the dispatch runs whole — its all-to-all buffers and ids have fixed
+shapes, ``(world · cap, d)`` — and only its host counts are drawn
+(``meta_dispatch_counts``): each sender routes ``balanced_routes`` of its
+owned pairs over the real experts (never a pad expert) and a destination
+keeps ``cap`` of them, so deepseek-v2-236b's 160 experts on a 256-rank
+world overflow ``cap`` by about 1.28× at a balanced router and a fifth of
+the pairs drop, as the reference's dispatch would drop them; the ledger
+records them.  The meta branches never run on a computing device.
 """
 from __future__ import annotations
 
@@ -153,11 +164,13 @@ def balanced_routes(rows: int, n_experts: int) -> list:
     return [q + (e < r) for e in range(n_experts)]
 
 
-def _moe_core(p, x, owned, cfg: ModelConfig, ctx: MeshCtx, ep_data_size: int):
+def _moe_core(p, x, owned, cfg: ModelConfig, ctx: MeshCtx, ep_data_size: int,
+              owned_by_model=None):
     """Route the owned tokens of x (N, d) through their experts; ``owned``
     (N,) bool marks the rows this rank owns (on one rank every row).
     Returns (y (N, d), valid where owned, aux loss).  Above one rank see
-    ``_moe_dispatch``.
+    ``_moe_dispatch``; ``owned_by_model`` (the owned rows of a rank at each
+    'model' coordinate, host ints) is what its meta branch routes.
 
     On ``meta`` tensors (the dry run, ``repro_torch.launch.cells``), which
     hold no values to count, the experts take ``balanced_routes`` of the
@@ -166,7 +179,7 @@ def _moe_core(p, x, owned, cfg: ModelConfig, ctx: MeshCtx, ep_data_size: int):
     its capacity-padded dispatch instead (every local expert over
     ``world · cap`` masked slots), so the two counts differ by design."""
     if ep_data_size * ctx.model_size != 1:
-        return _moe_dispatch(p, x, owned, cfg, ctx, ep_data_size)
+        return _moe_dispatch(p, x, owned, cfg, ctx, ep_data_size, owned_by_model)
     N, d = x.shape
     E, k = cfg.n_experts, cfg.moe_top_k
     probs, topw, topi = _route(p, x, cfg)
@@ -195,18 +208,51 @@ def _moe_core(p, x, owned, cfg: ModelConfig, ctx: MeshCtx, ep_data_size: int):
     return y, aux
 
 
-def _moe_dispatch(p, x, owned, cfg: ModelConfig, ctx: MeshCtx, ep_data_size: int):
+def meta_dispatch_counts(owned_by_model, k: int, n_experts: int, n_local: int,
+                         world: int, cap: int, rank: int) -> tuple:
+    """The meta dispatch's host counts on expert-parallel rank ``rank``:
+    (rows each local expert receives, the pairs this rank routes, those it
+    drops at capacity).  Sender ``s`` owns ``owned_by_model[s % M]`` rows
+    and routes ``balanced_routes`` of their pairs over the ``n_experts``
+    real experts (never a pad expert); to each destination it sends at
+    most ``cap`` of the pairs of that destination's experts, split over
+    them as evenly as they go, as a running count keeps the first ``cap``
+    of pairs that cycle through them."""
+    M = len(owned_by_model)
+    routes = [balanced_routes(n * k, n_experts) for n in owned_by_model]
+
+    def to(dest, sender):                  # the sender's pairs for dest's experts
+        return routes[sender % M][dest * n_local:(dest + 1) * n_local]
+
+    sent = [sum(to(dest, rank)) for dest in range(world)]
+    dropped = sum(max(0, n - cap) for n in sent)
+    mine = [0] * n_local
+    for s in range(world):
+        experts = to(rank, s)
+        for i, n in enumerate(balanced_routes(min(sum(experts), cap), len(experts))
+                              if experts else []):
+            mine[i] += n
+    return mine, sum(sent), dropped
+
+
+def _moe_dispatch(p, x, owned, cfg: ModelConfig, ctx: MeshCtx, ep_data_size: int,
+                  owned_by_model=None):
     """``_moe_core`` above one rank: the reference's capacity-bounded
     dispatch over the ('data', 'model') world with the port's expert
     placement (module docstring).  x (Nt, d) this rank's rows, ``owned``
-    (Nt,) bool: every logical token is owned by exactly one rank."""
+    (Nt,) bool: every logical token is owned by exactly one rank.
+
+    On ``meta`` tensors (the dry run on a meta mesh) every collective and
+    buffer is the real dispatch's — their shapes do not depend on routes —
+    and only the host counts are drawn: ``meta_dispatch_counts`` over
+    ``owned_by_model``.  The mesh's ``dispatch`` ledger records them."""
     world = ep_data_size * ctx.model_size
     if ep_data_size != ctx.data_size:
         raise ValueError(f"ep_data_size {ep_data_size} on a mesh of 'data' {ctx.data_size}: "
                          "the expert-parallel world is the whole mesh")
-    if x.device.type == "meta":
-        raise NotImplementedError("the MoE dispatch on meta tensors above one rank: ROADMAP "
-                                  "Queue A item 15 sub-item 6d (the dry run across cards)")
+    meta = x.device.type == "meta"
+    if meta and owned_by_model is None:
+        raise ValueError("the MoE dispatch on meta tensors routes owned_by_model")
     Nt, d = x.shape
     E, k = cfg.n_experts, cfg.moe_top_k
     n_local = p["we_gate"].shape[0]
@@ -242,9 +288,13 @@ def _moe_dispatch(p, x, owned, cfg: ModelConfig, ctx: MeshCtx, ep_data_size: int
     rk = ctx.comm().index("data") * ctx.model_size + ctx.midx()
     lidx = torch.where(recv_e >= 0, recv_e.long() - rk * n_local, n_local)
     order = torch.argsort(lidx, stable=True)
-    counts = torch.bincount(lidx, minlength=n_local + 1)
-    tally = torch.stack([valid.sum(), (valid & ~keep).sum()])
-    *counts, _, n_pairs, n_dropped = torch.cat([counts, tally]).tolist()   # the one host sync
+    if meta:
+        counts, n_pairs, n_dropped = meta_dispatch_counts(owned_by_model, k, E, n_local,
+                                                          world, cap, rk)
+    else:
+        counts = torch.bincount(lidx, minlength=n_local + 1)
+        tally = torch.stack([valid.sum(), (valid & ~keep).sum()])
+        *counts, _, n_pairs, n_dropped = torch.cat([counts, tally]).tolist()  # one host sync
     led = ctx.comm().dispatch
     for key, n in (("calls", 1), ("pairs", n_pairs), ("dropped", n_dropped)):
         led[key] = led.get(key, 0) + n
@@ -276,7 +326,8 @@ def moe_apply(p, x_sp, ctx: MeshCtx, cfg: ModelConfig, ep_data_size: int):
     dense tensor-parallel path."""
     B, Ts, d = x_sp.shape
     owned = torch.ones(B * Ts, dtype=torch.bool, device=x_sp.device)
-    y, aux = _moe_core(p, x_sp.reshape(B * Ts, d), owned, cfg, ctx, ep_data_size)
+    y, aux = _moe_core(p, x_sp.reshape(B * Ts, d), owned, cfg, ctx, ep_data_size,
+                       [B * Ts] * ctx.model_size)
     y = y.reshape(B, Ts, d)
     if cfg.n_shared_experts:
         xg = ag_seq(x_sp, ctx)
@@ -293,7 +344,8 @@ def moe_decode(p, x, ctx: MeshCtx, cfg: ModelConfig, ep_data_size: int):
     B, _, d = x.shape
     M = ctx.model_size
     owned = torch.arange(B, device=x.device) % M == ctx.midx()
-    y, aux = _moe_core(p, x.reshape(B, d), owned, cfg, ctx, ep_data_size)
+    y, aux = _moe_core(p, x.reshape(B, d), owned, cfg, ctx, ep_data_size,
+                       [len(range(m, B, M)) for m in range(M)])
     if M > 1:
         y = psum_model(torch.where(owned[:, None], y, 0.0), ctx)
     y = y.reshape(B, 1, d)

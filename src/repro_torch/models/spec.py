@@ -166,6 +166,19 @@ def shard_params(tree_of_arrays, spec, mesh, dtype=None):
     return _zip_spec(leaf, tree_of_arrays, spec)
 
 
+def abstract_shards(tree, mesh):
+    """This rank's shards of ``tree``'s leaves as tensors on the ``meta``
+    device: the shapes ``shard_params`` would give, nothing allocated."""
+    at = dict(zip(mesh.axis_names, mesh.coords))
+
+    def leaf(p: P):
+        blocks = dim_blocks(p.shape, p.axes, mesh.shape, at)
+        return torch.empty(tuple(b.stop - b.start for b in blocks), dtype=p.dtype,
+                           device="meta")
+
+    return tree_map_p(leaf, tree)
+
+
 def _zip_spec(fn, tree, spec):
     if isinstance(spec, dict):
         if not isinstance(tree, dict) or set(tree) != set(spec):

@@ -168,6 +168,9 @@ class _Peer:
         self.suspended = False
         self.suspend_at = 0.0           # monotonic expiry of the resume window
         self.suspend_err: BaseException | None = None
+        # verdicts whose MSG_VERIFY_ACK send raised: the peer may hold them
+        # already, so a lapsed resume window retires her as finished
+        self.unacked: list[bool] | None = None
         self.resumes = 0
         self.marks = {"protocol": 0, "verify": 0}   # tallies at last barrier
         self.carry: dict = {}           # totals of resumed-away transports
@@ -393,6 +396,15 @@ class HubEndpoint:
         for peer in self._peers.values():
             if not peer.suspended or now < peer.suspend_at:
                 continue
+            if peer.unacked is not None:
+                # only the ack's send raised: her verdicts stand, and a
+                # peer that got the ack has nothing to resume
+                peer.suspended = False
+                peer.suspend_err = None
+                for sess in peer.sessions:
+                    sess.suspended = False
+                self._retire_verified(peer, peer.unacked)
+                continue
             cause = peer.suspend_err
             err = type(cause)(
                 f"{peer.label}: resume window ({self._resume_window}s) "
@@ -550,6 +562,7 @@ class HubEndpoint:
             peer.suspended = False
             peer.retired = False
             peer.suspend_err = None
+            peer.unacked = None
             peer.resumes += 1
             self._stats["peers_resumed"] = (
                 self._stats.get("peers_resumed", 0) + 1
@@ -567,9 +580,17 @@ class HubEndpoint:
             return
         except TransportError as e:
             # ack send died: the exchange is re-runnable after a resume
-            # (the peer re-sends MSG_VERIFY; verify_ack_entries is pure)
+            # (the peer re-sends MSG_VERIFY; verify_ack_entries is pure).
+            # The ack may have arrived all the same, and then no resume
+            # comes: ``_expire_overdue`` retires her with these verdicts
+            peer.unacked = flags
             self._fail(peer, e, resumable=True)
             return
+        self._retire_verified(peer, flags)
+
+    def _retire_verified(self, peer: _Peer, flags: list) -> None:
+        """Retire a peer whose verification exchange is done."""
+        peer.unacked = None
         peer.marks = {k: peer.tally[k] for k in peer.marks}
         peer.verified = flags
         peer.retired = True

@@ -34,8 +34,20 @@ nothing is allocated and nothing computes.  It returns the keys of
   (``functools.lru_cache``), so a step's count does not depend on what
   ran before it.  It is an upper count of an eager step's traffic: two
   ops in a row may meet in the card's 50 MB L2.
-* **collectives** — 0 on one card.  The keys stay, for the multi-card
-  slice to fill.
+* **collectives** — read from the ledger of the mesh the step runs on
+  (``launch.mesh.LocalMesh``; on a meta mesh a collective only allocates
+  its result and ledgers the call): ``collective_per_device`` and
+  ``collective_by_op_per_device`` are ring bytes a participating rank
+  moves (``analyze_hlo``'s formulas, with S the result and N the group:
+  all-reduce 2·S·(N−1)/N, all-gather S·(N−1)/N, reduce-scatter S·(N−1),
+  all-to-all S·(N−1)/N), keyed by the reference's op names;
+  ``collective_op_counts`` the calls; ``collective_by_link_per_device``
+  the ring bytes by the link the group spans.  Each collective also
+  charges 2 × its result to ``bytes``, as ``analyze_hlo`` does.  Global
+  = per device × ``chips`` (uniform SPMD, as the reference assumes): the
+  dry run counts rank 0, and the tests hold every rank of small meshes
+  to it.  ``moe_dispatch`` is the mesh's dispatch ledger over the step:
+  MoE dispatches, routed pairs and pairs dropped at capacity.
 * **peak** — the largest sum of live storages on the device while ``fn``
   runs.  The arguments count whole; an upload's storage is not charged.
   A storage is live from the op that made it until it is freed (a
@@ -57,7 +69,8 @@ count; the port's layer loops are Python, and a full-depth trace of a long
 prefill takes minutes.  ``depth_weighted(cfg, count)`` counts each depth
 group of ``depth_axes(cfg)`` at 2 and at 3 layers (periods, for a hybrid;
 a group of fewer at its own depth and one more), the other groups at 2,
-and charges each group ``base + layers × per_layer``.  flops and bytes are
+and charges each group ``base + layers × per_layer``.  flops, bytes and the
+collectives (ring bytes, calls, the MoE dispatch ledger, op by op) are
 linear in depth, so this is exact (but for the optimizer's padding of a
 large state leaf to whole update chunks, at most one chunk a leaf); the
 peak is linear past the first layer (one saved boundary a layer under
@@ -65,7 +78,15 @@ remat, one cache a layer at prefill), held to a whole-depth trace by the
 tests and to the card by ``chip_smoke.py``.
 
 The card's peaks are stated here and nowhere else (NVIDIA's data sheet,
-H100 SXM, dense rates at the 700 W limit).
+H100 SXM, dense rates at the 700 W limit), and so are its links: NVLink 4
+between the 8 cards of a node, 450 GB/s one way a card, and between nodes
+the card's own 400 Gb/s NDR InfiniBand port, 50 GB/s one way.  The
+collective term (``collective_seconds``) divides each call's ring bytes
+by the rate of its group's link: NVLink where every rank of the group
+lies in one node of 8 (node = flat rank // 8), the port's rate
+otherwise.  On the production meshes every 'model' group of 16 spans two
+nodes, so the whole term there is at the port's rate.  The reference
+divides by one TPU link rate (``ICI_BW``); these are the H100's.
 """
 from __future__ import annotations
 
@@ -78,6 +99,8 @@ from torch.utils.flop_counter import flop_registry
 PEAK_BF16_FLOPS = 989e12          # dense bf16 tensor-core rate, FLOP/s
 HBM_BYTES_PER_S = 3.35e12         # device memory rate, B/s
 NVLINK_BYTES_PER_S = 450e9        # NVLink 4, one direction per card, B/s
+NIC_BYTES_PER_S = 50e9            # one 400 Gb/s NDR port a card, one direction, B/s
+LINK_BYTES_PER_S = {"nvlink": NVLINK_BYTES_PER_S, "nic": NIC_BYTES_PER_S}
 HBM_BYTES = 80 * 2**30            # device memory capacity, 80 GiB
 PEAK_RTOL = 0.10                  # the counted peak against the card's (docstring)
 
@@ -94,8 +117,11 @@ _UNCOUNTED_PRODUCTS = {aten.dot.default, aten.vdot.default, aten.mv.default,
                        aten.addmv.default, aten._int_mm.default}
 
 
-def _on_device(t) -> bool:
-    return isinstance(t, torch.Tensor) and t.device.type != "cpu"
+def _on_device(t, host=frozenset()) -> bool:
+    """``t`` is a tensor in device memory: not on the CPU, and not a view of
+    a storage in ``host`` (storage keys of inputs that live on the host)."""
+    return (isinstance(t, torch.Tensor) and t.device.type != "cpu"
+            and not (host and t.untyped_storage()._cdata in host))
 
 
 def _read_bytes(t: torch.Tensor) -> int:
@@ -129,19 +155,20 @@ _PLAIN = (bool, int, float, str, torch.dtype, torch.device, torch.layout,
           torch.memory_format, type(None))
 
 
-def _key(x):
+def _key(x, host=frozenset()):
     """A hashable stand-in of an op argument for ``StepCounter``'s memo:
-    a meta tensor by its shape, strides and dtype, a plain value by its
-    type and value; ``None`` where the argument is neither."""
+    a meta tensor by its shape, strides, dtype and whether it is a host
+    input's, a plain value by its type and value; ``None`` where the
+    argument is neither."""
     if isinstance(x, torch.Tensor):
-        return (x.shape, x.stride(), x.dtype) if x.is_meta else None
+        return (x.shape, x.stride(), x.dtype, _on_device(x, host)) if x.is_meta else None
     if type(x) in _PLAIN:
         return (type(x), x)
     if isinstance(x, (tuple, list)):
-        parts = tuple(map(_key, x))
+        parts = tuple(_key(v, host) for v in x)
         return None if None in parts else parts
     if isinstance(x, dict):
-        parts = tuple((k, _key(v)) for k, v in x.items())
+        parts = tuple((k, _key(v, host)) for k, v in x.items())
         return None if any(v is None for _, v in parts) else ("dict",) + parts
     return None
 
@@ -178,7 +205,7 @@ def _kind(func) -> int:
     return k
 
 
-def _cost(func, args, kwargs, out) -> tuple:
+def _cost(func, args, kwargs, out, host=frozenset()) -> tuple:
     """(flops, bytes, unresolved products) of one op by the module's rules,
     and its result tensors on the device to charge; None where it is an
     upload from the host."""
@@ -189,8 +216,8 @@ def _cost(func, args, kwargs, out) -> tuple:
     elif func in _UNCOUNTED_PRODUCTS:
         unresolved = 1
     every_in = _tensors((args, kwargs))
-    ins = [t for t in every_in if _on_device(t)]
-    outs = [t for t in _tensors(out) if _on_device(t)]
+    ins = [t for t in every_in if _on_device(t, host)]
+    outs = [t for t in _tensors(out) if _on_device(t, host)]
     if outs and not ins and every_in:
         return None                  # an upload from the host: no device traffic, not charged
     if func in _NO_TRAFFIC or not (ins or outs):
@@ -217,10 +244,13 @@ class StepCounter(TorchDispatchMode):
     (``torch._refs``), a few hundred microseconds an op, and the blockwise
     attention repeats one chunk pair's ops hundreds of times a layer; a
     repeat then costs one ``empty_strided``.  Views and in-place ops always
-    run."""
+    run.  The tensors of ``host``, and their views, are host memory (a
+    step's global inputs above one rank): no op reading only them is
+    charged, nor are they to the peak."""
 
-    def __init__(self, memo: dict | None = None):
+    def __init__(self, memo: dict | None = None, host=()):
         super().__init__()
+        self._host = frozenset(t.untyped_storage()._cdata for t in _tensors(host))
         self.flops = 0
         self.bytes = 0
         self.unresolved = 0
@@ -245,7 +275,7 @@ class StepCounter(TorchDispatchMode):
         """Charge every device tensor in ``tree`` (``track``); returns the
         bytes live after."""
         for t in _tensors(tree):
-            if _on_device(t):
+            if _on_device(t, self._host):
                 self.track(t)
         return self.live
 
@@ -266,7 +296,7 @@ class StepCounter(TorchDispatchMode):
             return func(*args, **kwargs)     # no traffic, no new storage
         key = None
         if self._memo is not None and kind == _PURE:
-            key = (func, _key(args), _key(kwargs) if kwargs else ())
+            key = (func, _key(args, self._host), _key(kwargs, self._host) if kwargs else ())
             if None in key:
                 key = None
             else:
@@ -277,7 +307,7 @@ class StepCounter(TorchDispatchMode):
                     self._charge(flops, nbytes, unresolved, _tensors(out))
                     return out
         out = func(*args, **kwargs)
-        cost = _cost(func, args, kwargs, out)
+        cost = _cost(func, args, kwargs, out, self._host)
         if cost is None:
             return out
         self._charge(*cost)
@@ -288,33 +318,79 @@ class StepCounter(TorchDispatchMode):
         return out
 
 
-def analyze_step(fn, args, chips: int = 1, memo: dict | None = None) -> dict:
+HLO_NAMES = {"all_reduce": "all-reduce", "all_gather": "all-gather",
+             "reduce_scatter": "reduce-scatter", "all_to_all": "all-to-all"}
+_LEDGER_KEYS = ("calls", "out_bytes", "ring_bytes", "ring_bytes_nvlink", "ring_bytes_nic")
+
+
+def _ledger(mesh) -> dict:
+    if mesh is None:
+        return {}
+    return {op: {k: led[k] for k in _LEDGER_KEYS} for op, led in mesh.ledger.items()}
+
+
+def collective_seconds(by_link: dict) -> float:
+    """The collective term of a step: each link's ring bytes a rank over
+    that link's one-way rate (``LINK_BYTES_PER_S``)."""
+    return sum(b / LINK_BYTES_PER_S[link] for link, b in by_link.items())
+
+
+def analyze_step(fn, args, chips: int | None = None, memo: dict | None = None, *,
+                 mesh=None, host=()) -> dict:
     """Run ``fn(*args)`` under a ``StepCounter`` (with ``memo``) and return
-    ``analyze_hlo``'s keys for it, plus ``argument_bytes_per_device`` and
-    ``peak_bytes_per_device``.  Give ``meta`` arguments to count without
-    allocating; a collective is counted nowhere yet, so ``chips`` must be 1
-    until the multi-card dry run (sub-item 6d)."""
-    if chips != 1:
-        raise NotImplementedError("collectives across cards: the multi-card dry run, "
-                                  "ROADMAP Queue A item 15 sub-item 6d")
-    mode = StepCounter(memo)
+    ``analyze_hlo``'s keys for it, plus ``argument_bytes_per_device``,
+    ``peak_bytes_per_device``, ``collective_by_link_per_device`` and
+    ``moe_dispatch``.  Give ``meta`` arguments to count without
+    allocating.  ``mesh`` is the mesh the step was built on, whose ledger
+    gives the collectives (none without one); ``chips`` defaults to its
+    world, and another number raises ``ValueError``.  The tensors of
+    ``host`` (and their views) are host memory: the step's global inputs
+    above one rank, of which a rank uploads its part (``train.step.
+    local_batch``)."""
+    world = 1 if mesh is None else mesh.world
+    chips = world if chips is None else chips
+    if chips != world:
+        raise ValueError(f"chips={chips} for a step on a mesh of {world} ranks: the "
+                         "collectives are counted on the mesh the step runs on")
+    before = _ledger(mesh)
+    disp0 = dict(mesh.dispatch) if mesh is not None else {}
+    mode = StepCounter(memo, host)
     arg_bytes = mode.track_all(args)
     with mode:
         result = fn(*args)
     del result
+    by_op, counts, by_link = {}, {}, {}
+    coll_traffic = 0
+    for op, led in _ledger(mesh).items():
+        was = before.get(op, {})
+        d = {k: led[k] - was.get(k, 0) for k in _LEDGER_KEYS}
+        if not d["calls"]:
+            continue
+        by_op[HLO_NAMES[op]] = float(d["ring_bytes"])
+        counts[HLO_NAMES[op]] = int(d["calls"])
+        coll_traffic += 2 * d["out_bytes"]
+        for link in LINK_BYTES_PER_S:
+            if d["ring_bytes_" + link]:
+                by_link[link] = by_link.get(link, 0.0) + float(d["ring_bytes_" + link])
+    coll = float(sum(by_op.values()))
+    nbytes = float(mode.bytes + coll_traffic)
+    dispatch = ({k: int(v - disp0.get(k, 0)) for k, v in mesh.dispatch.items()}
+                if mesh is not None and mesh.dispatch else {})
     return {
         "entry": getattr(fn, "__qualname__", repr(fn)),
         "flops_per_device": float(mode.flops),
-        "bytes_per_device": float(mode.bytes),
-        "collective_per_device": 0.0,
+        "bytes_per_device": nbytes,
+        "collective_per_device": coll,
         "flops_global": float(mode.flops) * chips,
-        "bytes_global": float(mode.bytes) * chips,
-        "collective_global": 0.0,
-        "collective_by_op_per_device": {},
-        "collective_op_counts": {},
+        "bytes_global": nbytes * chips,
+        "collective_global": coll * chips,
+        "collective_by_op_per_device": by_op,
+        "collective_op_counts": counts,
         "unresolved_dots": mode.unresolved,
         "argument_bytes_per_device": float(arg_bytes),
         "peak_bytes_per_device": float(mode.peak),
+        "collective_by_link_per_device": by_link,
+        "moe_dispatch": dispatch,
     }
 
 
@@ -325,6 +401,8 @@ def analyze_step(fn, args, chips: int = 1, memo: dict | None = None) -> dict:
 _LINEAR = ("flops_per_device", "bytes_per_device", "collective_per_device", "flops_global",
            "bytes_global", "collective_global", "argument_bytes_per_device",
            "peak_bytes_per_device", "unresolved_dots")
+_LINEAR_DICTS = ("collective_by_op_per_device", "collective_op_counts",
+                 "collective_by_link_per_device", "moe_dispatch")
 
 
 def depth_axes(cfg) -> list:
@@ -382,6 +460,11 @@ def depth_weighted(cfg, count, argument_bytes: float | None = None) -> dict:
         deeper = count(at(base_cfg, depth[name] + 1))
         for key in _LINEAR:
             total[key] += (full - depth[name]) * (deeper[key] - base[key])
+        for key in _LINEAR_DICTS:
+            b, dp = base[key], deeper[key]
+            total[key] = {k: total[key].get(k, 0) + (full - depth[name]) * (dp.get(k, 0)
+                                                                           - b.get(k, 0))
+                          for k in {**total[key], **dp}}
         traces.append({**depth, name: depth[name] + 1})
     if argument_bytes is not None:
         total["peak_bytes_per_device"] += argument_bytes - total["argument_bytes_per_device"]

@@ -353,8 +353,16 @@ def _write(dst: dict, new: dict, i: int | None) -> None:
             dst[k] = v
         else:
             d = dst[k] if i is None else dst[k][i]
-            if d.data_ptr() != v.data_ptr():
+            if not _same_memory(d, v):
                 d.copy_(v)
+
+
+def _same_memory(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """``a`` and ``b`` start at one place of one storage.  Not by
+    ``data_ptr``: every meta tensor's is 0, so on meta the dry run would skip
+    the write-back of a group's first layer."""
+    return (a.untyped_storage()._cdata == b.untyped_storage()._cdata
+            and a.storage_offset() == b.storage_offset())
 
 
 def _layer_slots(group: dict, count: int, scanned: bool) -> list:

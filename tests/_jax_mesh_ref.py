@@ -62,6 +62,12 @@ Tasks (``kind``):
   run's own ``make_serve_fns`` prefill: the global caches (a rank's are
   their blocks by ``cache_spec``) and the token.
 
+* ``dryrun``: the reference's dry-run cell (``repro.launch.cells.
+  build_cell``) of the task's arch and shape at its smoke config, batch
+  and sequence, on a mesh of the task's ``shape`` over its ``axes`` (a
+  leading 'pod' axis where named), compiled; ``analyze_hlo`` of its HLO
+  text: per-device flops, and ring bytes and calls by collective op.
+
 The ``step`` task's batch carries ``enc`` / ``frontend`` where the task's
 arrays hold them.
 """
@@ -572,13 +578,73 @@ def serve(task, inp, out):
         out[f"{name}/prefill_token"] = np.asarray(tok)
 
 
+def dryrun(task, inp, out):
+    import repro.launch.cells as ref_cells
+    from repro.roofline.hlo import analyze_hlo
+
+    shape, name = task["shape"], task["name"]
+    n = int(np.prod(task["mesh"]))
+    mesh = jax.make_mesh(tuple(task["mesh"]), tuple(task["axes"]), devices=jax.devices()[:n],
+                         axis_types=(jax.sharding.AxisType.Auto,) * len(task["axes"]))
+    saved = ref_cells.get_config, dict(ref_cells.SHAPES[shape])
+    ref_cells.get_config = get_smoke_config
+    ref_cells.SHAPES[shape].update(batch=task["batch"], seq=task["seq"])
+    try:
+        cell = ref_cells.build_cell(task["arch"], shape, mesh)
+        text = cell.fn.lower(*cell.args).compile().as_text()
+    finally:
+        ref_cells.get_config = saved[0]
+        ref_cells.SHAPES[shape] = saved[1]
+    res = analyze_hlo(text, n)
+    out[f"{name}/flops"] = np.float64(res["flops_per_device"])
+    out[f"{name}/unresolved"] = np.int64(res["unresolved_dots"])
+    for op, b in res["collective_by_op_per_device"].items():
+        out[f"{name}/ring/{op}"] = np.float64(b)
+        out[f"{name}/calls/{op}"] = np.int64(res["collective_op_counts"][op])
+    for key, b in _by_dtype(text, n).items():
+        out[f"{name}/dtype/{key}"] = np.float64(b)
+
+
+def _by_dtype(text, n):
+    """``analyze_hlo``'s ring bytes of each collective split by element type,
+    ``{op}|{dtype}`` -> bytes (trip counts included), and the tensors each
+    carries, ``{op}|{dtype}|tensors`` -> count (an element of a combined,
+    tuple-shaped collective counts as one)."""
+    import repro.roofline.hlo as hlo
+
+    scan = hlo._scan_line
+
+    def split(comp, line):
+        d = hlo._DEF_RE.match(line)
+        op = d.group(3) if d else ""
+        base = op[:-6] if op.endswith("-start") else op
+        if base in hlo._COLL_OPS and not op.endswith("-done"):
+            parts = hlo._participants(line, 0) or 1
+            for dt, dims in hlo._SHAPE_TOK.findall(d.group(2)):
+                size = int(np.prod([int(x) for x in dims.split(",") if x.strip()]))
+                comp.coll[f"{base}|{dt}"] += hlo._coll_bytes(
+                    base, size * hlo._DTYPE_BYTES[dt], parts)
+                comp.coll_counts[f"{base}|{dt}|tensors"] += 1
+        scan(comp, line)
+
+    hlo._scan_line = split
+    try:
+        res = hlo.analyze_hlo(text, n)
+    finally:
+        hlo._scan_line = scan
+    out = {k: v for k, v in res["collective_by_op_per_device"].items() if "|" in k}
+    out.update((k, v) for k, v in res["collective_op_counts"].items() if "|" in k)
+    return out
+
+
 def main():
     inp = dict(np.load(sys.argv[1]))
     out = {}
     for task in json.loads(str(inp.pop("job"))):
         {"coll": coll, "layers": layer_fns, "step": step, "init": init,
          "serve": serve, "moe_layers": moe_layers, "recurrent_layers": recurrent_layers,
-         "forward": forward, "frontend_layers": frontend_layers}[task["kind"]](
+         "forward": forward, "frontend_layers": frontend_layers,
+         "dryrun": dryrun}[task["kind"]](
             task, inp, out)
     np.savez(sys.argv[2], **out)
 

@@ -584,3 +584,86 @@ def frontend_layers(dev, tasks):
         results[t["name"]] = res
         dist.barrier()
     return results
+
+
+def skewed_router(dev, arch):
+    """``ffn.moe_apply`` on a (1, 2) mesh with every token all ones and the
+    router's logits 2 for expert 0, 1 for expert 1 and 0 for the rest: the rows each of this rank's
+    expert gate / up products took (in order), and the dispatch ledger."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.models.spec import init_params
+
+    mesh = make_local_mesh(1, 2, device=dev)
+    cfg = config(arch)
+    ctx = mesh_ctx(mesh)
+    spec = ffn.moe_spec(cfg, ctx)
+    p = shard_params(init_params(spec, torch.Generator().manual_seed(0), "cpu"), spec, mesh)
+    p["router"].zero_()
+    p["router"][:, 0] = 2.0 / cfg.d_model
+    p["router"][:, 1] = 1.0 / cfg.d_model
+    rows = []
+
+    class Rows(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func is torch.ops.aten.mm.default and tuple(args[1].shape) == (
+                    cfg.d_model, cfg.moe_d_ff):
+                rows.append(args[0].shape[0])
+            return func(*args, **(kwargs or {}))
+
+    x = torch.ones(2, 5, cfg.d_model, device=mesh.device)
+    with torch.no_grad(), Rows():
+        ffn.moe_apply(p, x, ctx, cfg, ctx.data_size)
+    return {"rows": rows, "dispatch": dict(mesh.dispatch)}
+
+
+LEDGER_KEYS = ("calls", "bytes", "out_bytes", "ring_bytes", "ring_bytes_nvlink",
+               "ring_bytes_nic")
+
+
+def _ledger_of(mesh) -> dict:
+    out = {op: {k: led[k] for k in LEDGER_KEYS} for op, led in mesh.ledger.items()}
+    mesh.ledger.clear()
+    return out
+
+
+def dryrun_ledgers(dev, tasks):
+    """Each task's dry-run cell run for real on this rank's (data, model)
+    mesh at its arch's smoke config, batch and sequence: a training task
+    one ``bundle.step`` (the cell's optimizer config, parameters from seed
+    0), a serving task a prefill of the whole sequence (``max_len`` the
+    sequence), then a prefill of its first half and one decode step.  The
+    collectives' ledger of each step (``<name>/train``, ``/prefill``,
+    ``/decode``)."""
+    from repro_torch.launch.cells import default_opt_cfg
+    from repro_torch.models.spec import init_params
+    from repro_torch.serve.engine import make_serve_fns
+    from repro_torch.train.step import init_train_state
+
+    results = {}
+    for t in tasks:
+        d, m = t["mesh"]
+        mesh = make_local_mesh(d, m, device=dev)
+        cfg = config(t["arch"])
+        b, s = t["batch"], t["seq"]
+        toks = np.random.default_rng(0).integers(0, cfg.vocab, (b, s)).astype(np.int32)
+        if t["kind"] == "train":
+            ocfg = default_opt_cfg(t["arch"])
+            bundle = make_train_step(cfg, mesh, ocfg, batch=b)
+            params, opt = init_train_state(bundle, cfg, mesh, ocfg)
+            mesh.ledger.clear()
+            bundle.step(params, opt, {"tokens": toks, "labels": toks})
+            results[f"{t['name']}/train"] = _ledger_of(mesh)
+        else:
+            sv = make_serve_fns(cfg, mesh, batch=b, max_len=s)
+            params = shard_params(init_params(sv.param_spec, torch.Generator().manual_seed(0),
+                                              "cpu"), sv.param_spec, mesh)
+            with torch.no_grad():
+                sv.prefill(params, {"tokens": torch.from_numpy(toks)})
+                results[f"{t['name']}/prefill"] = _ledger_of(mesh)
+                caches, tok = sv.prefill(params, {"tokens": torch.from_numpy(toks[:, :s // 2])})
+                mesh.ledger.clear()
+                sv.decode(params, caches, tok[:, None])
+                results[f"{t['name']}/decode"] = _ledger_of(mesh)
+        dist.barrier()
+    return results

@@ -21,6 +21,8 @@ routes are held to an analytic count (exact, in operations).
 """
 import dataclasses
 
+import _torch_ranks
+
 import jax
 import numpy as np
 import pytest
@@ -36,6 +38,8 @@ from repro_torch.configs import ARCH_IDS, get_smoke_config
 from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models import ffn
 from repro_torch.models.backbone import model_spec
+from repro_torch.launch.ranks import run_ranks
+from repro_torch.models.spec import abstract_shards
 from repro_torch.roofline import StepCounter, analyze_step
 from repro_torch.serve.engine import make_serve_fns
 from repro_torch.train.step import make_train_step, mesh_ctx
@@ -221,9 +225,19 @@ def test_moe_on_meta_counts_the_balanced_routes(arch):
     assert rows == [n for n in per_expert for _ in (0, 1) if n] + shared  # gate, up
 
 
-def test_moe_off_meta_still_routes_by_the_router():
+def test_moe_off_meta_still_routes_by_the_router_on_one_rank_and_above(tmp_path):
     """On a computing device the counts come from the router (bincount), not
-    the balanced split: a skewed router sends every row to expert 0."""
+    the balanced split: a skewed router sends every row to expert 0.  Above
+    one rank too (gloo ranks of a (1, 2) mesh, deepseek-v2's 8 experts 4 a
+    rank, the router's logits 2, 1, 0, …): each rank's 10 rows go to experts 0
+    and 1, both on rank 0; a destination holds ``cap = ceil(10 · 2 / 2
+    · 1.25) + 4 = 17`` of a sender's 20 pairs, the first 17 in (token,
+    slot) order, 9 of expert 0's and 8 of expert 1's; so rank 0's expert 0
+    takes 18 rows, its expert 1 16, rank 1's experts none, and 3 pairs a
+    rank drop.  The meta branch on a (1, 2) meta mesh takes balanced routes
+    instead: a sender's 20 pairs 3, 3, 3, 3, 2, 2, 2, 2 over the 8
+    experts, so each of rank 0's 4 experts takes 2 · 3 rows, nothing
+    dropped."""
     cfg = get_smoke_config("deepseek-v2-236b")
     ctx = mesh_ctx(make_local_mesh(device="cpu"))
     from repro_torch.models.spec import init_params
@@ -245,6 +259,17 @@ def test_moe_off_meta_still_routes_by_the_router():
     # every token the same: all 10 go to expert 0 and to one other (top-2),
     # then the shared expert's 10; balanced routes would give 3 or 2 each
     assert rows == [10] * 6
+    ranks = run_ranks(_torch_ranks.skewed_router, 2, tmp_path, device="cpu",
+                      args=("deepseek-v2-236b",), timeout=120)
+    assert ranks[0]["rows"] == [18, 18, 16, 16] and ranks[1]["rows"] == []
+    assert [r["dispatch"] for r in ranks] == [{"calls": 1, "pairs": 20, "dropped": 3}] * 2
+    mesh = make_local_mesh(1, 2, device="meta")
+    mctx = mesh_ctx(mesh)
+    meta_p = abstract_shards(ffn.moe_spec(cfg, mctx), mesh)
+    rows.clear()
+    with Rows():
+        ffn.moe_apply(meta_p, torch.empty(2, 5, cfg.d_model, device="meta"), mctx, cfg, 1)
+    assert rows == [6] * 8 and mesh.dispatch == {"calls": 1, "pairs": 20, "dropped": 0}
 
 
 def test_capacity_factor_is_recorded_and_changes_no_count():

@@ -160,17 +160,39 @@ def test_transposes_are_the_global_sums(runs, n):
 # ---------------------------------------------------------------------------
 
 
-def test_mesh_above_one_rank_needs_its_process_group():
+def test_a_mesh_of_ranks_needs_its_process_group_and_a_meta_mesh_none():
     """No fallback: without a process group of data · model ranks a wider
-    mesh raises; a mesh of one rank needs none."""
+    mesh raises; a mesh of one rank needs none.  A meta mesh needs none
+    either: ``make_production_mesh`` is rank 0's meta record of (data 16,
+    model 16), or with ``multi_pod`` of (pod 2, data 16, model 16), its
+    coordinates row-major as ``jax.make_mesh`` orders the reference's
+    devices; its collectives take meta tensors only."""
     with pytest.raises(RuntimeError, match="process group of 4 ranks"):
         port_mesh.make_local_mesh(2, 2, device="cpu")
+    with pytest.raises(ValueError, match="meta mesh"):
+        port_mesh.make_local_mesh(2, 2, device="cpu", rank=3)
     one = port_mesh.make_local_mesh(device="cpu")
     assert one.world == 1 and one.backend is None and one.coords == (0, 0)
     x = torch.arange(6.0).reshape(2, 3)
     assert one.all_gather(x, "model", 1) is x and one.all_reduce(x, ("data", "model")) is x
-    with pytest.raises(NotImplementedError, match="sub-item 6d"):
-        port_mesh.make_production_mesh()
+    pod = port_mesh.make_production_mesh()
+    assert (pod.axis_names, pod.shape, pod.world) == (("data", "model"),
+                                                      {"data": 16, "model": 16}, 256)
+    assert pod.device.type == "meta" and pod.backend is None and pod.coords == (0, 0)
+    multi = port_mesh.make_production_mesh(multi_pod=True, rank=300)
+    assert multi.axis_names == ("pod", "data", "model") and multi.world == 512
+    assert multi.coords == (1, 2, 12) and multi.index("pod") == 1   # 300 = 256 + 2·16 + 12
+    assert multi.group_ranks("model") == list(range(288, 304))
+    assert multi.group_ranks(("pod", "data")) == [p * 256 + d * 16 + 12
+                                                 for p in range(2) for d in range(16)]
+    # every 'model' group of 16 spans two nodes of 8 cards: the NIC's rate
+    assert multi.link("model") == multi.link("data") == "nic"
+    assert port_mesh.make_local_mesh(1, 8, device="meta").link("model") == "nvlink"
+    y = pod.all_gather(torch.empty(2, 3, device="meta"), "model", 1)
+    assert y.shape == (2, 48) and y.device.type == "meta"
+    with pytest.raises(ValueError, match="meta tensors"):
+        pod.all_reduce(x, "data")
+    assert pod.ledger["all_gather"]["calls"] == 1 and "all_reduce" not in pod.ledger
 
 
 @pytest.mark.parametrize("world,device,asked,cards,want", [

@@ -22,7 +22,9 @@ JAX package's ``repro.launch.dryrun`` and ``repro.roofline.hlo``.
   ``fits_h100``, ``times`` holds ``build`` and ``count``, ``hlo`` adds
   ``depth_traces``), under the reference's file names with the mesh
   ``card``, and ``benchmarks/roofline_report.py``'s ``table``, imported
-  unedited, renders them.  The multi-pod meshes raise.
+  unedited, renders them, and the ``pod`` and ``multipod`` records of the
+  production meshes (``tests/test_torch_dryrun_multicard.py`` holds their
+  counts).
 """
 import importlib
 import json
@@ -113,7 +115,8 @@ def test_main_writes_the_reference_record(tmp_path, ref_dryrun, capsys):
                                   "peak_bytes_per_device", "fits_h100"}
     assert set(rec["hlo"]) == {"flops_global", "bytes_global", "collective_global",
                                "collective_by_op_per_device", "collective_op_counts",
-                               "unresolved_dots", "depth_traces"}
+                               "collective_by_link_per_device", "unresolved_dots",
+                               "depth_traces"}
     assert set(rec["roofline"]) == {"compute_s", "memory_s", "collective_s", "bound",
                                     "step_time_s", "model_flops", "useful_flops_ratio",
                                     "roofline_fraction"}
@@ -138,14 +141,34 @@ def test_a_skipped_cell_is_recorded_as_the_reference_records_it(tmp_path):
     assert json.loads((tmp_path / "qwen2-1.5b__long_500k__card.json").read_text()) == rec
 
 
-def test_the_multi_pod_meshes_wait_for_the_multi_card_slice(tmp_path):
-    for flag in ("--multi-pod", "--both-meshes"):
-        with pytest.raises(NotImplementedError, match="multi-card"):
-            dryrun.main(["--arch", "qwen2-1.5b", "--out", str(tmp_path), flag])
-    with pytest.raises(NotImplementedError, match="multi-card"):
-        dryrun.run_cell("qwen2-1.5b", "train_4k", multi_pod=True, out_dir=tmp_path,
-                        opt_overrides={})
-    assert not list(tmp_path.iterdir())
+def test_the_mesh_flags_write_pod_and_multipod_records(tmp_path):
+    """``--multi-pod`` writes the ``multipod`` records and ``--both-meshes``
+    the ``pod`` and ``multipod`` ones, under the reference's names: rank 0
+    of the meta production mesh, ``chips`` its world, a collective term
+    over the NIC (every group spans nodes).  A skipped cell is recorded on
+    its mesh."""
+    for flag, meshes in (("--multi-pod", ["multipod"]), ("--both-meshes", ["multipod", "pod"])):
+        out = tmp_path / flag
+        with pytest.raises(SystemExit) as done:
+            dryrun.main(["--arch", "qwen2-1.5b", "--shape", "decode_32k", "--out", str(out),
+                         flag])
+        assert done.value.code == 0
+        assert sorted(p.name for p in out.iterdir()) == [
+            f"qwen2-1.5b__decode_32k__{m}.json" for m in meshes]
+        for m in meshes:
+            rec = json.loads((out / f"qwen2-1.5b__decode_32k__{m}.json").read_text())
+            assert (rec["status"], rec["mesh"], rec["chips"]) == (
+                "ok", m, {"pod": 256, "multipod": 512}[m])
+            assert rec["meta"]["mesh"] == ({"data": 16, "model": 16} if m == "pod" else
+                                           {"pod": 2, "data": 16, "model": 16})
+            assert rec["roofline"]["collective_s"] > 0
+            assert set(rec["hlo"]["collective_by_link_per_device"]) == {"nic"}
+            assert rec["hlo"]["collective_global"] == pytest.approx(
+                rec["chips"] * sum(rec["hlo"]["collective_by_op_per_device"].values()))
+    rec = dryrun.run_cell("qwen2-1.5b", "long_500k", multi_pod=True, out_dir=tmp_path,
+                          opt_overrides={})
+    assert (rec["mesh"], rec["status"]) == ("multipod", "skipped")
+    assert (tmp_path / "qwen2-1.5b__long_500k__multipod.json").exists()
 
 
 @pytest.fixture
@@ -188,3 +211,11 @@ def test_roofline_report_renders_the_ports_records(tmp_path):
     assert lines[0] == "### Mesh `card`" and len(lines) == 6
     assert lines[4].startswith("| mamba2-780m | decode_32k | ok |")
     assert lines[5] == "| qwen2-1.5b | long_500k | skip | — | — | — | — | — | — |"
+    for mp, mesh in ((False, "pod"), (True, "multipod")):
+        for arch, shape in (("mamba2-780m", "long_500k"), ("qwen2-1.5b", "long_500k")):
+            dryrun.run_cell(arch, shape, multi_pod=mp, out_dir=tmp_path, opt_overrides={})
+        lines = report.table(report.load(tmp_path), mesh).splitlines()
+        assert lines[0] == f"### Mesh `{mesh}`" and len(lines) == 6
+        assert lines[4].startswith("| mamba2-780m | long_500k | ok |")
+        assert lines[4].split(" | ")[7] == "memory"          # the bound column
+        assert lines[5] == "| qwen2-1.5b | long_500k | skip | — | — | — | — | — | — |"

@@ -35,7 +35,8 @@ from repro_torch.net import (
 )
 from repro_torch.net.hub import _drive_hub
 from repro_torch.tree import TreeConfig, leaf_slices, partition_pair
-from repro_torch.wire.frames import WireError
+from repro_torch.wire.frames import MSG_MUX, MSG_VERIFY_ACK, WireError, split_frame
+from repro_torch.wire.varint import decode_uvarint
 
 from _torch_hub import (
     assert_oracle,
@@ -429,6 +430,80 @@ def test_reply_delivered_then_send_fails_resumes_by_replay():
     st = hub.stats
     assert st["peers_resumed"] == 1 and 0 < st["resume_replay_bytes"] <= _BARRIER_FRAME_BOUND
     assert_oracle(state["res"][0], a, b, cfg, d)
+
+
+def _frame_type(data: bytes) -> int:
+    """The message type of one sent frame, a mux envelope's inner one."""
+    msg, payload, _ = split_frame(data)
+    if msg == MSG_MUX:
+        _, off = decode_uvarint(payload, 0)
+        msg = split_frame(payload, off)[0]
+    return msg
+
+
+def _verify_ack_lost_scenario(pkg):
+    """One peer whose hub-side transport delivers the ``MSG_VERIFY_ACK``
+    and then raises: she finishes with the ack in hand and never resumes."""
+    class AckDeliveredThenFails(pkg.net.Transport):
+        def __init__(self, inner):
+            super().__init__()
+            self._inner = inner
+
+        def send(self, data: bytes) -> None:
+            self._inner.send(data)
+            self.bytes_out += len(data)
+            if _frame_type(data) == MSG_VERIFY_ACK:
+                raise pkg.net.TransportError("send failed after delivery")
+
+        def recv(self, timeout=None) -> bytes:
+            data = self._inner.recv(timeout)
+            self.bytes_in += len(data)
+            return data
+
+        def close(self) -> None:
+            self._inner.close()
+
+    a, b, d, s = _crash_pair()
+    cfg = pkg.PBSConfig(seed=s)
+    t_a, t_h = pkg.net.InMemoryDuplex.pair()
+    hub = pkg.hub(resume_window=1.0, recv_deadline=10.0)
+    ch = hub.add_peer(AckDeliveredThenFails(t_h), label="lost-verify-ack")
+    hub.submit(ch, b, cfg=cfg, d_known=d)
+    ep = pkg.alice(t_a, channel=ch)
+    ep.submit(a, cfg=cfg, d_known=d)
+    state: dict = {}
+
+    def drive():
+        state["res"] = ep.run()
+
+    th = threading.Thread(target=drive, daemon=True)
+    th.start()
+    outcomes = hub.serve()
+    th.join(timeout=60)
+    assert not th.is_alive()
+    return outcomes[ch], state["res"], hub.stats, (a, b, d, s)
+
+
+def test_verify_ack_delivered_then_send_fails_reads_done():
+    """The hub's ``MSG_VERIFY_ACK`` reaches the peer but its send raises.
+    She holds her verdicts and is done; nothing will resume.  The hub
+    suspends her (it cannot tell whether the ack arrived), and when the
+    resume window lapses with no resume, the port's hub retires her as
+    finished with the verdicts it computed before the send: her outcome
+    reads done.  The reference's hub (``src/repro/net/hub.py``
+    ``_finish_peer``) lets the suspension harden into an eviction, so the
+    same run reads failed there (Queue C)."""
+    (port, pres, pst, (a, b, d, s)), (ref, rres, rst, _) = both(_verify_ack_lost_scenario)
+    cfg = PBSConfig(seed=s)
+    for res in (pres, rres):
+        assert_oracle(res[0], a, b, cfg, d)
+    assert port.ok and port.error is None and port.error_kind is None
+    assert port.verified == [True]
+    assert pst["peers_failed"] == 0
+    assert not ref.ok and ref.error_kind is not None
+    assert rst["peers_failed"] == 1
+    # the verdicts and the framed bytes are the same on both hubs
+    assert port.wire_stats == ref.wire_stats
 
 
 def test_silent_crash_suspends_at_deadline_then_resumes():

@@ -128,16 +128,25 @@ def test_peak_follows_a_known_alloc_free_sequence():
     assert count(lambda x: x[:3] * 2, x)["peak_bytes_per_device"] == n * F32 + 512
 
 
-def test_analyze_step_returns_the_reference_keys_on_one_card():
+def test_analyze_step_returns_the_reference_keys_and_refuses_chips_off_its_mesh():
+    """The reference's keys, and the port's four: a step on one card moves
+    no collective bytes.  ``chips`` is the world of the mesh the step runs
+    on: 2 with no mesh, or with a mesh of 4, raises ``ValueError``."""
     from repro.roofline.hlo import analyze_hlo
 
     r = count(lambda a: a @ a, meta(8, 8))
-    assert set(analyze_hlo("", 1)) | {"argument_bytes_per_device",
-                                      "peak_bytes_per_device"} == set(r)
+    assert set(analyze_hlo("", 1)) | {"argument_bytes_per_device", "peak_bytes_per_device",
+                                      "collective_by_link_per_device",
+                                      "moe_dispatch"} == set(r)
     assert r["collective_per_device"] == r["collective_global"] == 0
     assert r["collective_by_op_per_device"] == r["collective_op_counts"] == {}
-    with pytest.raises(NotImplementedError, match="multi-card"):
+    assert r["collective_by_link_per_device"] == r["moe_dispatch"] == {}
+    with pytest.raises(ValueError, match="chips=2"):
         analyze_step(lambda: None, (), chips=2)
+    with pytest.raises(ValueError, match="mesh of 4 ranks"):
+        analyze_step(lambda: None, (), chips=2, mesh=make_local_mesh(2, 2, device="meta"))
+    assert analyze_step(lambda: None, (), mesh=make_local_mesh(2, 2, device="meta"))[
+        "flops_global"] == 0
 
 
 def test_depth_axes_follow_each_layer_plan():
@@ -153,13 +162,18 @@ def test_depth_axes_follow_each_layer_plan():
 
 
 SMOKE_SHAPES = {"train_4k": (2, 48), "prefill_32k": (2, 48), "decode_32k": (2, 48)}
-CASES = [(a, s) for a in ARCH_IDS for s in SMOKE_SHAPES]
+# each cell on one card, and on rank 0 of a (2, 2) meta mesh (its collectives too)
+CASES = [(a, s, None) for a in ARCH_IDS for s in SMOKE_SHAPES] + [
+    (a, s, (2, 2)) for a in ARCH_IDS for s in SMOKE_SHAPES]
+COLLECTIVE_DICTS = ("collective_by_op_per_device", "collective_op_counts",
+                    "collective_by_link_per_device", "moe_dispatch")
 
 
-def cell_count(arch, shape, cfg, memo=None):
+def cell_count(arch, shape, cfg, memo=None, dims=None):
     b, s = SMOKE_SHAPES[shape]
-    cell = cells.build_cell(arch, shape, META, cfg=cfg, batch=b, seq=s)
-    return analyze_step(cell.fn, cell.args, memo=memo)
+    mesh = META if dims is None else make_local_mesh(*dims, device="meta")
+    cell = cells.build_cell(arch, shape, mesh, cfg=cfg, batch=b, seq=s)
+    return analyze_step(cell.fn, cell.args, memo=memo, mesh=mesh, host=cell.host)
 
 
 def deeper(cfg):
@@ -175,18 +189,20 @@ def deeper(cfg):
     return cfg.scaled(n_layers=5)
 
 
-@pytest.mark.parametrize("arch,shape", CASES, ids=[f"{a}-{s}" for a, s in CASES])
-def test_depth_weighted_count_equals_a_whole_depth_trace(arch, shape):
+@pytest.mark.parametrize("arch,shape,dims", CASES, ids=[
+    f"{a}-{s}" + ("" if d is None else "-2x2") for a, s, d in CASES])
+def test_depth_weighted_count_equals_a_whole_depth_trace(arch, shape, dims):
     cfg = deeper(get_smoke_config(arch))
     assert all(full > 3 for _, full, _ in depth_axes(cfg))
-    whole = cell_count(arch, shape, cfg)
+    whole = cell_count(arch, shape, cfg, dims=dims)
     memo = {}
-    weighted = depth_weighted(cfg, lambda c: cell_count(arch, shape, c, memo),
+    weighted = depth_weighted(cfg, lambda c: cell_count(arch, shape, c, memo, dims),
                               argument_bytes=whole["argument_bytes_per_device"])
     assert len(weighted["depth_traces"]) == 1 + len(depth_axes(cfg))
     for key in ("flops_per_device", "bytes_per_device", "argument_bytes_per_device",
-                "unresolved_dots"):
+                "unresolved_dots", "collective_per_device") + COLLECTIVE_DICTS:
         assert weighted[key] == whole[key], key
+    assert bool(whole["collective_by_op_per_device"]) == (dims is not None)
     rtol = 0.02 if (arch, shape) == ("recurrentgemma-2b", "train_4k") else 0.0025
     peak = weighted["peak_bytes_per_device"] / whole["peak_bytes_per_device"] - 1
     assert abs(peak) <= rtol, peak

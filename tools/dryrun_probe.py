@@ -2,13 +2,16 @@
 
     python3 tools/dryrun_probe.py [--seed S] [--out PATH]
 
-Counts the 40-cell grid on meta tensors (``chip_smoke.start_dryrun_grid``,
-processes of their own), then runs what phase ``dryrun`` needs of phase
-``model_train`` — qwen2-1.5b's f32-state training run at full width
-(``chip_smoke.train_run``, its profiled and flop-counted steps included)
-and the dry run's prediction of that step — then
-``chip_smoke.dryrun_phase``: each prediction held against the card.  No PBS kernel is built
-or launched.  Prints the card's name and power limit last.
+Counts the 40-cell grid on meta tensors and ``DRYRUN_MESH_CELLS`` on the
+production meshes (``chip_smoke.start_dryrun_grid``, processes of their
+own), then runs what phase ``dryrun`` needs of phase ``model_train`` —
+qwen2-1.5b's f32-state training run at full width (``chip_smoke.train_run``,
+its profiled and flop-counted steps included) and the dry run's prediction
+of that step — and of phase ``multirank`` — its timed (1, 2) training step
+on two ranks sharing the card (``chip_smoke.mr_timed_ledgers``), whose
+ledgers the meta count must equal — then ``chip_smoke.dryrun_phase``: each
+prediction held against the card.  No PBS kernel is built or launched.
+Prints the card's name and power limit last.
 """
 import argparse
 import sys
@@ -38,7 +41,8 @@ def main() -> None:
     run = cs.train_run(args, cfg, spec, "f32", cs.torch.float32, cs.TRAIN_STEPS, profile=True)
     cs.emit({"phase": "model_train", "step": "full_width", "gpu": smi,
              **{k: v for k, v in run.items() if k != "profile_one_step"}})
-    cs.dryrun_phase(args, smi, {"prediction": prediction, "run": run}, grid)
+    timed = cs.mr_timed_ledgers(args.seed)
+    cs.dryrun_phase(args, smi, {"prediction": prediction, "run": run}, grid, timed)
     print(smi, flush=True)
 
 
